@@ -10,3 +10,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute end-to-end runs (CPU interpret "
         "mode); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips elsewhere (run with "
+        "-m gpu on the card)")
