@@ -10,7 +10,7 @@ check raises and the script exits non-zero with no result line:
   device   the card's name and power limit (nvidia-smi) and torch's name;
   build    nvcc build of every kernel source (one nvcc per source, in
            parallel) with the compiler's register and spill report;
-  kernels  each kernel at the serving path's shapes (llama3.2-1b:
+  kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
            lengths up to 512 with inactive rows) against its plain
            PyTorch version on the same inputs, timed with CUDA events
@@ -18,15 +18,22 @@ check raises and the script exits non-zero with no result line:
            flushed before each launch, the flushes' own time taken
            off), beside the least time the card could take for the
            same work;
+  mla_kernels  the same for the three absorbed-MLA kernels at the MLA
+           path's shapes (DeepSeek-V3: Hq=128, dl=512, dr=64, page=64,
+           C=64, a 1857-page bf16 latent pool, 56 rows with lengths up
+           to 2048);
   serve    the engine at full llama3.2-1b width (seeded random bf16
            weights, default EngineConfig) serving shared-prefix and
-           segment-reuse traffic, 16 new tokens per request, with the
-           kernels' launch counts taken over this phase alone;
+           segment-reuse traffic, 16 new tokens per request, with every
+           kernel's launch count zeroed just before and read just after;
   parity   one decode step, one prefill chunk and one segment chunk of
            the full-width model with the CUDA kernels and then with the
            plain versions (explicit backend="torch") on the same weights
            and state, and with plain versions that each get one mask
-           wrong by one token, which the limit must catch.
+           wrong by one token, which the limit must catch;
+  mla_serve, mla_parity  the same two for DeepSeek-V3 at every
+           published width with the depth cut to 8 layers
+           (EngineConfig(max_len=2048), 512-token blocks).
 
 Then the ``{"kernels": [...]}`` summary, the card's nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
@@ -34,6 +41,7 @@ last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -58,6 +66,24 @@ KERNEL_ATOL = 2.0 ** -6
 # 16 layers), and plain versions with a one-token mask error move the
 # same tensors by at least 2^-1.3 of it; the phase checks both sides.
 PARITY_RTOL = 2.0 ** -4
+# DeepSeek-V3 at every published width; 61 layers of bf16 weights
+# (88.6 GB) do not fit one 80 GB card, 8 layers (13.2 GB) do.
+MLA_LAYERS = 8
+MLA_MAX_LEN = 2048
+# the MLA engine's pool at that depth (1 GiB KV budget, 64-token pages):
+# 56 slots of 32 pages, 1857 pages with the scratch page and headroom
+MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES = 56, 32, 1857
+# Full MLA model (8 layers), kernels vs plain versions: logits and latents
+# are held to 2^-4 of the tensor's largest magnitude.  On an H100 the
+# kernels' gap reads at most 2^-5.79 of it, and plain versions with a
+# one-token mask error over stale slots move the same tensors by at
+# least 2^0.40 of it; the phase checks both sides.
+MLA_PARITY_RTOL = 2.0 ** -4
+# pool slots no correct mask reads (past a row's length, at or past a
+# chunk's offset, a segment chunk's own slots) hold stale latents this
+# many times larger, as unwritten slots of a live pool hold whatever
+# another request left there; a one-token mask error then reads them
+STALE_SCALE = 8.0
 
 
 def emit(obj) -> None:
@@ -218,24 +244,9 @@ def prefill_cost(a, attended_pool, causal_pairs):
     return nbytes, flops
 
 
-def phase_kernels(torch, ops, card):
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    dec, pre, seg = make_kernel_inputs(torch, gen)
-    C = pre["q"].shape[1]
-    off = int(pre["offsets"][0])
-    cp = [int(x) for x in seg["chunk_positions"][0]]
-    valid = [p for p in cp if p >= 0]
-    own = set(valid)
-    seg_pool = {t for p in valid for t in range(p) if t not in own}
-    seg_pairs = sum(len([t for t in range(p) if t not in own])
-                    for p in cp if p >= 0) + C * (C + 1) // 2
-    cases = [
-        ("paged_decode", ops.paged_decode, dec, decode_cost(dec)),
-        ("paged_prefill", ops.paged_prefill, pre,
-         prefill_cost(pre, off, C * off + C * (C + 1) // 2)),
-        ("paged_prefill_seg", ops.paged_prefill_seg, seg,
-         prefill_cost(seg, len(seg_pool), seg_pairs)),
-    ]
+def check_and_time(torch, cases, card, phase):
+    """Each case against its plain version (``backend="torch"``), then
+    both timed; one JSON line per kernel."""
     rows = {}
     for name, fn, args, (nbytes, flops) in cases:
         out = fn(**args, backend="cuda")
@@ -255,35 +266,164 @@ def phase_kernels(torch, ops, card):
                       "flush_ms": kt["flush_ms"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes,
                       "flops": flops, "library_ms": None}
-        emit({"phase": "kernels", "card": card, "kernel": name,
-              **rows[name]})
-    # contiguous positions: the segment kernel equals the offset kernel
-    # bit for bit
-    contig = torch.arange(off, off + C, dtype=torch.int32,
-                          device="cuda")[None]
-    a = dict(pre)
-    a.pop("offsets")
-    same = torch.equal(ops.paged_prefill_seg(**a, chunk_positions=contig,
-                                             backend="cuda"),
-                       ops.paged_prefill(**pre, backend="cuda"))
-    if not same:
-        raise AssertionError("segment kernel with contiguous positions "
-                             "differs from the offset kernel")
-    emit({"phase": "kernels", "contiguous_seg_equals_offset": same})
+        emit({"phase": phase, "card": card, "kernel": name, **rows[name]})
     return rows
 
 
-def phase_serve(torch, kernel_fns, card):
-    from repro_torch.configs import get_config
-    from repro_torch.serving import EngineConfig, SamplingParams, \
-        ServingEngine
+def seg_counts(cpos):
+    """(pool tokens read, attended (query, key) pairs) of one segment
+    chunk: each query attends the pool below its position except the
+    chunk's own slots, plus chunk keys j <= i (padding included)."""
+    C = len(cpos)
+    valid = [p for p in cpos if p >= 0]
+    own = set(valid)
+    pool = {t for p in valid for t in range(p) if t not in own}
+    pairs = sum(len([t for t in range(p) if t not in own])
+                for p in valid) + C * (C + 1) // 2
+    return len(pool), pairs
 
-    cfg = get_config("llama3.2-1b")
+
+def phase_kernels(torch, ops, card):
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    dec, pre, seg = make_kernel_inputs(torch, gen)
+    C = pre["q"].shape[1]
+    off = int(pre["offsets"][0])
+    seg_pool, seg_pairs = seg_counts(
+        [int(x) for x in seg["chunk_positions"][0]])
+    cases = [
+        ("paged_decode", ops.paged_decode, dec, decode_cost(dec)),
+        ("paged_prefill", ops.paged_prefill, pre,
+         prefill_cost(pre, off, C * off + C * (C + 1) // 2)),
+        ("paged_prefill_seg", ops.paged_prefill_seg, seg,
+         prefill_cost(seg, seg_pool, seg_pairs)),
+    ]
+    rows = check_and_time(torch, cases, card, "kernels")
+    check_contiguous(torch, ops.paged_prefill_seg, ops.paged_prefill, pre,
+                     C, "kernels")
+    return rows
+
+
+def check_contiguous(torch, seg_op, offset_op, pre, C, phase):
+    """With contiguous positions the segment kernel equals the offset
+    kernel bit for bit."""
+    off = int(pre["offsets"][0])
+    a = dict(pre)
+    a.pop("offsets")
+    a["chunk_positions"] = torch.arange(off, off + C, dtype=torch.int32,
+                                        device="cuda")[None]
+    same = torch.equal(seg_op(**a, backend="cuda"),
+                       offset_op(**pre, backend="cuda"))
+    if not same:
+        raise AssertionError(f"{phase}: segment kernel with contiguous "
+                             f"positions differs from the offset kernel")
+    emit({"phase": phase, "contiguous_seg_equals_offset": same})
+
+
+# ---------------------------------------------------------------------------
+# the MLA path
+# ---------------------------------------------------------------------------
+def mla_config():
+    """DeepSeek-V3 at every published width, depth cut 61 -> 8 layers."""
+    from repro_torch.configs.paper_models import DEEPSEEK_V3
+    return dataclasses.replace(DEEPSEEK_V3, n_layers=MLA_LAYERS)
+
+
+def make_mla_kernel_inputs(torch, gen, cfg):
+    """MLA path shapes: 56 decode rows (every 7th inactive, one full
+    2048-token table, the rest up to 1600 tokens) over the engine's
+    1857-page latent pool; one prefill chunk of 64 at offset 1024; one
+    segment chunk spanning two gaps (positions 480-511, then 1536-1567,
+    the slots between resumed)."""
+    B, P, N = MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES
+    Hq, dl, dr, page, C = cfg.n_heads, cfg.d_latent, cfg.d_rope, 64, 64
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    lat = randn(N, page, dl + dr)
+    perm = torch.randperm(N - 1, generator=gen, device=dev)[:B * P] + 1
+    tables = perm.reshape(B, P).to(torch.int32)
+    lengths = torch.randint(1, 1601, (B,), generator=gen,
+                            device=dev).to(torch.int32)
+    lengths[::7] = 0                        # inactive rows
+    tables[::7] = 0
+    lengths[1] = P * page                   # one full table
+    scale = 1.0 / math.sqrt(cfg.hd + dr)    # the engine's scale
+    dec = dict(q_lat=randn(B, Hq, dl), q_rope=randn(B, Hq, dr),
+               latent_pages=lat, block_tables=tables, lengths=lengths,
+               d_latent=dl, scale=scale)
+    pre = dict(q_lat=randn(1, C, Hq, dl), q_rope=randn(1, C, Hq, dr),
+               lat_chunk=randn(1, C, dl + dr), latent_pages=lat,
+               block_tables=tables[1:2].contiguous(),
+               offsets=torch.tensor([1024], dtype=torch.int32, device=dev),
+               d_latent=dl, scale=scale)
+    pos = list(range(480, 512)) + list(range(1536, 1568))
+    seg = dict(pre, chunk_positions=torch.tensor(
+        [pos], dtype=torch.int32, device=dev))
+    seg.pop("offsets")
+    return dec, pre, seg
+
+
+def mla_cost(a, pool_tokens, pairs):
+    """Bytes (each input read once, the context written once) and flops
+    of one MLA call: per attended (query, key) pair, Hq * (2*dk + 2*dl)
+    flops (scores over dl + dr, then the context over dl)."""
+    q_lat, q_rope, lat = a["q_lat"], a["q_rope"], a["latent_pages"]
+    Hq, dl = q_lat.shape[-2:]
+    dk = dl + q_rope.shape[-1]
+    eq = q_lat.element_size()
+    ints = a.get("lengths", a.get("offsets", a.get("chunk_positions")))
+    nbytes = ((2 * q_lat.numel() + q_rope.numel()) * eq
+              + pool_tokens * dk * lat.element_size()
+              + (a["lat_chunk"].numel() * eq if "lat_chunk" in a else 0)
+              + (a["block_tables"].numel() + ints.numel()) * 4)
+    return nbytes, pairs * Hq * (2 * dk + 2 * dl)
+
+
+def phase_mla_kernels(torch, ops, card, cfg):
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    dec, pre, seg = make_mla_kernel_inputs(torch, gen, cfg)
+    window = dec["block_tables"].shape[1] * dec["latent_pages"].shape[1]
+    dec_tokens = int(dec["lengths"].clamp(0, window).sum())
+    C = pre["q_lat"].shape[1]
+    off = int(pre["offsets"][0])
+    seg_pool, seg_pairs = seg_counts(
+        [int(x) for x in seg["chunk_positions"][0]])
+    cases = [
+        ("mla_paged_decode", ops.mla_decode, dec,
+         mla_cost(dec, dec_tokens, dec_tokens)),
+        ("mla_paged_prefill", ops.mla_prefill, pre,
+         mla_cost(pre, off, C * off + C * (C + 1) // 2)),
+        ("mla_paged_prefill_seg", ops.mla_prefill_seg, seg,
+         mla_cost(seg, seg_pool, seg_pairs)),
+    ]
+    rows = check_and_time(torch, cases, card, "mla_kernels")
+    check_contiguous(torch, ops.mla_prefill_seg, ops.mla_prefill, pre, C,
+                     "mla_kernels")
+    return rows
+
+
+def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
+                shared_tail, phase="serve", pool=None):
+    """Serve ``cfg`` on the engine: 6 requests of a shared system prefix
+    (``system_blocks`` manager blocks) plus ``shared_tail`` tokens each,
+    the first alone, then five; then a segment pair A = [S0 S1 S2 | tail]
+    and B = [X0 S1 S2 | tail] of one-block segments.  Every kernel's
+    count is zeroed just before the traffic and read just after; each
+    kernel of ``path`` must have launched.  ``pool``: the (slots, table
+    pages, pool pages) the kernel phase assumed for this engine."""
+    from repro_torch.serving import SamplingParams, ServingEngine
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, EngineConfig(), device="cuda")
+    eng = ServingEngine(cfg, ecfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    shape = (eng.kv.n_slots, eng.kv.pages_per_slot, eng.kv.n_pages)
+    if pool is not None and shape != pool:
+        raise AssertionError(f"engine pool {shape} is not the kernel "
+                             f"phase's {pool}")
     finite = []
     decode = eng.model.decode_step_paged
 
@@ -299,9 +439,9 @@ def phase_serve(torch, kernel_fns, card):
         return torch.randint(0, cfg.vocab_size, (n,),
                              generator=rng).tolist()
 
-    bt = eng.manager.block_tokens                    # 128
-    system = toks(2 * bt)
-    shared = [system + toks(128) for _ in range(6)]
+    bt = eng.manager.block_tokens
+    system = toks(system_blocks * bt)
+    shared = [system + toks(shared_tail) for _ in range(6)]
     s0, s1, s2, x0 = toks(bt), toks(bt), toks(bt), toks(bt)
     seg_a = s0 + s1 + s2 + toks(40)
     seg_b = x0 + s1 + s2 + toks(40)
@@ -330,8 +470,9 @@ def phase_serve(torch, kernel_fns, card):
     eng.shutdown()
 
     ttft = sorted(r.ttft for r in reqs)
-    out = {"phase": "serve", "card": card, "model": cfg.name,
+    out = {"phase": phase, "card": card, "model": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "slots_table_pages_pool_pages": shape,
            "requests": len(reqs), "steps": steps,
            "init_s": init_s, "serve_s": serve_s,
            "ttft_p50_s": ttft[len(ttft) // 2],
@@ -355,10 +496,10 @@ def phase_serve(torch, kernel_fns, card):
         raise AssertionError(f"requests {bad} did not produce 16 tokens")
     if not all(bool(f) for f in finite):
         raise AssertionError("non-finite logits in a decode step")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in path:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"serve path")
+                                 f"{phase} path")
     if st["cow_share_hits"] <= 0 or st["segment_chunks"] <= 0:
         raise AssertionError("serve traffic missed the CoW prefix or the "
                              "segment-reuse path")
@@ -419,6 +560,13 @@ def phase_parity(torch, params, card):
     runs = {"cuda": run("cuda"), "torch": run("torch")}
     with one_token_mask_errors(torch):
         runs["mutant"] = run("torch")
+    parity_report(runs, PARITY_RTOL, card, "parity")
+
+
+def parity_report(runs, rtol, card, phase):
+    """Hold the kernels' run to the plain versions' within ``rtol`` of
+    each tensor's largest magnitude, and check that the mask-error run
+    lands outside it."""
     res = {}
     for key, plain in runs["torch"].items():
         def gap(other):
@@ -426,9 +574,9 @@ def phase_parity(torch, params, card):
                          .abs().max())
         scale = float(plain.float().abs().max())
         res[key] = {"max_abs_diff": gap("cuda"), "max_abs": scale,
-                    "tol": PARITY_RTOL * scale,
+                    "tol": rtol * scale,
                     "mutant_max_abs_diff": gap("mutant")}
-    emit({"phase": "parity", "card": card, "rtol": PARITY_RTOL, **res})
+    emit({"phase": phase, "card": card, "rtol": rtol, **res})
     bad = {k: v for k, v in res.items() if not v["max_abs_diff"] <= v["tol"]}
     if bad:
         raise AssertionError(f"kernels vs plain versions differ: {bad}")
@@ -439,44 +587,157 @@ def phase_parity(torch, params, card):
                              f"error: {blind}")
 
 
+def stale_slots(torch, pool, tables, first_stale):
+    """Scale the latent pool slots at row positions >= ``first_stale[b]``
+    of each row's table by STALE_SCALE (in place)."""
+    L, N, page, D = pool.shape
+    pos = torch.arange(tables.shape[1] * page, device=pool.device)
+    pid = tables.long()[:, pos // page]
+    slot = pid * page + pos % page                          # [B, T]
+    idx = slot[pos[None, :] >= first_stale.long()[:, None]]
+    pool.view(L, N * page, D)[:, idx] *= STALE_SCALE
+
+
+def phase_mla_parity(torch, params, cfg, card):
+    """One decode step, one prefill chunk and one segment chunk of the
+    8-layer DeepSeek-V3 model with the MLA kernels, with their plain
+    versions, and with plain versions that each get one mask wrong by
+    one token, on the same weights and latent state."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    L, D, page, P, B = cfg.n_layers, cfg.d_latent + cfg.d_rope, 64, 24, 8
+    N = 1 + B * P
+
+    def pool():
+        return torch.randn((L, N, page, D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    tables = (torch.randperm(N - 1, generator=gen, device="cuda")[:B * P]
+              + 1).reshape(B, P).to(torch.int32)
+    lengths = torch.randint(64, P * page - 1, (B,), generator=gen,
+                            device="cuda").to(torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                           device="cuda").to(torch.int32)
+    rows = torch.arange(B, device="cuda")
+    new_page = tables[rows, (lengths // page).long()].long()
+    new_off = (lengths % page).long()
+    dec_pool = pool()
+    stale_slots(torch, dec_pool, tables, lengths + 1)
+    C = 64
+    table0 = tables[0:1].contiguous()
+    off = int(lengths[0]) // 2
+    pos = list(range(off, off + 20)) + list(range(off + 84, off + 120))
+    cpos = torch.tensor([pos + [-1] * (C - len(pos))], dtype=torch.int32,
+                        device="cuda")
+    # the offset chunk sees nothing resident at or past `off`; the
+    # segment chunk's resumed span off+20 .. off+83 is resident
+    chunk_pool = pool()
+    stale_slots(torch, chunk_pool, table0,
+                torch.tensor([off], device="cuda"))
+    seg_pool = chunk_pool.clone()
+    fresh = (torch.arange(off + 20, off + 84, device="cuda"))
+    idx = table0.long()[0, fresh // page] * page + fresh % page
+    seg_pool.view(L, N * page, D)[:, idx] /= STALE_SCALE
+    ctoks = torch.randint(0, cfg.vocab_size, (1, C), generator=gen,
+                          device="cuda").to(torch.int32)
+
+    def run(be):
+        state = {"latent_pages": dec_pool.clone(), "block_tables": tables,
+                 "lengths": lengths}
+        logits, new = model.decode_step_paged(params, state, tokens,
+                                              backend=be)
+        out = {"decode_logits": logits,
+               "decode_new_latent": new["latent_pages"][:, new_page,
+                                                        new_off]}
+        for name, fn, arg, lat in (
+                ("prefill_chunk", model.prefill_chunk,
+                 torch.tensor([off], dtype=torch.int32, device="cuda"),
+                 chunk_pool),
+                ("prefill_chunk_seg", model.prefill_chunk_seg, cpos,
+                 seg_pool)):
+            state = {"latent_pages": lat, "block_table": table0}
+            out[name + "_latent"] = fn(params, state, ctoks, arg,
+                                       backend=be)["latent"]
+        return out
+
+    runs = {"cuda": run("cuda"), "torch": run("torch")}
+    with one_token_mask_errors(torch):
+        runs["mutant"] = run("torch")
+    parity_report(runs, MLA_PARITY_RTOL, card, "mla_parity")
+
+
 @contextlib.contextmanager
 def one_token_mask_errors(torch):
     """Swap in plain versions that each get one mask wrong, the errors a
     kernel's masking could make: decode attends one pool token past the
     row's length, prefill the pool token at the offset (the slot the
     chunk's first token will fill), segment prefill does not exclude the
-    slots the chunk will fill.  The parity limit must see each of them."""
+    slots the chunk will fill; the same three for the MLA versions.  The
+    parity limit must see each of them."""
     from repro_torch.kernels import ref
-    saved = (ref.paged_decode_attention, ref.paged_prefill_attention,
-             ref.paged_prefill_segments)
-    decode, prefill, _ = saved
+    names = ("paged_decode_attention", "paged_prefill_attention",
+             "paged_prefill_segments", "mla_paged_decode",
+             "mla_paged_prefill", "mla_paged_prefill_segments")
+    saved = {n: getattr(ref, n) for n in names}
+
+    def one_more(lengths, t):
+        return torch.where(lengths < t, lengths + 1, lengths)
 
     def decode_past_length(q, k_pages, v_pages, block_tables, lengths):
         t = block_tables.shape[1] * k_pages.shape[1]
-        return decode(q, k_pages, v_pages, block_tables,
-                      torch.where(lengths < t, lengths + 1, lengths))
+        return saved["paged_decode_attention"](
+            q, k_pages, v_pages, block_tables, one_more(lengths, t))
 
     def prefill_at_offset(q, k_chunk, v_chunk, k_pages, v_pages,
                           block_tables, offsets):
-        return prefill(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
-                       offsets + 1)
+        return saved["paged_prefill_attention"](
+            q, k_chunk, v_chunk, k_pages, v_pages, block_tables, offsets + 1)
+
+    def own_slots_prior(chunk_positions, t, device):
+        keypos = torch.arange(t, device=device)
+        return keypos[None, None, :] < chunk_positions.long()[:, :, None]
 
     def segments_own_slots(q, k_chunk, v_chunk, k_pages, v_pages,
                            block_tables, chunk_positions):
         t = block_tables.shape[1] * k_pages.shape[1]
-        keypos = torch.arange(t, device=q.device)
-        prior = keypos[None, None, :] < chunk_positions.long()[:, :, None]
         return ref._chunk_attend(q, k_chunk, v_chunk, k_pages, v_pages,
-                                 block_tables, prior)
+                                 block_tables,
+                                 own_slots_prior(chunk_positions, t,
+                                                 q.device))
 
-    (ref.paged_decode_attention, ref.paged_prefill_attention,
-     ref.paged_prefill_segments) = (decode_past_length, prefill_at_offset,
-                                    segments_own_slots)
+    def mla_decode_past_length(q_lat, q_rope, latent_pages, block_tables,
+                               lengths, d_latent, scale=None):
+        t = block_tables.shape[1] * latent_pages.shape[1]
+        return saved["mla_paged_decode"](
+            q_lat, q_rope, latent_pages, block_tables, one_more(lengths, t),
+            d_latent, scale)
+
+    def mla_prefill_at_offset(q_lat, q_rope, lat_chunk, latent_pages,
+                              block_tables, offsets, d_latent, scale=None):
+        return saved["mla_paged_prefill"](
+            q_lat, q_rope, lat_chunk, latent_pages, block_tables,
+            offsets + 1, d_latent, scale)
+
+    def mla_segments_own_slots(q_lat, q_rope, lat_chunk, latent_pages,
+                               block_tables, chunk_positions, d_latent,
+                               scale=None):
+        t = block_tables.shape[1] * latent_pages.shape[1]
+        return ref._mla_chunk_attend(
+            q_lat, q_rope, lat_chunk, latent_pages, block_tables,
+            own_slots_prior(chunk_positions, t, q_lat.device), d_latent,
+            scale)
+
+    mutants = (decode_past_length, prefill_at_offset, segments_own_slots,
+               mla_decode_past_length, mla_prefill_at_offset,
+               mla_segments_own_slots)
+    for n, fn in zip(names, mutants):
+        setattr(ref, n, fn)
     try:
         yield
     finally:
-        (ref.paged_decode_attention, ref.paged_prefill_attention,
-         ref.paged_prefill_segments) = saved
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
 
 
 REPLACES = {
@@ -486,7 +747,15 @@ REPLACES = {
                       "src/repro/kernels/paged_prefill.py:119"),
     "paged_prefill_seg": ("src/repro_torch/csrc/paged_prefill.cu",
                           "src/repro/kernels/paged_prefill.py:295"),
+    "mla_paged_decode": ("src/repro_torch/csrc/mla_paged_decode.cu",
+                         "src/repro/kernels/mla_paged_decode.py:67"),
+    "mla_paged_prefill": ("src/repro_torch/csrc/mla_paged_prefill.cu",
+                          "src/repro/kernels/paged_prefill.py:416"),
+    "mla_paged_prefill_seg": ("src/repro_torch/csrc/mla_paged_prefill.cu",
+                              "src/repro/kernels/paged_prefill.py:523"),
 }
+GQA_PATH = ("paged_decode", "paged_prefill", "paged_prefill_seg")
+MLA_PATH = ("mla_paged_decode", "mla_paged_prefill", "mla_paged_prefill_seg")
 
 
 def main() -> int:
@@ -505,13 +774,21 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.mla_paged_decode import mla_paged_decode
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
+    from repro_torch.kernels.paged_prefill import (mla_paged_prefill,
+                                                   mla_paged_prefill_segments,
+                                                   paged_prefill_attention,
                                                    paged_prefill_segments)
+    from repro_torch.serving import EngineConfig
     kernel_fns = {"paged_decode": paged_decode_attention,
                   "paged_prefill": paged_prefill_attention,
-                  "paged_prefill_seg": paged_prefill_segments}
+                  "paged_prefill_seg": paged_prefill_segments,
+                  "mla_paged_decode": mla_paged_decode,
+                  "mla_paged_prefill": mla_paged_prefill,
+                  "mla_paged_prefill_seg": mla_paged_prefill_segments}
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -519,9 +796,26 @@ def main() -> int:
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build(build, smi)
+    mla_cfg = mla_config()
     rows = phase_kernels(torch, ops, smi)
-    params, launches = phase_serve(torch, kernel_fns, smi)
+    rows.update(phase_mla_kernels(torch, ops, smi, mla_cfg))
+
+    # each path is driven with every count zeroed just before it; a
+    # kernel's launches are those of its own path
+    params, counts = phase_serve(torch, kernel_fns, GQA_PATH, smi,
+                                 get_config("llama3.2-1b"), EngineConfig(),
+                                 system_blocks=2, shared_tail=128)
+    launches = {name: counts[name] for name in GQA_PATH}
     phase_parity(torch, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    params, counts = phase_serve(
+        torch, kernel_fns, MLA_PATH, smi, mla_cfg,
+        EngineConfig(max_len=MLA_MAX_LEN), system_blocks=1, shared_tail=588,
+        phase="mla_serve",
+        pool=(MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES))
+    launches.update({name: counts[name] for name in MLA_PATH})
+    phase_mla_parity(torch, params, mla_cfg, smi)
 
     summary = []
     for name, row in rows.items():

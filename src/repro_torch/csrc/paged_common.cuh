@@ -156,6 +156,23 @@ __device__ inline void tile_load_kv(Tile& t, const T* k_src, const T* v_src,
   __syncthreads();
 }
 
+// Start of the trailing contiguous run of valid positions (0 when the
+// row has none): `_pool_limits` of the JAX package, one row.
+__device__ inline int row_pool_limit(const int* cp, int C) {
+  int last = -1;
+  for (int i = C - 1; i >= 0; --i)
+    if (cp[i] >= 0) {
+      last = i;
+      break;
+    }
+  if (last < 0) return 0;
+  const int d = cp[last] - last;
+  int lim = cp[last];
+  for (int i = last; i >= 0 && cp[i] >= 0 && cp[i] - i == d; --i)
+    lim = cp[i];
+  return lim;
+}
+
 // Raise the dynamic shared-memory limit of `kernel` when a tile needs
 // more than the default 48 KB.
 template <typename K>

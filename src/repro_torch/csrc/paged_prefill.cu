@@ -29,23 +29,6 @@
 // [B,C] int32; out [B,C,Hq,hd] in q's type.
 #include "paged_common.cuh"
 
-// Start of the trailing contiguous run of valid positions (0 when the
-// row has none): `_pool_limits` of the JAX package, one row.
-__device__ inline int row_pool_limit(const int* cp, int C) {
-  int last = -1;
-  for (int i = C - 1; i >= 0; --i)
-    if (cp[i] >= 0) {
-      last = i;
-      break;
-    }
-  if (last < 0) return 0;
-  const int d = cp[last] - last;
-  int lim = cp[last];
-  for (int i = last; i >= 0 && cp[i] >= 0 && cp[i] - i == d; --i)
-    lim = cp[i];
-  return lim;
-}
-
 template <bool SEG, typename TQ, typename TKV>
 __global__ void paged_prefill_kernel(
     const TQ* __restrict__ q, const TQ* __restrict__ k_chunk,

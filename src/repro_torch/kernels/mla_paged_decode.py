@@ -1,0 +1,94 @@
+"""Absorbed-MLA paged decode: the CUDA kernel ``csrc/mla_paged_decode.cu``
+and its wrapper.
+
+Replaces the Pallas TPU kernel ``mla_paged_decode``
+(``repro/kernels/mla_paged_decode.py``).  Each batch row's query heads,
+with ``W_uk`` absorbed into them (``q_lat`` [B,Hq,dl]) beside their RoPE
+part (``q_rope`` [B,Hq,dr]), attend the row's latent pool tokens below
+its length through the block table and return the latent-space context
+[B,Hq,dl]; the caller applies ``W_uv`` and the output projection.  On
+CPU tensors the wrapper runs the plain version in ``kernels/ref.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.paged_attention import (DTYPE_CODES, FLT, INT, PTR,
+                                                 SUPPORTED, stream_ptr)
+
+# the kernels keep dl / 256 value columns a thread in registers
+MAX_D_LATENT = 512
+# q_lat, q_rope, pages, tables, lengths, out; B, Hq, dl, dr, N, page, P;
+# scale; q and pool dtype codes; stream
+MLA_DECODE_ARGS = [PTR] * 6 + [INT] * 7 + [FLT, INT, INT, PTR]
+
+
+def check_mla_args(name: str, q_lat: torch.Tensor, q_rope: torch.Tensor,
+                   latent_pages: torch.Tensor, block_tables: torch.Tensor,
+                   d_latent: int, *ints: torch.Tensor, tensors=()) -> None:
+    """Device, dtype, contiguity and width checks shared by the MLA
+    kernels; raises ``ValueError`` on what a kernel does not take."""
+    dev = q_lat.device
+    for t in (q_lat, q_rope, latent_pages, block_tables, *ints, *tensors):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if (q_lat.dtype, latent_pages.dtype) not in SUPPORTED:
+        raise ValueError(f"{name}: unsupported dtypes q={q_lat.dtype} "
+                         f"pages={latent_pages.dtype}")
+    for t in (q_rope, *tensors):
+        if t.dtype != q_lat.dtype:
+            raise ValueError(f"{name}: q_rope and the chunk latent must "
+                             f"have q_lat's dtype")
+    for t in (block_tables, *ints):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: tables/lengths/positions must be "
+                             f"int32, got {t.dtype}")
+    if latent_pages.dim() != 3 or block_tables.dim() != 2:
+        raise ValueError(f"{name}: pages [N,page,dl+dr], tables [B,P]")
+    dl, dr = q_lat.shape[-1], q_rope.shape[-1]
+    if (dl != d_latent or latent_pages.shape[-1] != dl + dr
+            or q_rope.shape[:-1] != q_lat.shape[:-1]):
+        raise ValueError(f"{name}: widths q_lat {tuple(q_lat.shape)}, "
+                         f"q_rope {tuple(q_rope.shape)}, pages "
+                         f"{tuple(latent_pages.shape)}, d_latent {d_latent}")
+    if dl > MAX_D_LATENT:
+        raise ValueError(f"{name}: d_latent {dl} > {MAX_D_LATENT}")
+
+
+def mla_paged_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     latent_pages: torch.Tensor, block_tables: torch.Tensor,
+                     lengths: torch.Tensor, *, d_latent: int,
+                     scale: float | None = None,
+                     backend: str | None = None) -> torch.Tensor:
+    """q_lat [B,Hq,dl]; q_rope [B,Hq,dr]; latent_pages [N,page,dl+dr];
+    block_tables [B,P] int32; lengths [B] int32 -> ctx [B,Hq,dl] in
+    q_lat's dtype.  ``scale=None`` is ``1/sqrt(dl//4 + dr)``."""
+    if resolve_backend(backend, q_lat) == "torch":
+        return ref.mla_paged_decode(q_lat, q_rope, latent_pages,
+                                    block_tables, lengths, d_latent, scale)
+    check_mla_args("mla_paged_decode", q_lat, q_rope, latent_pages,
+                   block_tables, d_latent, lengths)
+    b, hq, dl = q_lat.shape
+    n, page, _ = latent_pages.shape
+    if q_lat.dim() != 3 or block_tables.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError("mla_paged_decode: q_lat [B,Hq,dl], tables [B,P], "
+                         "lengths [B]")
+    out = torch.empty_like(q_lat)
+    fn = build.entry("mla_paged_decode", "mla_paged_decode", MLA_DECODE_ARGS)
+    rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), latent_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, hq, dl, q_rope.shape[-1], n, page, block_tables.shape[1],
+            ref.mla_scale(dl, q_rope.shape[-1], scale),
+            DTYPE_CODES[q_lat.dtype], DTYPE_CODES[latent_pages.dtype],
+            stream_ptr(q_lat.device))
+    build.check(rc, "mla_paged_decode", "mla_paged_decode")
+    mla_paged_decode.launches += 1
+    return out
+
+
+mla_paged_decode.launches = 0

@@ -1,15 +1,20 @@
 """Public paged attention ops with backend dispatch.
 
 Same signatures and layouts as the JAX package's ``kernels/ops.py``
-(``paged_decode``, ``paged_prefill``, ``paged_prefill_seg``).  Each op
-resolves its backend through ``kernels/backend.py``: the CUDA kernel for
-CUDA tensors, the plain PyTorch version for CPU tensors, and the plain
-version on the card only when ``backend="torch"`` is named explicitly.
+(``paged_decode``, ``paged_prefill``, ``paged_prefill_seg`` and the
+absorbed-MLA ``mla_decode``, ``mla_prefill``, ``mla_prefill_seg``).
+Each op resolves its backend through ``kernels/backend.py``: the CUDA
+kernel for CUDA tensors, the plain PyTorch version for CPU tensors, and
+the plain version on the card only when ``backend="torch"`` is named
+explicitly.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.mla_paged_decode import mla_paged_decode
 from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
+from repro_torch.kernels.paged_prefill import (mla_paged_prefill,
+                                               mla_paged_prefill_segments,
+                                               paged_prefill_attention,
                                                paged_prefill_segments)
 
 
@@ -37,3 +42,31 @@ def paged_prefill_seg(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
                                   block_tables, chunk_positions,
                                   backend=backend)
 
+
+def mla_decode(q_lat, q_rope, latent_pages, block_tables, lengths,
+               d_latent: int, scale: float | None = None,
+               backend: str | None = None):
+    """Absorbed-MLA paged decode over latent pages -> ctx [B,Hq,dl]."""
+    return mla_paged_decode(q_lat, q_rope, latent_pages, block_tables,
+                            lengths, d_latent=d_latent, scale=scale,
+                            backend=backend)
+
+
+def mla_prefill(q_lat, q_rope, lat_chunk, latent_pages, block_tables,
+                offsets, d_latent: int, scale: float | None = None,
+                backend: str | None = None):
+    """Absorbed-MLA chunked prefill over latent pages."""
+    return mla_paged_prefill(q_lat, q_rope, lat_chunk, latent_pages,
+                             block_tables, offsets, d_latent=d_latent,
+                             scale=scale, backend=backend)
+
+
+def mla_prefill_seg(q_lat, q_rope, lat_chunk, latent_pages, block_tables,
+                    chunk_positions, d_latent: int,
+                    scale: float | None = None, backend: str | None = None):
+    """Absorbed-MLA segment prefill over latent pages (same position
+    semantics as ``paged_prefill_seg``)."""
+    return mla_paged_prefill_segments(q_lat, q_rope, lat_chunk, latent_pages,
+                                      block_tables, chunk_positions,
+                                      d_latent=d_latent, scale=scale,
+                                      backend=backend)

@@ -1,14 +1,17 @@
 """Chunked prefill and segment prefill over the paged pool: the CUDA
-kernels in ``csrc/paged_prefill.cu`` and their wrappers.
+kernels in ``csrc/paged_prefill.cu`` (GQA / MHA / MQA) and
+``csrc/mla_paged_prefill.cu`` (absorbed MLA over the latent pool) and
+their wrappers.
 
-Replace the Pallas TPU kernels ``paged_prefill_attention`` and
-``paged_prefill_segments`` (``repro/kernels/paged_prefill.py``).  A
+Replace the Pallas TPU kernels ``paged_prefill_attention``,
+``paged_prefill_segments``, ``mla_paged_prefill`` and
+``mla_paged_prefill_segments`` (``repro/kernels/paged_prefill.py``).  A
 chunk of C queries attends resident pool tokens through the block table
 plus its own densely passed keys, causally by index; the caller
-scatters the chunk's KV into the pool afterwards.  Both are bound by
-the HBM bytes of the pool pages they read (see the source note in
-``csrc/paged_prefill.cu``).  On CPU tensors the wrappers run the plain
-versions in ``kernels/ref.py``.
+scatters the chunk's KV into the pool afterwards.  The GQA kernels are
+bound by the HBM bytes of the pool pages they read, the MLA ones by
+their operations (see the source notes).  On CPU tensors the wrappers
+run the plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.mla_paged_decode import check_mla_args
 from repro_torch.kernels.paged_attention import (DTYPE_CODES, FLT, INT,
                                                  PTR, check_args, stream_ptr)
 
@@ -92,5 +96,80 @@ def paged_prefill_segments(q: torch.Tensor, k_chunk: torch.Tensor,
     return out
 
 
+# q_lat, q_rope, lat_chunk, pages, tables, offsets or positions, out;
+# B, C, Hq, dl, dr, N, page, P; scale; q and pool dtype codes; stream
+MLA_PREFILL_ARGS = [PTR] * 7 + [INT] * 8 + [FLT, INT, INT, PTR]
+
+
+def _launch_mla(entry: str, q_lat, q_rope, lat_chunk, latent_pages,
+                block_tables, where, d_latent, scale) -> torch.Tensor:
+    b, c, hq, dl = q_lat.shape
+    dr = q_rope.shape[-1]
+    n, page, _ = latent_pages.shape
+    if (q_lat.dim() != 4 or lat_chunk.shape != (b, c, dl + dr)
+            or block_tables.shape[0] != b):
+        raise ValueError(f"{entry}: q_lat [B,C,Hq,dl], lat_chunk "
+                         f"[B,C,dl+dr], tables [B,P]")
+    out = torch.empty_like(q_lat)
+    fn = build.entry("mla_paged_prefill", entry, MLA_PREFILL_ARGS)
+    rc = fn(*(t.data_ptr() for t in (q_lat, q_rope, lat_chunk, latent_pages,
+                                     block_tables, where, out)),
+            b, c, hq, dl, dr, n, page, block_tables.shape[1],
+            ref.mla_scale(dl, dr, scale), DTYPE_CODES[q_lat.dtype],
+            DTYPE_CODES[latent_pages.dtype], stream_ptr(q_lat.device))
+    build.check(rc, "mla_paged_prefill", entry)
+    return out
+
+
+def mla_paged_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      lat_chunk: torch.Tensor, latent_pages: torch.Tensor,
+                      block_tables: torch.Tensor, offsets: torch.Tensor, *,
+                      d_latent: int, scale: float | None = None,
+                      backend: str | None = None) -> torch.Tensor:
+    """q_lat [B,C,Hq,dl]; q_rope [B,C,Hq,dr]; lat_chunk [B,C,dl+dr];
+    latent_pages [N,page,dl+dr]; block_tables [B,P] int32; offsets [B]
+    int32 -> ctx [B,C,Hq,dl].  Query i of row b sits at offsets[b] + i:
+    it attends pool tokens < offsets[b] plus chunk tokens j <= i."""
+    if resolve_backend(backend, q_lat) == "torch":
+        return ref.mla_paged_prefill(q_lat, q_rope, lat_chunk, latent_pages,
+                                     block_tables, offsets, d_latent, scale)
+    check_mla_args("mla_paged_prefill", q_lat, q_rope, latent_pages,
+                   block_tables, d_latent, offsets, tensors=(lat_chunk,))
+    if offsets.shape != (q_lat.shape[0],):
+        raise ValueError("mla_paged_prefill: offsets [B]")
+    out = _launch_mla("mla_paged_prefill", q_lat, q_rope, lat_chunk,
+                      latent_pages, block_tables, offsets, d_latent, scale)
+    mla_paged_prefill.launches += 1
+    return out
+
+
+def mla_paged_prefill_segments(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                               lat_chunk: torch.Tensor,
+                               latent_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               chunk_positions: torch.Tensor, *,
+                               d_latent: int, scale: float | None = None,
+                               backend: str | None = None) -> torch.Tensor:
+    """As ``mla_paged_prefill`` with per-query absolute positions
+    (``chunk_positions`` [B,C] int32, ascending among valid entries,
+    negative = padding), the semantics of ``paged_prefill_segments``."""
+    if resolve_backend(backend, q_lat) == "torch":
+        return ref.mla_paged_prefill_segments(
+            q_lat, q_rope, lat_chunk, latent_pages, block_tables,
+            chunk_positions, d_latent, scale)
+    check_mla_args("mla_paged_prefill_seg", q_lat, q_rope, latent_pages,
+                   block_tables, d_latent, chunk_positions,
+                   tensors=(lat_chunk,))
+    if chunk_positions.shape != q_lat.shape[:2]:
+        raise ValueError("mla_paged_prefill_seg: chunk_positions [B,C]")
+    out = _launch_mla("mla_paged_prefill_seg", q_lat, q_rope, lat_chunk,
+                      latent_pages, block_tables, chunk_positions, d_latent,
+                      scale)
+    mla_paged_prefill_segments.launches += 1
+    return out
+
+
 paged_prefill_attention.launches = 0
 paged_prefill_segments.launches = 0
+mla_paged_prefill.launches = 0
+mla_paged_prefill_segments.launches = 0

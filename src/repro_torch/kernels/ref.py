@@ -17,11 +17,40 @@ NEG_INF = -1e30
 
 
 def _gather(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """pages [N,page,Hkv,hd], tables [B,P] -> [B, P*page, Hkv, hd]."""
-    n, page, hkv, hd = pages.shape
+    """pages [N,page,...], tables [B,P] -> [B, P*page, ...]."""
+    n, page = pages.shape[:2]
     b, p = tables.shape
     idx = tables.long().clamp(0, n - 1)
-    return pages[idx].reshape(b, p * page, hkv, hd)
+    return pages[idx].reshape((b, p * page) + pages.shape[2:])
+
+
+def _length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
+    """[B,1,T]: pool tokens < length."""
+    pos = torch.arange(t, device=lengths.device)
+    return (pos[None, :] < lengths.long()[:, None])[:, None, :]
+
+
+def _offset_prior(offsets: torch.Tensor, c: int, t: int) -> torch.Tensor:
+    """[B,C,T]: every query of a chunk at ``offset`` attends pool
+    tokens < offset."""
+    return _length_mask(offsets, t).expand(offsets.shape[0], c, t)
+
+
+def _segment_prior(chunk_positions: torch.Tensor, t: int) -> torch.Tensor:
+    """[B,C,T]: query i attends pool tokens below chunk_positions[b, i]
+    except the slots the chunk itself will fill."""
+    cp = chunk_positions.long()
+    pos = torch.arange(t, device=cp.device)
+    own = (pos[None, None, :] == cp[:, :, None]).any(dim=1)     # [B, T]
+    return (pos[None, None, :] < cp[:, :, None]) & ~own[:, None, :]
+
+
+def _with_chunk(prior: torch.Tensor) -> torch.Tensor:
+    """Append the chunk's own keys, causal by index, to ``prior``."""
+    b, c, _ = prior.shape
+    idx = torch.arange(c, device=prior.device)
+    causal = (idx[None, :] <= idx[:, None])[None].expand(b, c, c)
+    return torch.cat([prior, causal], dim=2)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,23 +76,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     lengths [B] -> [B,Hq,hd]: each row attends its pool tokens < length."""
     k = _gather(k_pages, block_tables)
     v = _gather(v_pages, block_tables)
-    pos = torch.arange(k.shape[1], device=q.device)
-    mask = (pos[None, :] < lengths.long()[:, None])[:, None, :]
-    return _attend(q[:, None], k, v, mask)[:, 0]
+    return _attend(q[:, None], k, v, _length_mask(lengths, k.shape[1]))[:, 0]
 
 
 def _chunk_attend(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
                   prior: torch.Tensor) -> torch.Tensor:
     """Pool tokens where ``prior`` [B,C,T_pool] holds, plus chunk tokens
     j <= i (causal by index)."""
-    c = q.shape[1]
     kp = _gather(k_pages, block_tables)
     vp = _gather(v_pages, block_tables)
     k = torch.cat([kp.float(), k_chunk.float()], dim=1)
     v = torch.cat([vp.float(), v_chunk.float()], dim=1)
-    idx = torch.arange(c, device=q.device)
-    causal = (idx[None, :] <= idx[:, None])[None].expand(q.shape[0], c, c)
-    return _attend(q, k, v, torch.cat([prior, causal], dim=2))
+    return _attend(q, k, v, _with_chunk(prior))
 
 
 def paged_prefill_attention(q, k_chunk, v_chunk, k_pages, v_pages,
@@ -71,11 +95,8 @@ def paged_prefill_attention(q, k_chunk, v_chunk, k_pages, v_pages,
     """q [B,C,Hq,hd] at positions offset+i attends pool tokens < offset
     (through the block table) plus chunk tokens j <= i."""
     t = block_tables.shape[1] * k_pages.shape[1]
-    pos = torch.arange(t, device=q.device)
-    prior = (pos[None, :] < offsets.long()[:, None])[:, None, :]
-    prior = prior.expand(q.shape[0], q.shape[1], t)
     return _chunk_attend(q, k_chunk, v_chunk, k_pages, v_pages,
-                         block_tables, prior)
+                         block_tables, _offset_prior(offsets, q.shape[1], t))
 
 
 def pool_limits(chunk_positions: torch.Tensor) -> torch.Tensor:
@@ -109,9 +130,79 @@ def paged_prefill_segments(q, k_chunk, v_chunk, k_pages, v_pages,
     every resident pool token below its position, except the slots the
     chunk itself will fill, plus chunk tokens j <= i."""
     t = block_tables.shape[1] * k_pages.shape[1]
-    cp = chunk_positions.long()
-    pos = torch.arange(t, device=q.device)
-    own = (pos[None, None, :] == cp[:, :, None]).any(dim=1)     # [B, T]
-    prior = (pos[None, None, :] < cp[:, :, None]) & ~own[:, None, :]
     return _chunk_attend(q, k_chunk, v_chunk, k_pages, v_pages,
-                         block_tables, prior)
+                         block_tables, _segment_prior(chunk_positions, t))
+
+
+# ---------------------------------------------------------------------------
+# absorbed MLA over a latent pool [N, page, dl+dr]
+# ---------------------------------------------------------------------------
+def mla_scale(d_latent: int, d_rope: int, scale=None) -> float:
+    """The kernels' default softmax scale, ``1/sqrt(dl//4 + dr)`` (the
+    JAX package's oracle convention, hd ~ dl/4); an explicit ``scale``
+    overrides it (the engine passes ``1/sqrt(hd + dr)``)."""
+    return 1.0 / math.sqrt(d_latent // 4 + d_rope) if scale is None else scale
+
+
+def _mla_attend(q_lat: torch.Tensor, q_rope: torch.Tensor, lat: torch.Tensor,
+                mask: torch.Tensor, d_latent: int, scale) -> torch.Tensor:
+    """q_lat [B,C,Hq,dl]; q_rope [B,C,Hq,dr]; lat [B,T,dl+dr] (value =
+    its first dl columns); mask [B,C,T] -> ctx [B,C,Hq,dl] in q_lat's
+    dtype (float32 scores, softmax and accumulation)."""
+    scale = mla_scale(d_latent, q_rope.shape[-1], scale)
+    lat = lat.float()
+    c, kr = lat[..., :d_latent], lat[..., d_latent:]
+    s = (torch.einsum("bchl,btl->bcht", q_lat.float(), c)
+         + torch.einsum("bchr,btr->bcht", q_rope.float(), kr)) * scale
+    m4 = mask[:, :, None, :]
+    s = s.masked_fill(~m4, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * m4
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bcht,btl->bchl", p, c) / l.clamp_min(1e-30)
+    return o.to(q_lat.dtype)
+
+
+def mla_paged_decode(q_lat, q_rope, latent_pages, block_tables, lengths,
+                     d_latent: int, scale=None):
+    """q_lat [B,Hq,dl]; q_rope [B,Hq,dr]; latent_pages [N,page,dl+dr];
+    block_tables [B,P]; lengths [B] -> ctx [B,Hq,dl]: each row attends
+    its pool tokens < length."""
+    lat = _gather(latent_pages, block_tables)
+    return _mla_attend(q_lat[:, None], q_rope[:, None], lat,
+                       _length_mask(lengths, lat.shape[1]), d_latent,
+                       scale)[:, 0]
+
+
+def _mla_chunk_attend(q_lat, q_rope, lat_chunk, latent_pages, block_tables,
+                      prior: torch.Tensor, d_latent: int, scale):
+    """Pool tokens where ``prior`` [B,C,T_pool] holds, plus chunk tokens
+    j <= i (causal by index)."""
+    lat = torch.cat([_gather(latent_pages, block_tables).float(),
+                     lat_chunk.float()], dim=1)
+    return _mla_attend(q_lat, q_rope, lat, _with_chunk(prior), d_latent,
+                       scale)
+
+
+def mla_paged_prefill(q_lat, q_rope, lat_chunk, latent_pages, block_tables,
+                      offsets, d_latent: int, scale=None):
+    """q_lat [B,C,Hq,dl]; q_rope [B,C,Hq,dr]; lat_chunk [B,C,dl+dr] at
+    positions offset+i attend pool tokens < offset plus chunk tokens
+    j <= i -> ctx [B,C,Hq,dl]."""
+    t = block_tables.shape[1] * latent_pages.shape[1]
+    return _mla_chunk_attend(q_lat, q_rope, lat_chunk, latent_pages,
+                             block_tables,
+                             _offset_prior(offsets, q_lat.shape[1], t),
+                             d_latent, scale)
+
+
+def mla_paged_prefill_segments(q_lat, q_rope, lat_chunk, latent_pages,
+                               block_tables, chunk_positions, d_latent: int,
+                               scale=None):
+    """As ``paged_prefill_segments`` in latent form: query i at
+    chunk_positions[b, i] (negative = padding) attends resident pool
+    tokens below its position except the chunk's own slots, plus chunk
+    tokens j <= i."""
+    t = block_tables.shape[1] * latent_pages.shape[1]
+    return _mla_chunk_attend(q_lat, q_rope, lat_chunk, latent_pages,
+                             block_tables, _segment_prior(chunk_positions, t),
+                             d_latent, scale)

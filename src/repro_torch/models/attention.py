@@ -1,8 +1,10 @@
-"""Attention parameters and projections for the MHA / GQA / MQA family.
+"""Attention parameters and projections: the MHA / GQA / MQA family and
+MLA (latent attention).
 
 The attention itself runs in the paged kernels (``kernels/ops.py``);
-this module declares the weights, projects q/k/v with RoPE, and masks
-padded layout heads.
+this module declares the weights, projects q/k/v (or, for MLA, the
+query heads and the cached latent ``[c_kv ; k_rope]``) with RoPE, and
+masks padded layout heads.
 """
 from __future__ import annotations
 
@@ -69,3 +71,35 @@ def out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("...hk,hkd->...d") as one matmul."""
     h, k, d = wo.shape
     return torch.matmul(o.flatten(-2), wo.reshape(h * k, d))
+
+
+# ---------------------------------------------------------------------------
+# MLA: the cache holds only [c_kv ; k_rope], (d_latent + d_rope) per token
+# ---------------------------------------------------------------------------
+def mla_pspecs(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d, hq, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    dl, dr = cfg.d_latent, cfg.d_rope
+    return {
+        "wq": PSpec((d, hq, hd + dr), ("embed", "heads", None)),
+        "w_dkv": PSpec((d, dl), ("embed", "latent")),
+        "w_kr": PSpec((d, dr), ("embed", None)),
+        "w_uk": PSpec((dl, hq, hd), ("latent", "heads", None)),
+        "w_uv": PSpec((dl, hq, hd), ("latent", "heads", None)),
+        "wo": PSpec((hq, hd, d), ("heads", None, "embed"),
+                    scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1))),
+    }
+
+
+def mla_project(p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig):
+    """x [B,S,D] -> q_nope [B,S,H,hd], q_rope [B,S,H,dr] (RoPE applied)
+    and the cached latent [B,S,dl+dr] = [c_kv ; RoPE(k_rope)]."""
+    dr = cfg.d_rope
+    q = _proj(x, p["wq"])
+    q_nope, q_rope = q[..., :-dr], q[..., -dr:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = torch.matmul(x, p["w_dkv"])
+    k_rope = torch.matmul(x, p["w_kr"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, torch.cat([c_kv, k_rope], dim=-1)

@@ -1,4 +1,5 @@
-"""Decoder-only model (GQA / MHA / MQA, dense FFN) over the paged KV pool.
+"""Decoder-only model (GQA / MHA / MQA or MLA, dense FFN) over the paged
+KV pool.
 
 The serving entry points of the JAX package's ``DecoderModel``, as
 plain functions of (params, state, ...):
@@ -6,6 +7,14 @@ plain functions of (params, state, ...):
     decode_step_paged(params, state, tokens)          -> (logits [B,V], state)
     prefill_chunk(params, state, tokens, offset)      -> {"k", "v"} [L,1,C,Hkv,hd]
     prefill_chunk_seg(params, state, tokens, cpos)    -> {"k", "v"} [L,1,C,Hkv,hd]
+
+MLA models (DeepSeek-style latent attention) keep one pool
+``latent_pages`` [L,N,page,dl+dr] instead of ``k_pages``/``v_pages`` and
+return ``{"latent"}`` [L,1,C,dl+dr] from the prefill entry points.  They
+run in the absorbed form: ``W_uk`` is folded into the query, the MLA
+kernels attend in latent space and return a [.., Hq, dl] context, and
+``W_uv`` plus the output projection follow, with the engine's softmax
+scale ``1/sqrt(hd + dr)``.
 
 Params keep the JAX package's layer-stacked layout (``layers/attn/wq``
 [L,D,Hq,hd], ``wo`` [L,Hq,hd,D], ...), so a JAX ``init_params`` tree
@@ -16,8 +25,8 @@ converts leaf for leaf (``models/convert.py``); the per-layer
 
 The decode step writes the new token's KV into the pool IN PLACE
 (``index_put_``) instead of returning new pool arrays: the returned
-state holds the same pool tensors.  Other families (MLA, MoE, hybrid,
-RWKV, VLM, enc-dec) are not ported yet: ``build_model`` raises.
+state holds the same pool tensors.  Other families (MoE, hybrid, RWKV,
+VLM, enc-dec) are not ported yet: ``build_model`` raises.
 """
 from __future__ import annotations
 
@@ -61,12 +70,16 @@ def layer_params(params: Params, i: int) -> Params:
 class DecoderModel:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        self.mla = cfg.attention_variant == MLA
+        # the engine's absorbed-MLA softmax scale (matches dense MLA)
+        self.mla_scale = 1.0 / math.sqrt(cfg.hd + cfg.d_rope)
         self.specs = self.param_specs()
 
     # -- params -------------------------------------------------------------
     def _layer_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {"attn": attn.attn_pspecs(cfg), "ffn": _dense_ffn_pspecs(cfg),
+        a = attn.mla_pspecs(cfg) if self.mla else attn.attn_pspecs(cfg)
+        return {"attn": a, "ffn": _dense_ffn_pspecs(cfg),
                 "ln1": _ln_spec(cfg.d_model), "ln2": _ln_spec(cfg.d_model)}
 
     def param_specs(self) -> Params:
@@ -109,23 +122,37 @@ class DecoderModel:
         f = lp["ffn"]
         return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
 
+    def _mla_attention(self, lp: Params, h: torch.Tensor,
+                       positions: torch.Tensor, attend):
+        """One absorbed-MLA attention sublayer: project, fold W_uk into
+        the query, ``attend(q_lat, q_rope, latent) -> ctx`` runs the
+        kernel in latent space, then W_uv and the output projection.
+        Returns (out [B,S,D], latent [B,S,dl+dr])."""
+        a = lp["attn"]
+        q_nope, q_rope, latent = attn.mla_project(a, h, positions, self.cfg)
+        q_lat = torch.einsum("...hk,lhk->...hl", q_nope,
+                             a["w_uk"]).contiguous()
+        ctx = attend(q_lat, q_rope.contiguous(), latent)
+        out = torch.einsum("...hl,lhk->...hk", ctx, a["w_uv"])
+        return attn.out_proj(out, a["wo"]), latent
+
     # -- paged decode (block-table KV pool; serving fast path) ---------------
     def decode_step_paged(self, params, state, tokens, backend=None):
         """One batched decode step over a paged KV pool.
 
-        state: {"k_pages"/"v_pages" [L, N, page, Hkv, hd]} +
-        "block_tables" [B, P] int32 + "lengths" [B] int32.  The new
-        token's KV is written into each row's current page (in place);
-        attention reads through the block table (table entry 0 is the
-        scratch page of inactive rows).  Returns (logits [B, V], state
-        with lengths + 1)."""
+        state: {"k_pages"/"v_pages" [L, N, page, Hkv, hd]} (or MLA
+        {"latent_pages" [L, N, page, dl+dr]}) + "block_tables" [B, P]
+        int32 + "lengths" [B] int32.  The new token's KV (or latent) is
+        written into each row's current page (in place); attention reads
+        through the block table (table entry 0 is the scratch page of
+        inactive rows).  Returns (logits [B, V], state with lengths + 1)."""
         cfg = self.cfg
         b = tokens.shape[0]
         x = self._embed(params, tokens)[:, None, :]
         lengths = state["lengths"]
         bt = state["block_tables"]
-        k_pools, v_pools = state["k_pages"], state["v_pages"]
-        page = k_pools.shape[2]
+        pool0 = state["latent_pages" if self.mla else "k_pages"]
+        page = pool0.shape[2]
         rows = torch.arange(b, device=tokens.device)
         page_ids = bt[rows, (lengths // page).long()].long()
         offs = (lengths % page).long()
@@ -133,33 +160,58 @@ class DecoderModel:
         positions = lengths[:, None]
         for i in range(cfg.n_layers):
             lp = layer_params(params, i)
-            kp, vp = k_pools[i], v_pools[i]
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k_new, v_new = attn.project_qkv(lp["attn"], h, positions, cfg)
-            kp[page_ids, offs] = k_new[:, 0].to(kp.dtype)
-            vp[page_ids, offs] = v_new[:, 0].to(vp.dtype)
-            o = ops.paged_decode(q[:, 0].contiguous(), kp, vp, bt, new_len,
-                                 backend=backend)
-            x = x + self._attn_out(lp, o)[:, None]
+            if self.mla:
+                latp = state["latent_pages"][i]
+
+                def attend(q_lat, q_rope, latent, latp=latp):
+                    latp[page_ids, offs] = latent[:, 0].to(latp.dtype)
+                    return ops.mla_decode(
+                        q_lat[:, 0], q_rope[:, 0], latp, bt, new_len,
+                        d_latent=cfg.d_latent, scale=self.mla_scale,
+                        backend=backend)[:, None]
+                o, _ = self._mla_attention(lp, h, positions, attend)
+            else:
+                kp, vp = state["k_pages"][i], state["v_pages"][i]
+                q, k_new, v_new = attn.project_qkv(lp["attn"], h, positions,
+                                                   cfg)
+                kp[page_ids, offs] = k_new[:, 0].to(kp.dtype)
+                vp[page_ids, offs] = v_new[:, 0].to(vp.dtype)
+                o = ops.paged_decode(q[:, 0].contiguous(), kp, vp, bt,
+                                     new_len, backend=backend)
+                o = self._attn_out(lp, o)[:, None]
+            x = x + o
             x = self._ffn_residual(lp, x)
         x = rms_norm(x[:, 0], params["ln_f"], cfg.norm_eps)
         return self._logits(params, x), {**state, "lengths": new_len}
 
     # -- chunked prefill (token-budget mixed batches; serving fast path) -----
-    def _prefill_layers(self, params, state, tokens, positions, attend):
+    def _prefill_layers(self, params, state, tokens, positions, gqa, mla):
+        """The layer loop of both prefill entry points; ``gqa(q, k, v,
+        kp, vp)`` or ``mla(q_lat, q_rope, latent, latent_pages)`` runs the
+        layer's attention kernel.  Returns the chunk's per-layer cache."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        ks, vs = [], []
+        per_layer = []
         for i in range(cfg.n_layers):
             lp = layer_params(params, i)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg)
-            o = attend(q, k, v, state["k_pages"][i], state["v_pages"][i])
-            x = x + self._attn_out(lp, o)
+            if self.mla:
+                latp = state["latent_pages"][i]
+                o, latent = self._mla_attention(
+                    lp, h, positions,
+                    lambda ql, qr, lat, latp=latp: mla(ql, qr, lat, latp))
+                per_layer.append((latent,))
+            else:
+                q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg)
+                o = self._attn_out(lp, gqa(q, k, v, state["k_pages"][i],
+                                           state["v_pages"][i]))
+                per_layer.append((k, v))
+            x = x + o
             x = self._ffn_residual(lp, x)
-            ks.append(k)
-            vs.append(v)
-        return {"k": torch.stack(ks), "v": torch.stack(vs)}
+        keys = ("latent",) if self.mla else ("k", "v")
+        return {key: torch.stack([e[j] for e in per_layer])
+                for j, key in enumerate(keys)}
 
     def prefill_chunk(self, params, state, tokens, offset, backend=None):
         """Prefill a fixed-size prompt chunk against the request's
@@ -167,10 +219,11 @@ class DecoderModel:
 
         tokens [1, C] int32 (zero-padded past the valid suffix); offset
         [1] int32 — tokens already written to this slot's pages; state:
-        {"k_pages"/"v_pages"} + "block_table" [1, P] int32.  Attention
-        is causal within the chunk and full over pool tokens < offset.
-        Returns the chunk's per-layer KV ({"k"/"v"} [L,1,C,Hkv,hd]) for
-        the caller to scatter into the pool (``PagedKVCache.write_chunk``).
+        {"k_pages"/"v_pages"} (or MLA {"latent_pages"}) + "block_table"
+        [1, P] int32.  Attention is causal within the chunk and full over
+        pool tokens < offset.  Returns the chunk's per-layer KV ({"k"/"v"}
+        [L,1,C,Hkv,hd] or {"latent"} [L,1,C,dl+dr]) for the caller to
+        scatter into the pool (``PagedKVCache.write_chunk``).
         """
         c = tokens.shape[1]
         positions = offset[:, None] + torch.arange(
@@ -178,8 +231,11 @@ class DecoderModel:
         bt = state["block_table"]
         return self._prefill_layers(
             params, state, tokens, positions,
-            lambda q, k, v, kp, vp: ops.paged_prefill(
-                q, k, v, kp, vp, bt, offset, backend=backend))
+            gqa=lambda q, k, v, kp, vp: ops.paged_prefill(
+                q, k, v, kp, vp, bt, offset, backend=backend),
+            mla=lambda ql, qr, lat, latp: ops.mla_prefill(
+                ql, qr, lat, latp, bt, offset, d_latent=self.cfg.d_latent,
+                scale=self.mla_scale, backend=backend))
 
     def prefill_chunk_seg(self, params, state, tokens, chunk_positions,
                           backend=None):
@@ -191,16 +247,20 @@ class DecoderModel:
         bt = state["block_table"]
         return self._prefill_layers(
             params, state, tokens, positions,
-            lambda q, k, v, kp, vp: ops.paged_prefill_seg(
-                q, k, v, kp, vp, bt, chunk_positions, backend=backend))
+            gqa=lambda q, k, v, kp, vp: ops.paged_prefill_seg(
+                q, k, v, kp, vp, bt, chunk_positions, backend=backend),
+            mla=lambda ql, qr, lat, latp: ops.mla_prefill_seg(
+                ql, qr, lat, latp, bt, chunk_positions,
+                d_latent=self.cfg.d_latent, scale=self.mla_scale,
+                backend=backend))
 
 
 def build_model(cfg: ModelConfig) -> DecoderModel:
-    """The dense GQA/MHA/MQA decoder; other families are not ported."""
-    if (cfg.family != FAMILY_DECODER or cfg.attention_variant == MLA
-            or cfg.n_experts > 0):
+    """The dense decoder (GQA/MHA/MQA or MLA attention); other families,
+    MoE included, are not ported."""
+    if cfg.family != FAMILY_DECODER or cfg.n_experts > 0:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / variant "
             f"{cfg.attention_variant!r} is not ported to PyTorch yet "
-            f"(dense GQA/MHA/MQA decoders only)")
+            f"(dense GQA/MHA/MQA/MLA decoders only)")
     return DecoderModel(cfg)

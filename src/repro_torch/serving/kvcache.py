@@ -1,8 +1,9 @@
 """The paged block-table KV cache of the live engine.
 
-KV state lives in a global pool of fixed-size pages ([L, n_pages, page,
-Hkv, hd] per K and V) on the engine's device; each decode slot owns a
-block table of page indices, and the paged attention kernels
+KV state lives in a global pool of fixed-size pages on the engine's
+device — [L, n_pages, page, Hkv, hd] per K and V, or for MLA one latent
+pool [L, n_pages, page, dl+dr] of ``[c_kv ; k_rope]`` rows — and each
+decode slot owns a block table of page indices; the paged attention kernels
 (``kernels/ops.py``) read through that indirection.  Pages are
 refcounted (``serving/block_allocator.py``): radix-prefix hits map the
 prefix's physical pages straight into the new request's block table
@@ -14,11 +15,11 @@ reserved scratch page that absorbs the decode-step writes of inactive
 slots and the padded tail of every chunk write.
 
 Block payloads — the currency of the multi-tier hierarchy — are numpy
-arrays [2, L, n, Hkv, hd].  A bf16 pool hands out ``uint16`` arrays of
-the bf16 bits (numpy has no bf16 of its own), so ``nbytes``, checksums
-and ``np.save`` see the same bytes as the JAX engine's payloads; a
-float32 pool hands out float32 arrays.  Device-to-host copies are
-synchronous.
+arrays [2, L, n, Hkv, hd] (MLA: [1, L, n, dl+dr]).  A bf16 pool hands
+out ``uint16`` arrays of the bf16 bits (numpy has no bf16 of its own),
+so ``nbytes``, checksums and ``np.save`` see the same bytes as the JAX
+engine's payloads; a float32 pool hands out float32 arrays.
+Device-to-host copies are synchronous.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MLA, ModelConfig
 from repro_torch.core.tiers import CapacityError
 from repro_torch.serving.block_allocator import BlockAllocator
 
@@ -79,12 +80,17 @@ class PagedKVCache:
             reserve_pages = max(8, 2 * self.pages_per_slot)
         self.n_pages = 1 + n_slots * self.pages_per_slot + reserve_pages
         self.allocator = BlockAllocator(self.n_pages, reserved=(0,))
-        hkv = max(cfg.n_kv_heads, 1)
-        shape = (cfg.n_layers, self.n_pages, self.page, hkv, cfg.hd)
-        self.pools = {"k_pages": torch.zeros(shape, dtype=dtype,
-                                             device=self.device),
-                      "v_pages": torch.zeros(shape, dtype=dtype,
-                                             device=self.device)}
+        if cfg.attention_variant == MLA:
+            # (pool, chunk-state key) pairs, in payload order
+            self.kinds = (("latent_pages", "latent"),)
+            row = (cfg.d_latent + cfg.d_rope,)
+        else:
+            self.kinds = (("k_pages", "k"), ("v_pages", "v"))
+            row = (max(cfg.n_kv_heads, 1), cfg.hd)
+        shape = (cfg.n_layers, self.n_pages, self.page) + row
+        self.pools = {pool: torch.zeros(shape, dtype=dtype,
+                                        device=self.device)
+                      for pool, _ in self.kinds}
         self.tables = np.zeros((n_slots, self.pages_per_slot), np.int32)
         self._mapped = [0] * n_slots           # contiguous mapped page count
         self.slots = [SlotInfo() for _ in range(n_slots)]
@@ -137,8 +143,8 @@ class PagedKVCache:
     # payloads and preemption
     # ------------------------------------------------------------------
     def _payload_state(self, payload: np.ndarray) -> Dict:
-        return {"k": tensor_from_payload(payload[0], self.device)[:, None],
-                "v": tensor_from_payload(payload[1], self.device)[:, None]}
+        return {src: tensor_from_payload(payload[i], self.device)[:, None]
+                for i, (_, src) in enumerate(self.kinds)}
 
     def inject_block(self, slot: int, payload: np.ndarray,
                      start: int) -> int:
@@ -267,27 +273,27 @@ class PagedKVCache:
     # ------------------------------------------------------------------
     def _scatter(self, state1: Dict, pids: np.ndarray,
                  offs: np.ndarray) -> None:
-        """Write ``state1``'s [L, 1, W, ...] KV into every pool at
-        (pids[w], offs[w]), in place.  Entries past the valid count
+        """Write ``state1``'s [L, 1, W, ...] KV (or latent) into every pool
+        at (pids[w], offs[w]), in place.  Entries past the valid count
         point at scratch page 0."""
         pid_t = torch.as_tensor(pids, dtype=torch.long, device=self.device)
         off_t = torch.as_tensor(offs, dtype=torch.long, device=self.device)
-        for key, src in (("k_pages", "k"), ("v_pages", "v")):
+        for key, src in self.kinds:
             pool = self.pools[key]
             pool[:, pid_t, off_t] = state1[src][:, 0].to(pool.dtype)
         self.state_version += 1
 
     def write_range(self, slot: int, state1: Dict, start: int,
                     n_tokens: int) -> None:
-        """Scatter a batch-1 KV state into positions [start, start+n),
-        allocating (and CoW-privatizing) pages as needed.  The index
-        arrays span the data buffer's full width, with entries past
-        ``n_tokens`` directed at scratch page 0."""
+        """Scatter a batch-1 KV (or latent) state into positions
+        [start, start+n), allocating (and CoW-privatizing) pages as
+        needed.  The index arrays span the data buffer's full width,
+        with entries past ``n_tokens`` directed at scratch page 0."""
         self._ensure_pages(slot, start + n_tokens)
         for pi in range(start // self.page,
                         (start + n_tokens - 1) // self.page + 1):
             self.ensure_private(slot, pi)
-        width = state1["k"].shape[2]
+        width = state1[self.kinds[0][1]].shape[2]
         pos = np.arange(start, start + n_tokens)
         pids = np.zeros(width, np.int64)
         offs = np.zeros(width, np.int64)
@@ -308,7 +314,7 @@ class PagedKVCache:
         self.ensure_pages_at(slot, touched)
         for pi in touched:
             self.ensure_private(slot, pi)
-        width = state1["k"].shape[2]
+        width = state1[self.kinds[0][1]].shape[2]
         pids = np.zeros(width, np.int64)
         offs = np.zeros(width, np.int64)
         pids[:n] = self.tables[slot, pos // self.page]
@@ -320,7 +326,7 @@ class PagedKVCache:
     # ------------------------------------------------------------------
     def _gather(self, key: str, slot: int, start: int,
                 n_tokens: int) -> torch.Tensor:
-        """Pool pages -> contiguous [L, n_tokens, Hkv, hd]."""
+        """Pool pages -> contiguous [L, n_tokens, ...]."""
         p0 = start // self.page
         p1 = (start + n_tokens - 1) // self.page
         pids = torch.as_tensor(self.tables[slot, p0:p1 + 1],
@@ -332,9 +338,10 @@ class PagedKVCache:
 
     def extract_block(self, slot: int, start: int,
                       n_tokens: int) -> np.ndarray:
-        """Slot KV -> block payload [2, L, n_tokens, Hkv, hd] (numpy)."""
-        kv = torch.stack([self._gather("k_pages", slot, start, n_tokens),
-                          self._gather("v_pages", slot, start, n_tokens)])
+        """Slot KV -> block payload [2, L, n_tokens, Hkv, hd] (MLA:
+        [1, L, n_tokens, dl+dr]), numpy."""
+        kv = torch.stack([self._gather(pool, slot, start, n_tokens)
+                          for pool, _ in self.kinds])
         return payload_from_tensor(kv)
 
     # ------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the
-card.  Needs a CUDA device and the CUDA toolkit (the kernels build at
-first use); elsewhere every test skips.  Run on the card with
+"""The port's CUDA kernels (GQA paged decode / prefill / segment
+prefill and their absorbed-MLA counterparts) against their plain
+PyTorch versions on the card.  Needs a CUDA device and the CUDA toolkit
+(the kernels build at first use); elsewhere every test skips.  Run on
+the card with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -136,6 +138,134 @@ def test_engine_on_card_matches_cpu_engine(cuda):
         reqs = [eng.submit(t, params=SamplingParams(max_new_tokens=5))
                 for t in prompts]
         eng.run()
+        eng.shutdown()
+        outs[dev] = [r.generated for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def _mla_inputs(dtype, b=3, c=8, hq=8, dl=32, dr=8, page=16, pages=5,
+                seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dtype)
+    n = b * pages + 2
+    tables = (torch.randperm(n - 1, generator=g, device="cuda")[:b * pages]
+              + 1).reshape(b, pages).to(torch.int32)
+    return dict(ql=rn(b, c, hq, dl), qr=rn(b, c, hq, dr),
+                lc=rn(b, c, dl + dr), lp=rn(n, page, dl + dr), tables=tables)
+
+
+# (Hq, dl, dr): the reduced test width, a head count that is not a
+# multiple of the kernels' 32-head tile, and DeepSeek-V3's full width
+MLA_WIDTHS = [(4, 32, 8), (40, 96, 16), (128, 512, 64)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("hq,dl,dr", MLA_WIDTHS)
+@pytest.mark.parametrize("scale", [None, 0.07])
+def test_mla_decode_kernel(cuda, dtype, tol, hq, dl, dr, scale):
+    a = _mla_inputs(dtype, hq=hq, dl=dl, dr=dr)
+    lengths = torch.tensor([0, 17, 80], dtype=torch.int32, device="cuda")
+    tables = a["tables"].clone()
+    tables[1, 3] = 999                          # clamped, past the length
+    args = (a["ql"][:, 0].contiguous(), a["qr"][:, 0].contiguous(), a["lp"],
+            tables, lengths)
+    before = cuda.mla_paged_decode.launches
+    out = cuda.mla_decode(*args, d_latent=dl, scale=scale)
+    torch.cuda.synchronize()
+    plain = cuda.mla_decode(*args, d_latent=dl, scale=scale, backend="torch")
+    assert _err(out, plain) <= tol
+    assert bool((out[0] == 0).all())            # length 0 -> zeros
+    assert cuda.mla_paged_decode.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("hq,dl,dr", MLA_WIDTHS)
+def test_mla_prefill_kernel(cuda, dtype, tol, hq, dl, dr):
+    a = _mla_inputs(dtype, hq=hq, dl=dl, dr=dr)
+    offs = torch.tensor([0, 5, 40], dtype=torch.int32, device="cuda")
+    args = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"], offs)
+    out = cuda.mla_prefill(*args, d_latent=dl)
+    plain = cuda.mla_prefill(*args, d_latent=dl, backend="torch")
+    assert _err(out, plain) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("hq,dl,dr", MLA_WIDTHS)
+def test_mla_prefill_seg_kernel(cuda, dtype, tol, hq, dl, dr):
+    a = _mla_inputs(dtype, hq=hq, dl=dl, dr=dr)
+    rows = [[3, 4, 5, 20, 21, 22, 23], list(range(30, 38)), []]
+    cpos = torch.tensor([r + [-1] * (8 - len(r)) for r in rows],
+                        dtype=torch.int32, device="cuda")
+    args = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"], cpos)
+    out = cuda.mla_prefill_seg(*args, d_latent=dl)
+    plain = cuda.mla_prefill_seg(*args, d_latent=dl, backend="torch")
+    assert _err(out, plain) <= tol
+
+
+def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda):
+    a = _mla_inputs(torch.bfloat16, hq=128, dl=512, dr=64, page=64, pages=3)
+    offs = [0, 37, 120]
+    cpos = torch.tensor([[o + i for i in range(8)] for o in offs],
+                        dtype=torch.int32, device="cuda")
+    base = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"])
+    seg = cuda.mla_prefill_seg(*base, cpos, d_latent=512)
+    off = cuda.mla_prefill(*base, torch.tensor(offs, dtype=torch.int32,
+                                               device="cuda"), d_latent=512)
+    assert torch.equal(seg, off)
+
+
+def test_mla_kernel_wrappers_reject_bad_inputs(cuda):
+    a = _mla_inputs(torch.bfloat16)
+    lengths = torch.ones(3, dtype=torch.int32, device="cuda")
+    ql, qr = a["ql"][:, 0].contiguous(), a["qr"][:, 0].contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.mla_decode(a["ql"][:, 0], qr, a["lp"], a["tables"], lengths,
+                        d_latent=32)
+    with pytest.raises(ValueError, match="widths"):
+        cuda.mla_decode(ql, qr, a["lp"], a["tables"], lengths, d_latent=16)
+    with pytest.raises(ValueError, match="int32"):
+        cuda.mla_decode(ql, qr, a["lp"], a["tables"].long(), lengths,
+                        d_latent=32)
+    wide = _mla_inputs(torch.bfloat16, dl=640, dr=8)
+    with pytest.raises(ValueError, match="d_latent"):
+        cuda.mla_decode(wide["ql"][:, 0].contiguous(),
+                        wide["qr"][:, 0].contiguous(), wide["lp"],
+                        wide["tables"], lengths, d_latent=640)
+
+
+def test_mla_engine_on_card_matches_cpu_engine(cuda):
+    """Reduced DeepSeek-V3: greedy tokens of the engine on the card (CUDA
+    MLA kernels) equal the CPU engine's (plain versions), float32."""
+    import dataclasses
+
+    from repro_torch.config import reduce_config
+    from repro_torch.configs.paper_models import DEEPSEEK_V3
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import EngineConfig, SamplingParams, \
+        ServingEngine
+    cfg = dataclasses.replace(reduce_config(DEEPSEEK_V3), kv_block_tokens=32)
+    params = build_model(cfg).init_params(0, dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    prefix = [int(t) for t in rng.integers(0, 250, size=32)]
+    prompts = [prefix + [int(t) for t in rng.integers(0, 250, size=n)]
+               for n in (9, 17, 30)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, EngineConfig(max_len=128, page_tokens=16,
+                                              kv_budget_bytes=4e6),
+                            params=_to(params, dev), device=dev)
+        reqs = [eng.submit(prompts[0], params=SamplingParams(
+            max_new_tokens=5))]
+        eng.run()
+        reqs += [eng.submit(t, params=SamplingParams(max_new_tokens=5))
+                 for t in prompts[1:]]
+        eng.run()
+        assert eng.stats()["cow_share_hits"] > 0
         eng.shutdown()
         outs[dev] = [r.generated for r in reqs]
     assert outs["cuda"] == outs["cpu"]
