@@ -33,7 +33,25 @@ check raises and the script exits non-zero with no result line:
            wrong by one token, which the limit must catch;
   mla_serve, mla_parity  the same two for DeepSeek-V3 at every
            published width with the depth cut to 8 layers
-           (EngineConfig(max_len=2048), 512-token blocks).
+           (EngineConfig(max_len=2048), 512-token blocks);
+  kernels  (continued) causal flash prefill at llama3.2-1b width (B=1,
+           S=384 and the ragged S=416) beside
+           F.scaled_dot_product_attention as the library yardstick, and
+           int8 paged decode over 64 slots of 512 tokens seen as 64-token
+           pages, each against its plain version and timed as above;
+  dense_serve  the serve traffic on EngineConfig(paged=False): the dense
+           slot cache, monolithic prefill (flash prefill for a prompt
+           with no prefix hit) and decode through the paged decode
+           kernel over the slots seen as pages;
+  monolithic_serve  the same traffic on the paged pool with
+           chunked_prefill=False and fused_step=False;
+  int8_decode  build_model(kv_dtype="int8"): bf16 prefills of four
+           prompts, their K/V quantized into the int8 slot state, then
+           16 decode steps through the int8 kernel;
+  dense_parity  one prefill and one bf16 and one int8 decode step of the
+           full-width model with the kernels, the plain versions and
+           one-token mask-error versions (slots past each row's length
+           hold 8x larger K/V).
 
 Then the ``{"kernels": [...]}`` summary, the card's nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
@@ -60,6 +78,12 @@ H100_BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 # one bf16 step (2^-8 relative); the outputs are convex combinations of
 # N(0,1) values, |o| < 4, so one step is at most 2^-6.
 KERNEL_ATOL = 2.0 ** -6
+# The library yardstick (F.scaled_dot_product_attention) is a fused
+# kernel that may keep its probabilities in bf16 for the product with V,
+# so it may sit more than one output step from the float32 plain version
+# (its gap reads 2^-6 on an H100); the check only guards against timing
+# another function (a wrong mask moves outputs by O(1)).
+LIBRARY_ATOL = 2.0 ** -4
 # Full model, kernels vs plain versions (parity phase): logits and K/V
 # are held to 2^-4 of the tensor's largest magnitude.  On an H100 the
 # kernels' gap reads at most 2^-5.3 of it (bf16 rounding carried through
@@ -246,9 +270,13 @@ def prefill_cost(a, attended_pool, causal_pairs):
 
 def check_and_time(torch, cases, card, phase):
     """Each case against its plain version (``backend="torch"``), then
-    both timed; one JSON line per kernel."""
+    both timed, and the library call that computes the same function
+    where one exists (``library``: a callable on the same inputs, held to
+    the plain version too); one JSON line per kernel."""
     rows = {}
-    for name, fn, args, (nbytes, flops) in cases:
+    for case in cases:
+        name, fn, args, (nbytes, flops) = case[:4]
+        library = case[4] if len(case) > 4 else None
         out = fn(**args, backend="cuda")
         torch.cuda.synchronize()
         plain = fn(**args, backend="torch")
@@ -266,6 +294,13 @@ def check_and_time(torch, cases, card, phase):
                       "flush_ms": kt["flush_ms"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes,
                       "flops": flops, "library_ms": None}
+        if library is not None:
+            lib_err = float((library().float() - plain.float()).abs().max())
+            if not lib_err <= LIBRARY_ATOL:
+                raise AssertionError(f"{name}: the library yardstick differs "
+                                     f"from the plain version by {lib_err}")
+            rows[name]["library_ms"] = time_ms(torch, library)["ms"]
+            rows[name]["library_max_abs_err"] = lib_err
         emit({"phase": phase, "card": card, "kernel": name, **rows[name]})
     return rows
 
@@ -404,15 +439,94 @@ def phase_mla_kernels(torch, ops, card, cfg):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the dense layout: causal flash prefill and int8 decode over slot pages
+# ---------------------------------------------------------------------------
+def flash_cost(a):
+    """Bytes (q, k, v read once, the output written once) and flops
+    (4 * hd per attended (query, key) pair and query head) of one causal
+    prefill."""
+    q, k = a["q"], a["k"]
+    B, S, Hq, hd = q.shape
+    el = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * el
+    return nbytes, 4 * B * (S * (S + 1) // 2) * Hq * hd
+
+
+def make_int8_decode_inputs(torch, gen, attn):
+    """The dense int8 decode's shapes at llama3.2-1b width: 64 slots of
+    512 tokens (the default engine's slot count and max_len) quantized
+    with the port's quantize_kv and seen as 64-token pages; ragged
+    lengths, every 7th row inactive (length 0), one full row."""
+    B, S, Hq, Hkv, hd = 64, 512, 32, 8, 64
+    dev = "cuda"
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+    (kq, ks), (vq, vs) = attn.quantize_kv(k), attn.quantize_kv(v)
+    (kp, vp, ksp, vsp), tables = attn.slot_pages(kq, vq, ks, vs)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen,
+                            device=dev).to(torch.int32)
+    lengths[::7] = 0
+    lengths[1] = S
+    return dict(q=torch.randn((B, Hq, hd), generator=gen,
+                              device=dev).to(torch.bfloat16),
+                k_pages=kp, v_pages=vp, k_scales=ksp, v_scales=vsp,
+                block_tables=tables, lengths=lengths)
+
+
+def int8_decode_cost(a):
+    """Each attended token's int8 K and V of every KV head plus their
+    bf16 scales, q read and the output written once; flops as bf16
+    decode."""
+    q, kp, lengths = a["q"], a["k_pages"], a["lengths"]
+    B, Hq, hd = q.shape
+    Hkv = kp.shape[2]
+    toks = int(lengths.clamp_min(0).sum())
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * toks * Hkv * (hd * kp.element_size()
+                                  + a["k_scales"].element_size())
+              + a["block_tables"].numel() * 4 + B * 4)
+    return nbytes, 4 * toks * Hq * hd
+
+
+def phase_dense_kernels(torch, ops, card):
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    Hq, Hkv, hd = 32, 8, 64
+    cases = []
+    # S = 384: the serve traffic's first prompt padded to 32; 416 ends in
+    # a ragged 32-row tile of the kernel's 64-row tiles
+    for name, S in (("flash_prefill", 384), ("flash_prefill_ragged", 416)):
+        a = {"q": torch.randn((1, S, Hq, hd), generator=gen, device="cuda"),
+             "k": torch.randn((1, S, Hkv, hd), generator=gen, device="cuda"),
+             "v": torch.randn((1, S, Hkv, hd), generator=gen, device="cuda")}
+        a = {key: t.to(torch.bfloat16) for key, t in a.items()}
+        # the library's [B, H, S, hd] layout of the same values
+        qh, kh, vh = (a[key].transpose(1, 2).contiguous()
+                      for key in ("q", "k", "v"))
+
+        def sdpa(qh=qh, kh=kh, vh=vh):
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
+        cases.append((name, ops.flash_causal, a, flash_cost(a), sdpa))
+    dec = make_int8_decode_inputs(torch, gen, attn)
+    cases.append(("paged_decode_int8", ops.paged_decode_int8, dec,
+                  int8_decode_cost(dec)))
+    return check_and_time(torch, cases, card, "kernels")
+
+
 def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
-                shared_tail, phase="serve", pool=None):
+                shared_tail, phase="serve", pool=None,
+                expect=("cow_share_hits", "segment_chunks")):
     """Serve ``cfg`` on the engine: 6 requests of a shared system prefix
     (``system_blocks`` manager blocks) plus ``shared_tail`` tokens each,
     the first alone, then five; then a segment pair A = [S0 S1 S2 | tail]
     and B = [X0 S1 S2 | tail] of one-block segments.  Every kernel's
     count is zeroed just before the traffic and read just after; each
-    kernel of ``path`` must have launched.  ``pool``: the (slots, table
-    pages, pool pages) the kernel phase assumed for this engine."""
+    kernel of ``path`` must have launched, and each engine counter in
+    ``expect`` must be above 0.  ``pool``: the (slots, table pages, pool
+    pages) the kernel phase assumed for this engine."""
     from repro_torch.serving import SamplingParams, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
@@ -420,18 +534,21 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     eng = ServingEngine(cfg, ecfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    shape = (eng.kv.n_slots, eng.kv.pages_per_slot, eng.kv.n_pages)
+    shape = ((eng.kv.n_slots, eng.kv.pages_per_slot, eng.kv.n_pages)
+             if eng.paged else (eng.kv.n_slots, eng.kv.max_len))
     if pool is not None and shape != pool:
         raise AssertionError(f"engine pool {shape} is not the kernel "
                              f"phase's {pool}")
     finite = []
-    decode = eng.model.decode_step_paged
 
-    def checked_decode(*a, **kw):
-        logits, state = decode(*a, **kw)
-        finite.append(torch.isfinite(logits).all())
-        return logits, state
-    eng.model.decode_step_paged = checked_decode
+    def checked(decode):
+        def checked_decode(*a, **kw):
+            logits, state = decode(*a, **kw)
+            finite.append(torch.isfinite(logits).all())
+            return logits, state
+        return checked_decode
+    eng.model.decode_step_paged = checked(eng.model.decode_step_paged)
+    eng.model.decode_step = checked(eng.model.decode_step)
 
     rng = torch.Generator().manual_seed(7)
 
@@ -456,10 +573,13 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
                  for p in wave]
         while eng.scheduler.has_work():
             t = time.perf_counter()
+            prefills = eng.monolithic_prefills
             produced = eng.step()      # ends in a device->host copy
             dt = time.perf_counter() - t
             steps += 1
-            if produced and eng.last_step_prefill_tokens == 0:
+            # decode-only: no prompt chunk and no admission prefill
+            if (produced and eng.last_step_prefill_tokens == 0
+                    and eng.monolithic_prefills == prefills):
                 decode_s += dt
                 decode_tokens += produced
                 decode_steps += 1
@@ -472,7 +592,10 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     ttft = sorted(r.ttft for r in reqs)
     out = {"phase": phase, "card": card, "model": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "slots_table_pages_pool_pages": shape,
+           "paged": st["paged"], "chunked": st["chunked"],
+           "fused": st["fused"],
+           ("slots_table_pages_pool_pages" if eng.paged
+            else "slots_max_len"): shape,
            "requests": len(reqs), "steps": steps,
            "init_s": init_s, "serve_s": serve_s,
            "ttft_p50_s": ttft[len(ttft) // 2],
@@ -486,7 +609,9 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
            "prefill_chunks": st["prefill_chunks"],
+           "monolithic_prefills": st["monolithic_prefills"],
            "cow_share_hits": st["cow_share_hits"],
+           "inject_hits": st["inject_hits"],
            "segment_chunks": st["segment_chunks"],
            "segment_share_hits": st["segment_share_hits"],
            "kernel_backend": st["kernel_backend"]}
@@ -500,9 +625,9 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{phase} path")
-    if st["cow_share_hits"] <= 0 or st["segment_chunks"] <= 0:
-        raise AssertionError("serve traffic missed the CoW prefix or the "
-                             "segment-reuse path")
+    missed = [key for key in expect if st[key] <= 0]
+    if missed:
+        raise AssertionError(f"serve traffic missed {missed}")
     return eng.params, launches
 
 
@@ -667,18 +792,138 @@ def phase_mla_parity(torch, params, cfg, card):
     parity_report(runs, MLA_PARITY_RTOL, card, "mla_parity")
 
 
+def phase_int8_decode(torch, kernel_fns, params, card, cfg):
+    """``build_model(cfg, kv_dtype="int8")``: bf16 prefills of four
+    prompts of ragged lengths (the flash prefill kernel), their K/V
+    quantized with ``quantize_kv`` into the int8 slot state, then 16
+    greedy decode steps through the int8 decode kernel over the slots
+    seen as pages.  Every count is zeroed just before and read just
+    after; both kernels must have launched."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, kv_dtype="int8")
+    lens, max_len, steps = (384, 256, 448, 100), 512, 16
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                             device="cuda").to(torch.int32) for n in lens]
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.init_decode_state(len(lens), max_len, device="cuda")
+    first = []
+    for b, toks in enumerate(prompts):
+        logits, st1 = model.prefill(params, {"tokens": toks})
+        n = toks.shape[1]
+        for key in ("k", "v"):
+            vals, scale = attn.quantize_kv(st1[key][:, 0])
+            state[key][:, b, :n] = vals
+            state[key + "_scale"][:, b, :n] = scale
+        state["lengths"][b] = n
+        first.append(logits.argmax(dim=-1))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.cat(first).to(torch.int32)
+    step_s, finite = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        logits, state = model.decode_step(params, state, tok)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        finite.append(bool(torch.isfinite(logits).all()))
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    want = [n + steps for n in lens]
+    emit({"phase": "int8_decode", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "rows": len(lens), "prompt_lens": lens,
+          "max_len": max_len, "prefill_s": prefill_s,
+          "decode_step_ms_median": 1e3 * sorted(step_s)[steps // 2],
+          "decode_step_ms_mean": 1e3 * sum(step_s) / steps,
+          "launches": launches})
+    if not all(finite):
+        raise AssertionError("int8_decode: non-finite logits")
+    if state["lengths"].tolist() != want:
+        raise AssertionError(f"int8_decode: lengths {state['lengths']} "
+                             f"!= {want}")
+    for name in ("flash_prefill", "paged_decode_int8"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"int8_decode path")
+    return launches
+
+
+def phase_dense_parity(torch, params, cfg, card):
+    """One monolithic prefill (S = 416, a ragged tile) and one bf16 and
+    one int8 dense decode step of the full-width model with the kernels,
+    with their plain versions, and with plain versions that each get one
+    mask wrong by one token, on the same weights and slot state; slots
+    past each row's new token hold 8x larger K/V."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    L, Hkv, hd, B, S = cfg.n_layers, cfg.n_kv_heads, cfg.hd, 16, 512
+    lengths = torch.randint(1, S - 1, (B,), generator=gen,
+                            device="cuda").to(torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                           device="cuda").to(torch.int32)
+    ptoks = torch.randint(0, cfg.vocab_size, (1, 416), generator=gen,
+                          device="cuda").to(torch.int32)
+    stale = (torch.arange(S, device="cuda")[None, :]
+             > lengths.long()[:, None])                       # [B, S]
+
+    def slots():
+        x = torch.randn((L, B, S, Hkv, hd), generator=gen, device="cuda")
+        x[:, stale] *= STALE_SCALE
+        return x
+    k, v = slots(), slots()
+    dense = {"k": k.bfloat16(), "v": v.bfloat16(), "lengths": lengths}
+    (kq, ks), (vq, vs) = attn.quantize_kv(k), attn.quantize_kv(v)
+    int8 = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+            "lengths": lengths}
+    del k, v
+    m16, m8 = build_model(cfg), build_model(cfg, kv_dtype="int8")
+    rows, at = torch.arange(B, device="cuda"), lengths.long()
+
+    def run(be):
+        logits, st = m16.prefill(params, {"tokens": ptoks}, backend=be)
+        out = {"prefill_logits": logits, "prefill_k": st["k"],
+               "prefill_v": st["v"]}
+        logits, new = m16.decode_step(
+            params, {key: t.clone() for key, t in dense.items()}, tokens,
+            backend=be)
+        out.update(decode_logits=logits, decode_new_k=new["k"][:, rows, at],
+                   decode_new_v=new["v"][:, rows, at])
+        logits, new = m8.decode_step(
+            params, {key: t.clone() for key, t in int8.items()}, tokens,
+            backend=be)
+        out.update(int8_decode_logits=logits,
+                   int8_decode_new_k=(new["k"][:, rows, at].float()
+                                      * new["k_scale"][:, rows, at].float()))
+        return out
+
+    runs = {"cuda": run("cuda"), "torch": run("torch")}
+    with one_token_mask_errors(torch):
+        runs["mutant"] = run("torch")
+    parity_report(runs, PARITY_RTOL, card, "dense_parity")
+
+
 @contextlib.contextmanager
 def one_token_mask_errors(torch):
     """Swap in plain versions that each get one mask wrong, the errors a
     kernel's masking could make: decode attends one pool token past the
     row's length, prefill the pool token at the offset (the slot the
     chunk's first token will fill), segment prefill does not exclude the
-    slots the chunk will fill; the same three for the MLA versions.  The
-    parity limit must see each of them."""
+    slots the chunk will fill; the same three for the MLA versions; the
+    flash prefill admits key i + 1 for query i, and the int8 decode
+    attends one pool token past the row's length.  The parity limit must
+    see each of them."""
     from repro_torch.kernels import ref
     names = ("paged_decode_attention", "paged_prefill_attention",
              "paged_prefill_segments", "mla_paged_decode",
-             "mla_paged_prefill", "mla_paged_prefill_segments")
+             "mla_paged_prefill", "mla_paged_prefill_segments",
+             "flash_prefill", "paged_decode_attention_int8")
     saved = {n: getattr(ref, n) for n in names}
 
     def one_more(lengths, t):
@@ -728,9 +973,22 @@ def one_token_mask_errors(torch):
             own_slots_prior(chunk_positions, t, q_lat.device), d_latent,
             scale)
 
+    def flash_one_ahead(q, k, v):
+        b, s = q.shape[:2]
+        mask = ref.causal_mask(s, s, 1, q.device).expand(b, s, s)
+        return ref._attend(q, k, v, mask)
+
+    def int8_decode_past_length(q, k_pages, v_pages, k_scales, v_scales,
+                                block_tables, lengths):
+        t = block_tables.shape[1] * k_pages.shape[1]
+        return saved["paged_decode_attention_int8"](
+            q, k_pages, v_pages, k_scales, v_scales, block_tables,
+            one_more(lengths, t))
+
     mutants = (decode_past_length, prefill_at_offset, segments_own_slots,
                mla_decode_past_length, mla_prefill_at_offset,
-               mla_segments_own_slots)
+               mla_segments_own_slots, flash_one_ahead,
+               int8_decode_past_length)
     for n, fn in zip(names, mutants):
         setattr(ref, n, fn)
     try:
@@ -753,9 +1011,16 @@ REPLACES = {
                           "src/repro/kernels/paged_prefill.py:416"),
     "mla_paged_prefill_seg": ("src/repro_torch/csrc/mla_paged_prefill.cu",
                               "src/repro/kernels/paged_prefill.py:523"),
+    "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill.py:65"),
+    "paged_decode_int8": ("src/repro_torch/csrc/paged_decode.cu",
+                          "src/repro/kernels/paged_attention.py:195"),
 }
 GQA_PATH = ("paged_decode", "paged_prefill", "paged_prefill_seg")
 MLA_PATH = ("mla_paged_decode", "mla_paged_prefill", "mla_paged_prefill_seg")
+# the dense and monolithic paths: flash prefill for a prompt with no
+# prefix hit, the paged decode kernel over slots or pages
+DENSE_PATH = ("flash_prefill", "paged_decode")
 
 
 def main() -> int:
@@ -776,8 +1041,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.mla_paged_decode import mla_paged_decode
-    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_int8)
     from repro_torch.kernels.paged_prefill import (mla_paged_prefill,
                                                    mla_paged_prefill_segments,
                                                    paged_prefill_attention,
@@ -788,7 +1055,9 @@ def main() -> int:
                   "paged_prefill_seg": paged_prefill_segments,
                   "mla_paged_decode": mla_paged_decode,
                   "mla_paged_prefill": mla_paged_prefill,
-                  "mla_paged_prefill_seg": mla_paged_prefill_segments}
+                  "mla_paged_prefill_seg": mla_paged_prefill_segments,
+                  "flash_prefill": flash_prefill,
+                  "paged_decode_int8": paged_decode_attention_int8}
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -799,6 +1068,7 @@ def main() -> int:
     mla_cfg = mla_config()
     rows = phase_kernels(torch, ops, smi)
     rows.update(phase_mla_kernels(torch, ops, smi, mla_cfg))
+    rows.update(phase_dense_kernels(torch, ops, smi))
 
     # each path is driven with every count zeroed just before it; a
     # kernel's launches are those of its own path
@@ -816,9 +1086,28 @@ def main() -> int:
         pool=(MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES))
     launches.update({name: counts[name] for name in MLA_PATH})
     phase_mla_parity(torch, params, mla_cfg, smi)
+    del params
+    torch.cuda.empty_cache()
+
+    llama = get_config("llama3.2-1b")
+    params, counts = phase_serve(torch, kernel_fns, DENSE_PATH, smi, llama,
+                                 EngineConfig(paged=False), system_blocks=2,
+                                 shared_tail=128, phase="dense_serve",
+                                 expect=("inject_hits",
+                                         "monolithic_prefills"))
+    launches["flash_prefill"] = counts["flash_prefill"]
+    phase_serve(torch, kernel_fns, DENSE_PATH, smi, llama,
+                EngineConfig(chunked_prefill=False, fused_step=False),
+                system_blocks=2, shared_tail=128, phase="monolithic_serve",
+                expect=("cow_share_hits", "monolithic_prefills"))
+    counts = phase_int8_decode(torch, kernel_fns, params, smi, llama)
+    launches["paged_decode_int8"] = counts["paged_decode_int8"]
+    phase_dense_parity(torch, params, llama, smi)
 
     summary = []
     for name, row in rows.items():
+        if name not in REPLACES:
+            continue               # a second shape of a listed kernel
         source, replaces = REPLACES[name]
         summary.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

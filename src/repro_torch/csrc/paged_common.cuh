@@ -18,6 +18,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -135,20 +136,29 @@ __device__ inline void tile_update(Tile& t, int R, int KT, int hd) {
   __syncthreads();
 }
 
+// Per-row factors of unscaled pages: none.
+struct NoScale {
+  __device__ float2 operator()(int) const { return make_float2(1.f, 1.f); }
+};
+
 // Copy KT key/value rows of one KV head into the tile (as float32).
 // Row j of the source starts at src + row_offset(j); rows with
-// j >= n_rows are zero-filled.
-template <typename T, typename RowOffset>
+// j >= n_rows are zero-filled.  Row j's keys are multiplied by
+// row_scale(j).x and its values by .y (int8 pages: the per-token-head
+// scales, so the values are dequantized in registers).
+template <typename T, typename RowOffset, typename RowScale = NoScale>
 __device__ inline void tile_load_kv(Tile& t, const T* k_src, const T* v_src,
                                     int KT, int hd, int n_rows,
-                                    RowOffset row_offset) {
+                                    RowOffset row_offset,
+                                    RowScale row_scale = RowScale()) {
   for (int i = threadIdx.x; i < KT * hd; i += blockDim.x) {
     const int j = i / hd, d = i - (i / hd) * hd;
     float kx = 0.f, vx = 0.f;
     if (j < n_rows) {
       const size_t off = row_offset(j) + d;
-      kx = to_f(k_src[off]);
-      vx = to_f(v_src[off]);
+      const float2 sc = row_scale(j);
+      kx = to_f(k_src[off]) * sc.x;
+      vx = to_f(v_src[off]) * sc.y;
     }
     t.k[j * (hd + 1) + d] = kx;
     t.v[j * hd + d] = vx;

@@ -1,2 +1,3 @@
-"""Paged attention kernels: hand-written CUDA for Hopper (``csrc/``)
-beside their plain PyTorch versions (``ref.py``)."""
+"""Attention kernels (paged decode and prefill, dense causal prefill):
+hand-written CUDA for Hopper (``csrc/``) beside their plain PyTorch
+versions (``ref.py``)."""

@@ -1,8 +1,9 @@
 """Public paged attention ops with backend dispatch.
 
 Same signatures and layouts as the JAX package's ``kernels/ops.py``
-(``paged_decode``, ``paged_prefill``, ``paged_prefill_seg`` and the
-absorbed-MLA ``mla_decode``, ``mla_prefill``, ``mla_prefill_seg``).
+(``paged_decode``, ``paged_prefill``, ``paged_prefill_seg``, the
+absorbed-MLA ``mla_decode``, ``mla_prefill``, ``mla_prefill_seg``, the
+dense causal ``flash_causal`` and the int8 ``paged_decode_int8``).
 Each op resolves its backend through ``kernels/backend.py``: the CUDA
 kernel for CUDA tensors, the plain PyTorch version for CPU tensors, and
 the plain version on the card only when ``backend="torch"`` is named
@@ -10,8 +11,10 @@ explicitly.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.mla_paged_decode import mla_paged_decode
-from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                 paged_decode_attention_int8)
 from repro_torch.kernels.paged_prefill import (mla_paged_prefill,
                                                mla_paged_prefill_segments,
                                                paged_prefill_attention,
@@ -70,3 +73,18 @@ def mla_prefill_seg(q_lat, q_rope, lat_chunk, latent_pages, block_tables,
                                       block_tables, chunk_positions,
                                       d_latent=d_latent, scale=scale,
                                       backend=backend)
+
+
+def flash_causal(q, k, v, backend: str | None = None):
+    """Causal prefill attention. q [B,S,Hq,hd], k/v [B,S,Hkv,hd]
+    -> [B,S,Hq,hd]; any S."""
+    return flash_prefill(q, k, v, backend=backend)
+
+
+def paged_decode_int8(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                      lengths, backend: str | None = None):
+    """int8-paged decode (per-token-head scales, dequantized in
+    registers): q [B,Hq,hd] -> [B,Hq,hd]."""
+    return paged_decode_attention_int8(q, k_pages, v_pages, k_scales,
+                                       v_scales, block_tables, lengths,
+                                       backend=backend)

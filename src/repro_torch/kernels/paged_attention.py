@@ -1,12 +1,14 @@
-"""Paged decode attention: the CUDA kernel ``csrc/paged_decode.cu`` and
-its wrapper.
+"""Paged decode attention: the CUDA kernels of ``csrc/paged_decode.cu``
+and their wrappers.
 
-Replaces the Pallas TPU kernel ``paged_decode_attention``
-(``repro/kernels/paged_attention.py``).  One query per batch row attends
-the row's pool tokens below its length through the block table; the
-kernel is bound by the HBM bytes of the K and V pages it reads (see the
-source note in ``csrc/paged_decode.cu``).  On CPU tensors the wrapper
-runs the plain version in ``kernels/ref.py``.
+Replace the Pallas TPU kernels ``paged_decode_attention`` and
+``paged_decode_attention_int8`` (``repro/kernels/paged_attention.py``).
+One query per batch row attends the row's pool tokens below its length
+through the block table; the kernels are bound by the HBM bytes of the
+K and V pages they read (see the source note in
+``csrc/paged_decode.cu``), which the int8 version halves, dequantizing
+with one scale per (token, KV head) as it stages a page.  On CPU
+tensors the wrappers run the plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -94,3 +96,60 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+# q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out; B, Hq,
+# Hkv, hd, N, page, P; scale; q dtype code; stream
+DECODE_INT8_ARGS = [PTR] * 8 + [INT] * 7 + [FLT, INT, PTR]
+
+
+def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, k_scales: torch.Tensor,
+                                v_scales: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                lengths: torch.Tensor,
+                                backend: str | None = None) -> torch.Tensor:
+    """q [B,Hq,hd]; k/v_pages int8 [N,page,Hkv,hd]; k/v_scales bf16
+    [N,page,Hkv,1]; block_tables [B,P] int32; lengths [B] int32 ->
+    [B,Hq,hd] in q's dtype."""
+    if resolve_backend(backend, q) == "torch":
+        return ref.paged_decode_attention_int8(q, k_pages, v_pages, k_scales,
+                                               v_scales, block_tables,
+                                               lengths)
+    name = "paged_decode_int8"
+    for t in (q, k_pages, v_pages, k_scales, v_scales, block_tables,
+              lengths):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if q.dtype not in DTYPE_CODES or k_pages.dtype != torch.int8 or \
+            v_pages.dtype != torch.int8:
+        raise ValueError(f"{name}: unsupported dtypes q={q.dtype} "
+                         f"pages={k_pages.dtype}/{v_pages.dtype}")
+    if k_scales.dtype != torch.bfloat16 or v_scales.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: scales must be bfloat16")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: tables/lengths must be int32")
+    b, hq, hd = q.shape
+    n, page, hkv, _ = k_pages.shape
+    if (q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape
+            or k_pages.shape[3] != hd or hq % hkv != 0
+            or k_scales.shape != (n, page, hkv, 1)
+            or v_scales.shape != k_scales.shape
+            or block_tables.dim() != 2 or block_tables.shape[0] != b
+            or lengths.shape != (b,)):
+        raise ValueError(f"{name}: q [B,Hq,hd], pages [N,page,Hkv,hd], "
+                         f"scales [N,page,Hkv,1], tables [B,P], lengths [B]")
+    out = torch.empty_like(q)
+    fn = build.entry("paged_decode", name, DECODE_INT8_ARGS)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, hq, hkv, hd, n, page, block_tables.shape[1],
+            1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], stream_ptr(q.device))
+    build.check(rc, "paged_decode", name)
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+paged_decode_attention_int8.launches = 0

@@ -79,6 +79,32 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     return _attend(q[:, None], k, v, _length_mask(lengths, k.shape[1]))[:, 0]
 
 
+def paged_decode_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
+                                block_tables, lengths):
+    """As ``paged_decode_attention`` over int8 pages [N,page,Hkv,hd] with
+    per-token-head scales [N,page,Hkv,1]: each value is dequantized in
+    float32 (``float(int8) * float(scale)``), then attended."""
+    k = _gather(k_pages, block_tables).float() * \
+        _gather(k_scales, block_tables).float()
+    v = _gather(v_pages, block_tables).float() * \
+        _gather(v_scales, block_tables).float()
+    return _attend(q[:, None], k, v, _length_mask(lengths, k.shape[1]))[:, 0]
+
+
+def causal_mask(sq: int, sk: int, q_offset: int, device) -> torch.Tensor:
+    """[1,Sq,Sk]: query i (at position q_offset + i) attends keys
+    t <= q_offset + i."""
+    qpos = q_offset + torch.arange(sq, device=device)
+    return (torch.arange(sk, device=device)[None, :] <= qpos[:, None])[None]
+
+
+def flash_prefill(q, k, v):
+    """q [B,S,Hq,hd]; k/v [B,S,Hkv,hd] -> [B,S,Hq,hd]: causal attention,
+    query i attends keys j <= i, for any S."""
+    b, s = q.shape[:2]
+    return _attend(q, k, v, causal_mask(s, s, 0, q.device).expand(b, s, s))
+
+
 def _chunk_attend(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
                   prior: torch.Tensor) -> torch.Tensor:
     """Pool tokens where ``prior`` [B,C,T_pool] holds, plus chunk tokens

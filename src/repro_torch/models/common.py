@@ -16,6 +16,21 @@ import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
+# Device
+# ---------------------------------------------------------------------------
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another device (``device="cpu"``); with no card it raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: entry points run on the card unless they "
+                "are given device='cpu'")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
 # Parameter declaration
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)

@@ -6,7 +6,8 @@ seed, so a test that holds the port to the JAX package hands the JAX
 and converts it here, one copy per leaf.  The layouts are identical, so
 nothing is transposed.  A bf16 leaf arrives with numpy dtype name
 ``bfloat16``; its bits are reinterpreted through ``uint16`` without
-importing the package that defines that dtype.
+importing the package that defines that dtype.  Tensors land on the
+CUDA card unless ``device`` names another (``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import resolve_device
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -23,11 +26,12 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
         t = t.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
-    return t.to(device=device)
+    return t.to(device=resolve_device(device))
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
     """Nested dict of numpy arrays -> the same tree of tensors."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)

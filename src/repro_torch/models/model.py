@@ -1,32 +1,49 @@
 """Decoder-only model (GQA / MHA / MQA or MLA, dense FFN) over the paged
-KV pool.
+KV pool or the dense slot cache.
 
 The serving entry points of the JAX package's ``DecoderModel``, as
-plain functions of (params, state, ...):
+plain functions of (params, state, ...).  Over the paged pool:
 
     decode_step_paged(params, state, tokens)          -> (logits [B,V], state)
     prefill_chunk(params, state, tokens, offset)      -> {"k", "v"} [L,1,C,Hkv,hd]
     prefill_chunk_seg(params, state, tokens, cpos)    -> {"k", "v"} [L,1,C,Hkv,hd]
 
+Over the dense slot layout (``init_decode_state``: "k"/"v"
+[L,B,S,Hkv,hd] plus "lengths" [B]; with ``kv_dtype="int8"`` int8 values
+and bf16 scales "k_scale"/"v_scale" [L,B,S,Hkv,1]), for the monolithic
+A/B paths of the engine:
+
+    prefill(params, {"tokens"})                       -> (logits [B,V], state)
+    prefill_suffix(params, {"tokens"}, prefix_kv, q_offset)
+                                                      -> (logits, (k, v) [L,B,S,Hkv,hd])
+    decode_step(params, state, tokens)                -> (logits [B,V], state)
+
+``prefill`` runs the flash prefill kernel (``attention.causal_attention``
+from position 0); ``decode_step`` the paged decode kernels over the
+slot cache seen as pages (``attention.decode_attention``), int8 caches
+through the int8 kernel.
+
 MLA models (DeepSeek-style latent attention) keep one pool
 ``latent_pages`` [L,N,page,dl+dr] instead of ``k_pages``/``v_pages`` and
-return ``{"latent"}`` [L,1,C,dl+dr] from the prefill entry points.  They
-run in the absorbed form: ``W_uk`` is folded into the query, the MLA
-kernels attend in latent space and return a [.., Hq, dl] context, and
-``W_uv`` plus the output projection follow, with the engine's softmax
-scale ``1/sqrt(hd + dr)``.
+return ``{"latent"}`` [L,1,C,dl+dr] from the chunk prefill entry points.
+They run in the absorbed form: ``W_uk`` is folded into the query, the
+MLA kernels attend in latent space and return a [.., Hq, dl] context,
+and ``W_uv`` plus the output projection follow, with the engine's
+softmax scale ``1/sqrt(hd + dr)``.  Their dense-layout entry points (the
+JAX package's ``mla_attention_prefill`` / ``mla_attention_decode``) are
+not ported and raise.
 
 Params keep the JAX package's layer-stacked layout (``layers/attn/wq``
 [L,D,Hq,hd], ``wo`` [L,Hq,hd,D], ...), so a JAX ``init_params`` tree
 converts leaf for leaf (``models/convert.py``); the per-layer
-``lax.scan`` is a Python loop.  Attention runs in the paged kernels
+``lax.scan`` is a Python loop.  Attention runs in the kernels
 (``kernels/ops.py``); the projections, FFN and logits are
 ``torch.matmul``, as the JAX package left them to XLA.
 
-The decode step writes the new token's KV into the pool IN PLACE
-(``index_put_``) instead of returning new pool arrays: the returned
-state holds the same pool tensors.  Other families (MoE, hybrid, RWKV,
-VLM, enc-dec) are not ported yet: ``build_model`` raises.
+The decode steps write the new token's KV into the pool or the slot
+cache IN PLACE instead of returning new arrays: the returned state
+holds the same cache tensors.  Other families (MoE, hybrid, RWKV, VLM,
+enc-dec) are not ported yet: ``build_model`` raises.
 """
 from __future__ import annotations
 
@@ -38,10 +55,11 @@ import torch
 from repro_torch.config import FAMILY_DECODER, MLA, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (PSpec, materialize, rms_norm,
-                                       stack_specs, swiglu)
+from repro_torch.models.common import (PSpec, materialize, resolve_device,
+                                       rms_norm, stack_specs, swiglu)
 
 Params = Any
+KV_DTYPES = ("bfloat16", "int8")
 
 
 def _ln_spec(d: int) -> PSpec:
@@ -68,8 +86,12 @@ def layer_params(params: Params, i: int) -> Params:
 
 
 class DecoderModel:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, kv_dtype: str = "bfloat16"):
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r}: expected one of "
+                             f"{KV_DTYPES}")
         self.cfg = cfg
+        self.kv_dtype = kv_dtype      # the dense slot cache's values
         self.mla = cfg.attention_variant == MLA
         # the engine's absorbed-MLA softmax scale (matches dense MLA)
         self.mla_scale = 1.0 / math.sqrt(cfg.hd + cfg.d_rope)
@@ -96,11 +118,46 @@ class DecoderModel:
 
     def init_params(self, seed: int, device=None,
                     dtype: torch.dtype = torch.bfloat16) -> Params:
-        gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+        """Seeded weights on the CUDA card unless ``device`` names
+        another (``device="cpu"``)."""
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
         return materialize(self.specs, gen, dtype=dtype, device=device)
 
-    def supports_paged_decode(self) -> bool:
-        return True
+    def _dense_only(self, what: str) -> None:
+        if self.mla:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} of MLA models (the JAX package's "
+                f"mla_attention_prefill / mla_attention_decode) is not "
+                f"ported; MLA serves from the paged pool with chunked "
+                f"prefill")
+
+    # -- the dense slot layout ----------------------------------------------
+    def decode_state_specs(self, batch: int, max_len: int) -> Dict[str, PSpec]:
+        self._dense_only("the dense slot layout")
+        cfg = self.cfg
+        L, hkv, hd = cfg.n_layers, max(cfg.n_kv_heads, 1), cfg.hd
+        axes = ("layers", "batch", "kv_seq", None, None)
+        kv = PSpec((L, batch, max_len, hkv, hd), axes, init="zeros",
+                   dtype="int8" if self.kv_dtype == "int8" else None)
+        out = {"lengths": PSpec((batch,), ("batch",), init="zeros",
+                                dtype="int32"),
+               "k": kv, "v": kv}
+        if self.kv_dtype == "int8":
+            sc = PSpec((L, batch, max_len, hkv, 1), axes, init="zeros")
+            out["k_scale"] = sc
+            out["v_scale"] = sc
+        return out
+
+    def init_decode_state(self, batch: int, max_len: int,
+                          device=None) -> Dict[str, torch.Tensor]:
+        """Zeroed slot state (bf16 unless a spec names its dtype) on the
+        CUDA card unless ``device`` names another."""
+        device = resolve_device(device)
+        return {key: torch.zeros(p.shape, device=device,
+                                 dtype=getattr(torch, p.dtype or "bfloat16"))
+                for key, p in self.decode_state_specs(batch,
+                                                      max_len).items()}
 
     # -- helpers --------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -135,6 +192,101 @@ class DecoderModel:
         ctx = attend(q_lat, q_rope.contiguous(), latent)
         out = torch.einsum("...hl,lhk->...hk", ctx, a["w_uv"])
         return attn.out_proj(out, a["wo"]), latent
+
+    # -- monolithic prefill and dense decode -----------------------------------
+    def _self_block_full(self, lp, x, positions, backend=None, prefix=None,
+                         q_offset: int = 0):
+        """One layer over a whole prompt (or a suffix at ``q_offset``
+        after the cached ``prefix`` (k, v) [B,P,Hkv,hd]); returns (x, k,
+        v) with the layer's own K/V."""
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg)
+        kf, vf = k, v
+        if prefix is not None:
+            kf = torch.cat([prefix[0].to(k.dtype), k], dim=1)
+            vf = torch.cat([prefix[1].to(v.dtype), v], dim=1)
+        o = attn.causal_attention(q, kf, vf, q_offset=q_offset,
+                                  backend=backend)
+        x = x + self._attn_out(lp, o)
+        return self._ffn_residual(lp, x), k, v
+
+    def _forward_layers(self, params, tokens, positions, backend=None,
+                        prefix_kv=None, q_offset: int = 0):
+        """Every layer, then the final norm; returns (x, k, v) with the
+        K/V stacked [L,B,S,Hkv,hd]."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            prefix = (None if prefix_kv is None
+                      else (prefix_kv[0][i], prefix_kv[1][i]))
+            x, k, v = self._self_block_full(layer_params(params, i), x,
+                                            positions, backend, prefix,
+                                            q_offset)
+            ks.append(k)
+            vs.append(v)
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return x, torch.stack(ks), torch.stack(vs)
+
+    def prefill(self, params, batch, backend=None):
+        """Monolithic prefill of ``batch["tokens"]`` [B,S] from position
+        0 through the flash prefill kernel.  Returns (logits of the last
+        position [B,V], {"k"/"v" [L,B,S,Hkv,hd], "lengths" [B] = S})."""
+        self._dense_only("the monolithic prefill")
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        x, k, v = self._forward_layers(params, tokens, positions, backend)
+        lengths = torch.full((b,), s, dtype=torch.int32,
+                             device=tokens.device)
+        return self._logits(params, x[:, -1]), {"lengths": lengths,
+                                                "k": k, "v": v}
+
+    def prefill_suffix(self, params, batch, prefix_kv, q_offset: int,
+                       backend=None):
+        """Prefix-cache-aware prefill: the suffix ``batch["tokens"]``
+        [B,S] at positions q_offset + i attends [cached prefix ; its own
+        causal keys].  ``prefix_kv`` = (k, v) [L,B,q_offset,Hkv,hd].
+        Returns (logits [B,V], (k, v) of the suffix [L,B,S,Hkv,hd])."""
+        self._dense_only("the monolithic prefill")
+        tokens = batch["tokens"]
+        positions = q_offset + torch.arange(tokens.shape[1],
+                                            device=tokens.device)[None, :]
+        x, k, v = self._forward_layers(params, tokens, positions, backend,
+                                       prefix_kv, q_offset)
+        return self._logits(params, x[:, -1]), (k, v)
+
+    def decode_step(self, params, state, tokens, backend=None):
+        """One batched decode step over the dense slot cache: each row's
+        new K/V (int8 values and scales for an int8 cache) is written at
+        its length (in place), then the row attends its length + 1
+        tokens.  Returns (logits [B,V], state with lengths + 1)."""
+        self._dense_only("the dense decode step")
+        cfg = self.cfg
+        int8 = self.kv_dtype == "int8"
+        x = self._embed(params, tokens)[:, None, :]
+        lengths = state["lengths"]
+        new_len = lengths + 1
+        positions = lengths[:, None]
+        for i in range(cfg.n_layers):
+            lp = layer_params(params, i)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k_new, v_new = attn.project_qkv(lp["attn"], h, positions, cfg)
+            k_c, v_c = state["k"][i], state["v"][i]
+            scales = (state["k_scale"][i], state["v_scale"][i]) if int8 \
+                else (None, None)
+            for cache, sc, new in zip((k_c, v_c), scales, (k_new, v_new)):
+                if int8:
+                    new, new_sc = attn.quantize_kv(new)
+                    attn.cache_write(sc, new_sc, lengths)
+                attn.cache_write(cache, new, lengths)
+            o = attn.decode_attention(q, k_c, v_c, new_len, *scales,
+                                      backend=backend)
+            x = x + self._attn_out(lp, o)
+            x = self._ffn_residual(lp, x)
+        x = rms_norm(x[:, 0], params["ln_f"], cfg.norm_eps)
+        return self._logits(params, x), {**state, "lengths": new_len}
 
     # -- paged decode (block-table KV pool; serving fast path) ---------------
     def decode_step_paged(self, params, state, tokens, backend=None):
@@ -255,12 +407,13 @@ class DecoderModel:
                 backend=backend))
 
 
-def build_model(cfg: ModelConfig) -> DecoderModel:
-    """The dense decoder (GQA/MHA/MQA or MLA attention); other families,
-    MoE included, are not ported."""
+def build_model(cfg: ModelConfig, kv_dtype: str = "bfloat16") -> DecoderModel:
+    """The dense decoder (GQA/MHA/MQA or MLA attention) with a bf16 or
+    int8 dense slot cache; other families, MoE included, are not
+    ported."""
     if cfg.family != FAMILY_DECODER or cfg.n_experts > 0:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / variant "
             f"{cfg.attention_variant!r} is not ported to PyTorch yet "
             f"(dense GQA/MHA/MQA/MLA decoders only)")
-    return DecoderModel(cfg)
+    return DecoderModel(cfg, kv_dtype=kv_dtype)

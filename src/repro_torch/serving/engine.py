@@ -27,13 +27,27 @@ Per step:
      worker for demotion and restored from the staging buffer or by an
      async fetch.
 
-This is the default path of the JAX package's engine (``paged``,
-``chunked_prefill``, ``fused_step`` and ``segment_reuse`` on).  The
-dense, monolithic and unfused A/B paths are not ported: asking for them
-raises ``NotImplementedError``, and the cluster / front-end hooks
-(fleet-shared tier binding, request cancellation, failover teardown)
-come with the slice that ports the cluster and the front-end.  Entry
-points run on CUDA unless the caller passes ``device="cpu"``.
+That is the default path of the JAX package's engine (``paged``,
+``chunked_prefill``, ``fused_step`` and ``segment_reuse`` on).  Its A/B
+paths are ported too:
+
+  * ``paged=False`` serves from the dense ``SlotKVCache`` (no page
+    sharing, so prefix hits are copied in from their payloads), and,
+    having no pool to chunk into, prefills monolithically;
+  * ``chunked_prefill=False`` prefills at admission, in one forward per
+    request: the flash prefill kernel for a prompt with no prefix hit
+    (``DecoderModel.prefill``), plain attention for the suffix after a
+    cached prefix (``prefill_suffix``); suffixes are padded to a
+    multiple of ``PREFILL_PAD`` tokens;
+  * ``fused_step=False`` decodes, then samples each request on its own
+    (``sampler.sample``, one device->host copy per request).
+
+Segment reuse needs chunked prefill.  MLA models serve only the paged,
+chunked path (their dense-layout model entry points are not ported).
+The cluster / front-end hooks (fleet-shared tier binding, request
+cancellation, failover teardown) come with the slice that ports the
+cluster and the front-end.  Entry points run on CUDA unless the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -48,15 +62,20 @@ from repro_torch.core import sizing
 from repro_torch.core.cache_manager import PredictiveCacheManager
 from repro_torch.core.tiers import (PAPER_TIER_SPECS, AsyncTierTransferWorker,
                                     TierSpec, TransferRequest)
+from repro_torch.models.common import resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.serving import sampler as sampler_mod
-from repro_torch.serving.kvcache import PagedKVCache
+from repro_torch.serving.kvcache import PagedKVCache, SlotKVCache
 from repro_torch.serving.request import Phase, Request, SamplingParams
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
 # dense bf16 tensor-core peak of one H100 SXM (FLOP/s): prices the
 # recompute of one prompt block for the cache manager
 H100_BF16_PEAK_FLOPS = 989e12
+# monolithic prefill pads a suffix to a multiple of this many tokens (the
+# JAX engine's default bucket), so both engines fill the same slots and
+# refuse the same requests
+PREFILL_PAD = 32
 
 
 @dataclass
@@ -71,10 +90,12 @@ class EngineConfig:
     deadline_s: float = 600.0
     seed: int = 0
     tier_specs: Tuple[TierSpec, ...] = PAPER_TIER_SPECS
-    paged: bool = True                # block-table KV pool (the only layout)
+    paged: bool = True                # block-table KV pool (False: dense
+    #                                   slot layout A/B)
     page_tokens: int = 64             # physical page size (kernel tile)
     async_transfers: bool = True      # tier moves off the step loop
-    chunked_prefill: bool = True      # mixed token-budget batches
+    chunked_prefill: bool = True      # mixed token-budget batches (False:
+    #                                   monolithic prefill at admission)
     prefill_chunk_tokens: int = 64    # kernel chunk size
     max_step_tokens: int = 256        # per-step token budget
     tier0_from_budget: bool = True    # rescale tier-0 capacity to
@@ -87,16 +108,7 @@ class EngineConfig:
     transfer_timeout_s: float = 30.0  # async transfer wall deadline
     fused_step: bool = True           # decode attention + logits +
     #                                   sampling in one call per step
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the engine runs on the card unless it is "
-                "given device='cpu'")
-        return torch.device("cuda")
-    return torch.device(device)
+    #                                   (False: per-request sampling)
 
 
 class ServingEngine:
@@ -104,15 +116,22 @@ class ServingEngine:
                  engine_cfg: Optional[EngineConfig] = None,
                  params=None, device=None):
         engine_cfg = EngineConfig() if engine_cfg is None else engine_cfg
-        for flag in ("paged", "chunked_prefill", "fused_step"):
-            if not getattr(engine_cfg, flag):
-                raise NotImplementedError(
-                    f"EngineConfig({flag}=False) is not ported to PyTorch "
-                    f"yet; only the paged + chunked + fused path is")
         self.cfg = cfg
         self.ecfg = engine_cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.model = build_model(cfg)
+        self.paged = engine_cfg.paged
+        # the JAX rule: chunked prefill needs the paged pool, segment
+        # reuse needs chunked prefill
+        self.chunked = engine_cfg.chunked_prefill and self.paged
+        self.seg_enabled = engine_cfg.segment_reuse and self.chunked
+        self.fused = engine_cfg.fused_step
+        if self.model.mla and not self.chunked:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA serving with paged=False or "
+                f"chunked_prefill=False is not ported to PyTorch (the JAX "
+                f"package's mla_attention_prefill / mla_attention_decode); "
+                f"MLA serves from the paged pool with chunked prefill")
         self.params = params if params is not None else \
             self.model.init_params(engine_cfg.seed, device=self.device)
         self.scheduler = Scheduler(cfg, SchedulerConfig(
@@ -125,15 +144,19 @@ class ServingEngine:
         # plain versions on the CPU
         self.kernel_backend = "cuda" if self.device.type == "cuda" \
             else "torch"
-        bt = sizing.block_tokens(cfg)
-        if bt % engine_cfg.page_tokens != 0:
-            raise ValueError(
-                f"page_tokens {engine_cfg.page_tokens} must divide the "
-                f"manager block size {bt}")
-        self.kv = PagedKVCache(self.model, self.scheduler.n_slots,
-                               engine_cfg.max_len,
-                               page_tokens=engine_cfg.page_tokens,
-                               device=self.device)
+        if self.paged:
+            bt = sizing.block_tokens(cfg)
+            if bt % engine_cfg.page_tokens != 0:
+                raise ValueError(
+                    f"page_tokens {engine_cfg.page_tokens} must divide the "
+                    f"manager block size {bt}")
+            self.kv = PagedKVCache(self.model, self.scheduler.n_slots,
+                                   engine_cfg.max_len,
+                                   page_tokens=engine_cfg.page_tokens,
+                                   device=self.device)
+        else:
+            self.kv = SlotKVCache(self.model, self.scheduler.n_slots,
+                                  engine_cfg.max_len, device=self.device)
         specs = list(engine_cfg.tier_specs)
         if engine_cfg.tier0_from_budget:
             specs[0] = TierSpec(0, specs[0].name, specs[0].bandwidth,
@@ -152,7 +175,6 @@ class ServingEngine:
             if engine_cfg.async_transfers else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(engine_cfg.seed + 1)
-        self.seg_enabled = engine_cfg.segment_reuse
         # request_id -> [payload | None, length]; payload is the staging
         # buffer — dropped once the async demotion write lands
         self._preempted_payloads: Dict[int, list] = {}
@@ -170,6 +192,7 @@ class ServingEngine:
         self.idle_transfer_waits = 0
         self.prefill_chunks = 0        # kernel chunk calls
         self.prefill_tokens_total = 0  # prompt tokens through the chunk path
+        self.monolithic_prefills = 0   # requests prefilled at admission
         self.cow_share_hits = 0        # prefix blocks served by CoW page map
         self.inject_hits = 0           # ... by tier payload injection
         self.segment_share_hits = 0    # mid-prompt blocks resumed by CoW
@@ -192,8 +215,12 @@ class ServingEngine:
                       session_id=session_id, block_type=block_type,
                       tool=tool, retain_blocks=retain_blocks,
                       block_types=list(block_types) if block_types else None)
-        # chunked prefill writes only valid tokens (no pad rounding)
-        need = req.prompt_len + req.params.max_new_tokens + 1
+        if self.chunked:
+            # chunked prefill writes only valid tokens (no pad rounding)
+            need = req.prompt_len + req.params.max_new_tokens + 1
+        else:
+            need = (-(-req.prompt_len // PREFILL_PAD) * PREFILL_PAD
+                    + req.params.max_new_tokens + 1)
         if need > self.ecfg.max_len:
             raise ValueError(
                 f"request needs {need} cache slots > max_len "
@@ -241,7 +268,7 @@ class ServingEngine:
                 break                      # payload lost -> recompute rest
             if res.hit:
                 req.hot_hit_blocks += 1
-            if self.kv.can_share(bid):
+            if self.paged and self.kv.can_share(bid):
                 self.kv.share_block(slot, bid, prefix_len)
                 self.cow_share_hits += 1
             else:
@@ -267,7 +294,7 @@ class ServingEngine:
                     ok = not res.recomputed
                     if ok:
                         start = (seg.start_block + j) * bt
-                        if self.kv.can_share(bid):
+                        if self.paged and self.kv.can_share(bid):
                             self.kv.share_block(slot, bid, start)
                             self.segment_share_hits += 1
                         else:
@@ -292,18 +319,43 @@ class ServingEngine:
                     seg_spans.append((run_start, run_len))
             req.seg_spans = seg_spans
 
-        # prefix-hit blocks advance the chunk cursor for free; the rest
-        # streams through plan_step()
-        req.prefill_tokens = effective
-        req.prefill_pos = prefix_len
-        self._prefix_checked[req.request_id] = self._block_epoch
-        self._admit_transition[req.request_id] = transition
-        self.kv.set_length(slot, prefix_len)
-        self.scheduler.start_prefill(req, slot)
-        if req.seg_spans:
-            self._skip_resumed(req)
-        if req.prefill_left == 0:
-            self._finish_prefill(req)
+        if self.chunked:
+            # prefix-hit blocks advance the chunk cursor for free; the
+            # rest streams through plan_step()
+            req.prefill_tokens = effective
+            req.prefill_pos = prefix_len
+            self._prefix_checked[req.request_id] = self._block_epoch
+            self._admit_transition[req.request_id] = transition
+            self.kv.set_length(slot, prefix_len)
+            self.scheduler.start_prefill(req, slot)
+            if req.seg_spans:
+                self._skip_resumed(req)
+            if req.prefill_left == 0:
+                self._finish_prefill(req)
+            return
+
+        # monolithic prefill (dense layout / chunked_prefill=False): the
+        # whole unmatched suffix in one forward, padded to PREFILL_PAD
+        suffix = list(effective[prefix_len:])
+        padded_len = max(PREFILL_PAD,
+                         -(-len(suffix) // PREFILL_PAD) * PREFILL_PAD)
+        batch = {"tokens": self._tokens(
+            [suffix + [0] * (padded_len - len(suffix))])}
+        if prefix_len == 0:
+            _, state1 = self.model.prefill(self.params, batch,
+                                           backend=self.kernel_backend)
+            self.kv.write_prefill(slot, state1, padded_len)
+        else:
+            _, (k, v) = self.model.prefill_suffix(
+                self.params, batch, self.kv.prefix_kv(slot, prefix_len),
+                prefix_len, backend=self.kernel_backend)
+            self.kv.write_range(slot, {"k": k, "v": v}, prefix_len,
+                                padded_len)
+        self.monolithic_prefills += 1
+        # the true length: pad positions lie past it, masked by length
+        self.kv.set_length(slot, len(effective))
+        self._register_prompt_blocks(req, slot, effective)
+        self.scheduler.start(req, slot)
 
     def _register_prompt_blocks(self, req: Request, slot: int,
                                 effective: Sequence[int]) -> None:
@@ -321,7 +373,8 @@ class ServingEngine:
                 pl = self.kv.extract_block(slot, i * bt, bt)
                 mgr._payloads[bid] = pl
                 mgr.hierarchy.attach_payload(bid, pl)
-            self.kv.register_block_pages(bid, slot, i * bt, bt)
+            if self.paged:
+                self.kv.register_block_pages(bid, slot, i * bt, bt)
         req.block_ids = new_ids
         if new_ids:
             self._block_epoch += 1
@@ -534,31 +587,38 @@ class ServingEngine:
                          (self.manager.promote_async(b, l), None))))
 
     # ------------------------------------------------------------------
-    # fused decode: attention + logits + sampling, one host sync
+    # batched decode: fused (default) and per-request-sampling A/B paths
     # ------------------------------------------------------------------
     def _decode_fused(self, decode_reqs) -> int:
-        """One decode step for the whole batch — paged attention, logits
-        and per-row sampling — with ONE device->host copy of the sampled
-        tokens.  In steady-state decode the device state from the
+        """One decode step for the whole batch — attention, logits and
+        per-row sampling — with ONE device->host copy of the sampled
+        tokens.  Paged: in steady-state decode the device state from the
         previous step is reused verbatim (``PagedKVCache.state_version``
-        forces a rebuild after any host-side mutation)."""
+        forces a rebuild after any host-side mutation).  Dense: every
+        slot row decodes and advances, as in the JAX package."""
         sa = self.scheduler.step_arrays(decode_reqs, self.kv.n_slots)
         dev = self.device
-        slots = [r.slot for r in decode_reqs]
-        state = self.kv.decode_state(slots, reuse=True)
-        logits, new_state = self.model.decode_step_paged(
-            self.params, state, torch.as_tensor(sa["tokens"], device=dev),
-            backend=self.kernel_backend)
-        # rows outside the decode set keep their length (the model
-        # advances every row), so the state is next step's input as is
-        new_state["lengths"] = state["lengths"] + torch.as_tensor(
-            sa["active"], device=dev)
+        tokens = torch.as_tensor(sa["tokens"], device=dev)
+        if self.paged:
+            slots = [r.slot for r in decode_reqs]
+            state = self.kv.decode_state(slots, reuse=True)
+            logits, new_state = self.model.decode_step_paged(
+                self.params, state, tokens, backend=self.kernel_backend)
+            # rows outside the decode set keep their length (the model
+            # advances every row), so the state is next step's input as is
+            new_state["lengths"] = state["lengths"] + torch.as_tensor(
+                sa["active"], device=dev)
+        else:
+            logits, self.kv.state = self.model.decode_step(
+                self.params, self.kv.state, tokens,
+                backend=self.kernel_backend)
         toks = sampler_mod.sample_batched(
             logits, self._gen, torch.as_tensor(sa["temperature"], device=dev),
             torch.as_tensor(sa["top_k"], device=dev),
             torch.as_tensor(sa["top_p"], device=dev),
             stochastic=bool((sa["temperature"] > 0).any()))
-        self.kv.absorb(new_state, decode_slots=slots)
+        if self.paged:
+            self.kv.absorb(new_state, decode_slots=slots)
         out = toks.cpu().numpy()     # single sync point for the step
         now = time.monotonic()
         produced = 0
@@ -573,6 +633,41 @@ class ServingEngine:
                 prefetch.append((req.block_ids,
                                  self.kv.slots[req.slot].length))
         self._submit_prefetch_many(prefetch)
+        return produced
+
+    def _decode_unfused(self, decode_reqs) -> int:
+        """One decode call, then one sampling call and device->host copy
+        per request."""
+        tokens = torch.zeros(self.kv.n_slots, dtype=torch.int32)
+        for req in decode_reqs:
+            tokens[req.slot] = (req.generated[-1] if req.generated
+                                else req.prompt[-1])
+        tokens = tokens.to(self.device)
+        if self.paged:
+            state = self.kv.decode_state([r.slot for r in decode_reqs])
+            logits, new_state = self.model.decode_step_paged(
+                self.params, state, tokens, backend=self.kernel_backend)
+            self.kv.absorb(new_state)
+        else:
+            logits, self.kv.state = self.model.decode_step(
+                self.params, self.kv.state, tokens,
+                backend=self.kernel_backend)
+        now = time.monotonic()
+        produced = 0
+        for req in sorted(decode_reqs, key=lambda r: r.slot):
+            slot = req.slot
+            tok = sampler_mod.sample(
+                logits[slot:slot + 1], self._gen,
+                temperature=req.params.temperature,
+                top_k=req.params.top_k, top_p=req.params.top_p)
+            req.generated.append(int(tok[0]))
+            if req.t_first_token is None:
+                req.t_first_token = now
+            produced += 1
+            self.kv.advance(slot)
+            if req.block_ids:
+                self._submit_prefetch_many(
+                    [(req.block_ids, self.kv.slots[slot].length)])
         return produced
 
     # ------------------------------------------------------------------
@@ -603,7 +698,8 @@ class ServingEngine:
         self.prefill_tokens_total += prefill_tokens
         produced = 0
         if decode_reqs:
-            produced = self._decode_fused(decode_reqs)
+            produced = (self._decode_fused(decode_reqs) if self.fused
+                        else self._decode_unfused(decode_reqs))
             for req in decode_reqs:
                 if (req.finished()
                         or req.total_len >= self.ecfg.max_len - 1):
@@ -611,7 +707,9 @@ class ServingEngine:
                         req.block_ids, retain=req.retain_blocks)
                     sch.finish(req)
                     self.kv.release(req.slot)
-        self.kv.gc_blocks(self.manager)
+        if self.paged:
+            # unpin pages of blocks the manager demoted or dropped
+            self.kv.gc_blocks(self.manager)
         self.manager.tick()
         self.manager.age_all()
         self.steps += 1
@@ -669,12 +767,13 @@ class ServingEngine:
                "device": str(self.device),
                "steps": self.steps,
                "idle_transfer_waits": self.idle_transfer_waits,
-               "paged": True,
-               "chunked": True,
-               "fused": True,
+               "paged": self.paged,
+               "chunked": self.chunked,
+               "fused": self.fused,
                "recompiles": self.recompiles(),
                "prefill_chunks": self.prefill_chunks,
                "prefill_tokens": self.prefill_tokens_total,
+               "monolithic_prefills": self.monolithic_prefills,
                "max_step_prefill_tokens": self.max_step_prefill_tokens,
                "cow_share_hits": self.cow_share_hits,
                "inject_hits": self.inject_hits,
@@ -682,9 +781,10 @@ class ServingEngine:
                "segment_share_hits": self.segment_share_hits,
                "segment_inject_hits": self.segment_inject_hits,
                "segment_chunks": self.segment_chunks}
-        out["allocator"] = self.kv.allocator.stats_dict()
-        out["decode_state_reuses"] = self.kv.state_reuses
-        out["decode_state_rebuilds"] = self.kv.state_rebuilds
+        if self.paged:
+            out["allocator"] = self.kv.allocator.stats_dict()
+            out["decode_state_reuses"] = self.kv.state_reuses
+            out["decode_state_rebuilds"] = self.kv.state_rebuilds
         if self.worker is not None:
             out["async_transfers"] = self.worker.stats()
         out["faults"] = self.manager.hierarchy.fault_stats()

@@ -1,25 +1,34 @@
-"""The paged block-table KV cache of the live engine.
+"""KV caches of the live engine: the paged block-table pool (default)
+and the dense per-slot layout (``paged=False`` A/B path).
 
-KV state lives in a global pool of fixed-size pages on the engine's
-device — [L, n_pages, page, Hkv, hd] per K and V, or for MLA one latent
-pool [L, n_pages, page, dl+dr] of ``[c_kv ; k_rope]`` rows — and each
-decode slot owns a block table of page indices; the paged attention kernels
-(``kernels/ops.py``) read through that indirection.  Pages are
-refcounted (``serving/block_allocator.py``): radix-prefix hits map the
-prefix's physical pages straight into the new request's block table
-(copy-on-write sharing), and the cache manager pins the pages of every
-tier-0-resident prompt block so they survive request completion.
+``PagedKVCache``: KV state lives in a global pool of fixed-size pages on
+the engine's device — [L, n_pages, page, Hkv, hd] per K and V, or for
+MLA one latent pool [L, n_pages, page, dl+dr] of ``[c_kv ; k_rope]``
+rows — and each decode slot owns a block table of page indices; the
+paged attention kernels (``kernels/ops.py``) read through that
+indirection.  Pages are refcounted (``serving/block_allocator.py``):
+radix-prefix hits map the prefix's physical pages straight into the new
+request's block table (copy-on-write sharing), and the cache manager
+pins the pages of every tier-0-resident prompt block so they survive
+request completion.  Writes go into the pool tensors in place
+(``index_put_``); page 0 is a reserved scratch page that absorbs the
+decode-step writes of inactive slots and the padded tail of every chunk
+write.
 
-Writes go into the pool tensors in place (``index_put_``); page 0 is a
-reserved scratch page that absorbs the decode-step writes of inactive
-slots and the padded tail of every chunk write.
+``SlotKVCache``: the model's contiguous dense state
+(``DecoderModel.init_decode_state``: [L, n_slots, max_len, Hkv, hd] per
+K and V plus per-slot lengths), one row per decode slot.
 
-Block payloads — the currency of the multi-tier hierarchy — are numpy
-arrays [2, L, n, Hkv, hd] (MLA: [1, L, n, dl+dr]).  A bf16 pool hands
-out ``uint16`` arrays of the bf16 bits (numpy has no bf16 of its own),
-so ``nbytes``, checksums and ``np.save`` see the same bytes as the JAX
-engine's payloads; a float32 pool hands out float32 arrays.
-Device-to-host copies are synchronous.
+Both speak the same engine-facing API (``_KVCacheBase``): acquire /
+release / free_slots / set_length, write_prefill / write_range /
+inject_block / prefix_kv, extract_block / evict_slot_to_payload /
+restore_slot.  Block payloads — the currency of the multi-tier
+hierarchy — are numpy arrays [2, L, n, Hkv, hd] (MLA: [1, L, n,
+dl+dr]), identical in both layouts.  A bf16 cache hands out ``uint16``
+arrays of the bf16 bits (numpy has no bf16 of its own), so ``nbytes``,
+checksums and ``np.save`` see the same bytes as the JAX engine's
+payloads; a float32 cache hands out float32 arrays.  Device-to-host
+copies are synchronous.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 
 from repro_torch.config import MLA, ModelConfig
 from repro_torch.core.tiers import CapacityError
+from repro_torch.models.common import resolve_device
 from repro_torch.serving.block_allocator import BlockAllocator
 
 
@@ -57,7 +67,114 @@ def tensor_from_payload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-class PagedKVCache:
+class _KVCacheBase:
+    """Slot bookkeeping and payload conversion shared by both layouts.
+    Subclasses provide ``kinds`` ((storage key, chunk-state key) pairs
+    in payload order), ``device``, ``slots``, ``write_range``,
+    ``extract_block`` and ``set_length``."""
+
+    kinds: Tuple[Tuple[str, str], ...]
+    slots: List[SlotInfo]
+
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if not s.active]
+
+    def acquire(self, request_id: int, length: int) -> int:
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                self.slots[i] = SlotInfo(request_id, length, True)
+                return i
+        raise RuntimeError("no free slot")
+
+    def advance(self, slot: int) -> None:
+        """Post-decode length advance of the host mirror only (the
+        decode step already advanced the device-side length, so a cached
+        device state stays valid)."""
+        self.slots[slot].length += 1
+
+    # ------------------------------------------------------------------
+    # payloads and preemption
+    # ------------------------------------------------------------------
+    def _payload_state(self, payload: np.ndarray) -> Dict:
+        return {src: tensor_from_payload(payload[i], self.device)[:, None]
+                for i, (_, src) in enumerate(self.kinds)}
+
+    def write_prefill(self, slot: int, state1: Dict, length: int) -> None:
+        """Copy a batch-1 prefill state's first ``length`` tokens into
+        the slot from position 0."""
+        self.write_range(slot, state1, 0, length)
+        self.set_length(slot, length)
+
+    def inject_block(self, slot: int, payload: np.ndarray,
+                     start: int) -> int:
+        """Write one reused block payload at token offset ``start``."""
+        n = payload.shape[2]
+        self.write_range(slot, self._payload_state(payload), start, n)
+        return n
+
+    def write_chunk(self, slot: int, state1: Dict, offset: int,
+                    n_tokens: int) -> None:
+        """Scatter the first ``n_tokens`` of a prefill chunk's KV at
+        token ``offset`` and advance the slot's valid length."""
+        self.write_range(slot, state1, offset, n_tokens)
+        self.set_length(slot, offset + n_tokens)
+
+    def evict_slot_to_payload(self, slot: int) -> Tuple[np.ndarray, int]:
+        """Preemption: extract the whole slot state for tier demotion."""
+        length = self.slots[slot].length
+        return self.extract_block(slot, 0, length), length
+
+    def restore_slot(self, slot: int, payload: np.ndarray,
+                     length: int) -> None:
+        self.inject_block(slot, payload, 0)
+        self.set_length(slot, length)
+
+
+class SlotKVCache(_KVCacheBase):
+    """Fixed decode slots over the model's contiguous dense state."""
+
+    def __init__(self, model, n_slots: int, max_len: int, device=None):
+        cfg: ModelConfig = model.cfg
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.state = model.init_decode_state(n_slots, max_len,
+                                             device=self.device)
+        self.kinds = (("k", "k"), ("v", "v"))
+        self.slots = [SlotInfo() for _ in range(n_slots)]
+
+    def release(self, slot: int) -> None:
+        self.slots[slot] = SlotInfo()
+        self.state["lengths"][slot] = 0
+
+    def set_length(self, slot: int, length: int) -> None:
+        self.slots[slot].length = length
+        self.state["lengths"][slot] = length
+
+    def write_range(self, slot: int, state1: Dict, start: int,
+                    n_tokens: int) -> None:
+        """Copy a batch-1 KV state into positions [start, start+n)."""
+        for key, src in self.kinds:
+            dst = self.state[key]
+            dst[:, slot, start:start + n_tokens] = \
+                state1[src][:, 0, :n_tokens].to(dst.dtype)
+
+    def extract_block(self, slot: int, start: int,
+                      n_tokens: int) -> np.ndarray:
+        """Slot KV -> block payload [2, L, n_tokens, Hkv, hd], numpy."""
+        return payload_from_tensor(torch.stack(
+            [self.state[key][:, slot, start:start + n_tokens]
+             for key, _ in self.kinds]))
+
+    def prefix_kv(self, slot: int, length: int):
+        """The cached prefix (k, v) [L, 1, length, Hkv, hd] for the
+        suffix prefill."""
+        return tuple(self.state[key][:, slot:slot + 1, :length]
+                     for key, _ in self.kinds)
+
+
+class PagedKVCache(_KVCacheBase):
     """Global page pool + per-slot block tables + CoW prefix sharing.
 
     Block tables are host numpy ([n_slots, pages_per_slot] int32, 0 =
@@ -67,10 +184,10 @@ class PagedKVCache:
 
     def __init__(self, model, n_slots: int, max_len: int, *,
                  page_tokens: int = 64, reserve_pages: Optional[int] = None,
-                 dtype: torch.dtype = torch.bfloat16, device="cpu"):
+                 dtype: torch.dtype = torch.bfloat16, device=None):
         cfg: ModelConfig = model.cfg
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_slots = n_slots
         self.max_len = max_len
         self.page = page_tokens
@@ -111,16 +228,6 @@ class PagedKVCache:
     # ------------------------------------------------------------------
     # slots
     # ------------------------------------------------------------------
-    def free_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self.slots) if not s.active]
-
-    def acquire(self, request_id: int, length: int) -> int:
-        for i, s in enumerate(self.slots):
-            if not s.active:
-                self.slots[i] = SlotInfo(request_id, length, True)
-                return i
-        raise RuntimeError("no free slot")
-
     def release(self, slot: int) -> None:
         for pi in range(self._mapped[slot]):
             self.allocator.deref(int(self.tables[slot, pi]))
@@ -132,43 +239,6 @@ class PagedKVCache:
     def set_length(self, slot: int, length: int) -> None:
         self.slots[slot].length = length
         self.state_version += 1
-
-    def advance(self, slot: int) -> None:
-        """Post-decode length advance of the host mirror only (the
-        decode step already advanced the device-side length, so the
-        cached device state stays valid)."""
-        self.slots[slot].length += 1
-
-    # ------------------------------------------------------------------
-    # payloads and preemption
-    # ------------------------------------------------------------------
-    def _payload_state(self, payload: np.ndarray) -> Dict:
-        return {src: tensor_from_payload(payload[i], self.device)[:, None]
-                for i, (_, src) in enumerate(self.kinds)}
-
-    def inject_block(self, slot: int, payload: np.ndarray,
-                     start: int) -> int:
-        """Write one reused block payload at token offset ``start``."""
-        n = payload.shape[2]
-        self.write_range(slot, self._payload_state(payload), start, n)
-        return n
-
-    def write_chunk(self, slot: int, state1: Dict, offset: int,
-                    n_tokens: int) -> None:
-        """Scatter the first ``n_tokens`` of a prefill chunk's KV at
-        token ``offset`` and advance the slot's valid length."""
-        self.write_range(slot, state1, offset, n_tokens)
-        self.set_length(slot, offset + n_tokens)
-
-    def evict_slot_to_payload(self, slot: int) -> Tuple[np.ndarray, int]:
-        """Preemption: extract the whole slot state for tier demotion."""
-        length = self.slots[slot].length
-        return self.extract_block(slot, 0, length), length
-
-    def restore_slot(self, slot: int, payload: np.ndarray,
-                     length: int) -> None:
-        self.inject_block(slot, payload, 0)
-        self.set_length(slot, length)
 
     # ------------------------------------------------------------------
     # page mapping
@@ -343,6 +413,12 @@ class PagedKVCache:
         kv = torch.stack([self._gather(pool, slot, start, n_tokens)
                           for pool, _ in self.kinds])
         return payload_from_tensor(kv)
+
+    def prefix_kv(self, slot: int, length: int):
+        """The cached prefix [L, 1, length, ...] per pool ((k, v), MLA
+        (latent,)) for the suffix prefill."""
+        return tuple(self._gather(pool, slot, 0, length)[:, None]
+                     for pool, _ in self.kinds)
 
     # ------------------------------------------------------------------
     # decode-step interface

@@ -1,9 +1,25 @@
-"""Batched token sampling: greedy / temperature / top-k / top-p per row."""
+"""Token sampling: greedy / temperature / top-k / top-p, per request
+(``sample``, the unfused A/B path) or per row of the batch
+(``sample_batched``, the fused step)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator, *,
+           temperature: float = 0.0, top_k: int = 0,
+           top_p: float = 1.0) -> torch.Tensor:
+    """logits [B, V] -> tokens [B] int32, one set of sampling params for
+    every row: ``sample_batched`` with those params broadcast."""
+    b = logits.shape[0]
+
+    def full(x):
+        return torch.full((b,), x, device=logits.device)
+    return sample_batched(logits, generator, full(float(temperature)),
+                          full(int(top_k)), full(float(top_p)),
+                          stochastic=temperature > 0.0)
 
 
 def sample_batched(logits: torch.Tensor, generator: torch.Generator,

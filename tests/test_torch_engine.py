@@ -5,8 +5,8 @@ greedy tokens identical, and equal prefill-chunk, CoW-share and
 segment-chunk counts, on three workloads — the 4 x 48-token batch of
 ``tests/test_paged_serving.py``, a shared-prefix pair, and a segment-
 reuse pair.  Also the port's own contract: no CUDA means the engine
-raises unless given ``device="cpu"``, the unported A/B paths raise, and
-bf16 tier payloads travel as uint16 bits."""
+raises unless given ``device="cpu"``, the A/B flags select their paths,
+and bf16 tier payloads travel as uint16 bits."""
 import dataclasses
 
 import numpy as np
@@ -56,7 +56,8 @@ def _pair(block_tokens=0, **ecfg):
                           jax_build(jcfg).init_params(jax.random.PRNGKey(0)))
     jeng = JEngine(jcfg, JConfig(tier_specs=J_TIERS, **ecfg), params=params)
     teng = TEngine(tcfg, TConfig(**ecfg),
-                   params=params_from_numpy(jax.tree.map(np.asarray, params)),
+                   params=params_from_numpy(jax.tree.map(np.asarray, params),
+                                            device="cpu"),
                    device="cpu")
     return jeng, teng
 
@@ -147,9 +148,14 @@ def test_engine_needs_cuda_or_explicit_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TEngine(cfg, TConfig())
-    for flag in ("paged", "chunked_prefill", "fused_step"):
-        with pytest.raises(NotImplementedError, match=flag):
-            TEngine(cfg, TConfig(**{flag: False}), device="cpu")
+    # the A/B flags select the dense, monolithic and unfused paths
+    # (tests/test_torch_dense.py holds them to the JAX engine)
+    for flag, attr in (("paged", "paged"), ("chunked_prefill", "chunked"),
+                       ("fused_step", "fused")):
+        eng = TEngine(cfg, TConfig(max_len=128, kv_budget_bytes=5e5,
+                                   **{flag: False}), device="cpu")
+        assert getattr(eng, attr) is False and eng.stats()[attr] is False
+        eng.shutdown()
     assert not hasattr(TConfig(), "kernel_backend")
     eng = TEngine(cfg, TConfig(max_len=128, kv_budget_bytes=5e5),
                   device="cpu")

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (GQA paged decode / prefill / segment
-prefill and their absorbed-MLA counterparts) against their plain
-PyTorch versions on the card.  Needs a CUDA device and the CUDA toolkit
+prefill, their absorbed-MLA counterparts, causal flash prefill and int8
+paged decode) against their plain PyTorch versions on the card.  Needs a CUDA device and the CUDA toolkit
 (the kernels build at first use); elsewhere every test skips.  Run on
 the card with
 
@@ -125,7 +125,8 @@ def test_engine_on_card_matches_cpu_engine(cuda):
     from repro_torch.serving import EngineConfig, SamplingParams, \
         ServingEngine
     cfg = reduce_config(get_config("llama3.2-1b"))
-    params = build_model(cfg).init_params(0, dtype=torch.float32)
+    params = build_model(cfg).init_params(0, device="cpu",
+                                          dtype=torch.float32)
     rng = np.random.default_rng(7)
     prompts = [[int(t) for t in rng.integers(0, 250, size=48)]
                for _ in range(4)]
@@ -141,6 +142,85 @@ def test_engine_on_card_matches_cpu_engine(cuda):
         eng.shutdown()
         outs[dev] = [r.generated for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+# (B, S, Hq, Hkv, hd): llama3.2-1b's width at the serve phase's padded
+# prompt lengths (416 ends in a ragged 32-row tile), GQA / MHA / MQA at
+# small widths, a single token, and hd 256 (the 32-row tiles)
+FLASH_SHAPES = [(1, 416, 32, 8, 64), (1, 384, 32, 8, 64),
+                (2, 160, 8, 2, 64), (1, 100, 4, 4, 32), (1, 70, 8, 1, 128),
+                (3, 1, 4, 2, 16), (1, 40, 2, 1, 256)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,s,hq,hkv,hd", FLASH_SHAPES)
+def test_flash_prefill_kernel(cuda, dtype, tol, b, s, hq, hkv, hd):
+    g = torch.Generator(device="cuda").manual_seed(s)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    args = (rn(b, s, hq, hd), rn(b, s, hkv, hd), rn(b, s, hkv, hd))
+    before = cuda.flash_prefill.launches
+    out = cuda.flash_causal(*args)
+    torch.cuda.synchronize()
+    assert cuda.flash_prefill.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert _err(out, cuda.flash_causal(*args, backend="torch")) <= tol
+
+
+def _int8_inputs(b, hq, hkv, hd, page, pages, seed=0):
+    from repro_torch.models.attention import quantize_kv
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = b * pages + 2
+    kq, ks = quantize_kv(torch.randn((n, page, hkv, hd), generator=g,
+                                     device="cuda"))
+    vq, vs = quantize_kv(torch.randn((n, page, hkv, hd), generator=g,
+                                     device="cuda"))
+    tables = (torch.randperm(n - 1, generator=g, device="cuda")[:b * pages]
+              + 1).reshape(b, pages).to(torch.int32)
+    q = torch.randn((b, hq, hd), generator=g, device="cuda")
+    return q, kq, vq, ks, vs, tables
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("hq,hkv,hd,page", [(32, 8, 64, 64), (8, 2, 64, 16),
+                                            (4, 4, 32, 32), (8, 1, 128, 16)])
+def test_paged_decode_int8_kernel(cuda, dtype, tol, hq, hkv, hd, page):
+    q, kq, vq, ks, vs, tables = _int8_inputs(5, hq, hkv, hd, page, 6)
+    lengths = torch.tensor([0, 1, 17, 6 * page, 50], dtype=torch.int32,
+                           device="cuda")
+    tables[1, 3] = 999                          # clamped, past the length
+    args = (q.to(dtype), kq, vq, ks, vs, tables, lengths)
+    before = cuda.paged_decode_attention_int8.launches
+    out = cuda.paged_decode_int8(*args)
+    torch.cuda.synchronize()
+    assert cuda.paged_decode_attention_int8.launches == before + 1
+    assert _err(out, cuda.paged_decode_int8(*args, backend="torch")) <= tol
+    assert bool((out[0] == 0).all())            # length 0 -> zeros
+
+
+def test_dense_decode_on_slot_pages_matches_plain(cuda):
+    """llama3.2-1b width: 64 slots of 512 tokens seen as 64-token pages
+    through ``attention.decode_attention``, bf16 and int8."""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, s, hq, hkv, hd = 64, 512, 32, 8, 64
+    k = torch.randn((b, s, hkv, hd), generator=g, device="cuda")
+    v = torch.randn((b, s, hkv, hd), generator=g, device="cuda")
+    q = torch.randn((b, 1, hq, hd), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    lengths = torch.randint(1, s + 1, (b,), generator=g,
+                            device="cuda").to(torch.int32)
+    lengths[::7] = 0
+    (kq, ks), (vq, vs) = attn.quantize_kv(k), attn.quantize_kv(v)
+    for caches in ((k.bfloat16(), v.bfloat16()), (kq, vq, ks, vs)):
+        kc, vc, *scales = caches
+        out = attn.decode_attention(q, kc, vc, lengths, *scales)
+        plain = attn.decode_attention(q, kc, vc, lengths, *scales,
+                                      backend="torch")
+        assert _err(out, plain) <= BF16_TOL
 
 
 def _mla_inputs(dtype, b=3, c=8, hq=8, dl=32, dr=8, page=16, pages=5,
@@ -249,7 +329,8 @@ def test_mla_engine_on_card_matches_cpu_engine(cuda):
     from repro_torch.serving import EngineConfig, SamplingParams, \
         ServingEngine
     cfg = dataclasses.replace(reduce_config(DEEPSEEK_V3), kv_block_tokens=32)
-    params = build_model(cfg).init_params(0, dtype=torch.float32)
+    params = build_model(cfg).init_params(0, device="cpu",
+                                          dtype=torch.float32)
     rng = np.random.default_rng(8)
     prefix = [int(t) for t in rng.integers(0, 250, size=32)]
     prompts = [prefix + [int(t) for t in rng.integers(0, 250, size=n)]
@@ -266,6 +347,44 @@ def test_mla_engine_on_card_matches_cpu_engine(cuda):
                  for t in prompts[1:]]
         eng.run()
         assert eng.stats()["cow_share_hits"] > 0
+        eng.shutdown()
+        outs[dev] = [r.generated for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("flags", [dict(paged=False),
+                                   dict(chunked_prefill=False),
+                                   dict(fused_step=False)])
+def test_ab_engine_on_card_matches_cpu_engine(cuda, flags):
+    """The dense, monolithic and unfused paths on the card (flash prefill
+    and the paged decode kernels) generate the CPU engine's greedy
+    tokens, float32 weights."""
+    import dataclasses
+
+    from repro_torch.config import reduce_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import EngineConfig, SamplingParams, \
+        ServingEngine
+    cfg = dataclasses.replace(reduce_config(get_config("llama3.2-1b")),
+                              kv_block_tokens=16)
+    params = build_model(cfg).init_params(0, device="cpu",
+                                          dtype=torch.float32)
+    rng = np.random.default_rng(9)
+    prefix = [int(t) for t in rng.integers(0, 250, size=32)]
+    prompts = [prefix + [int(t) for t in rng.integers(0, 250, size=n)]
+               for n in (21, 13, 40)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, EngineConfig(max_len=128, page_tokens=16,
+                                              kv_budget_bytes=4e6, **flags),
+                            params=_to(params, dev), device=dev)
+        reqs = [eng.submit(prompts[0], params=SamplingParams(
+            max_new_tokens=5))]
+        eng.run()
+        reqs += [eng.submit(t, params=SamplingParams(max_new_tokens=5))
+                 for t in prompts[1:]]
+        eng.run()
         eng.shutdown()
         outs[dev] = [r.generated for r in reqs]
     assert outs["cuda"] == outs["cpu"]

@@ -1,9 +1,10 @@
-"""The port's paged attention ops (plain PyTorch versions, the CPU path)
+"""The port's attention ops (plain PyTorch versions, the CPU path)
 against the JAX package's oracles (``repro.kernels.ref``), its ``xla``
 fallbacks and its interpret-mode Pallas kernels, on the same numpy
 inputs: ragged and zero lengths, garbage past the offset, -1 padding,
-unresident pool slots, clamped table entries, and the contiguous
-segment == offset identity.  Tolerance 1e-4 in float32, the bar of
+unresident pool slots, clamped table entries, the contiguous segment ==
+offset identity, causal flash prefill at whole and ragged tile counts,
+and int8 paged decode.  Tolerance 1e-4 in float32, the bar of
 ``tests/test_xla_backend.py``."""
 import numpy as np
 import pytest
@@ -58,6 +59,12 @@ def test_cuda_backend_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_prefill(q[:, None], kp[:1, :1], kp[:1, :1], kp, kp, bt,
                           ln, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_causal(q[:, None], kp[:1, :1], kp[:1, :1], backend="cuda")
+    i8 = kp.to(torch.int8)
+    sc = kp[..., :1].bfloat16()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_int8(q, i8, i8, sc, sc, bt, ln, backend="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -275,3 +282,86 @@ def test_paged_prefill_seg_contiguous_equals_offset_bitwise():
     assert torch.equal(out_seg, out_off)
     assert torch.equal(ref.pool_limits(cp),
                        torch.tensor(offs, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# causal flash prefill (dense sequence)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,hq,hkv,hd", [
+    (1, 128, 4, 2, 64),         # GQA, two 64-row tiles
+    (2, 128, 4, 4, 32),         # MHA
+    (1, 128, 8, 1, 16),         # MQA
+])
+def test_flash_causal_matches_pallas_interpret(b, s, hq, hkv, hd):
+    """S a multiple of the Pallas kernel's 64-row block: the port's plain
+    version equals the interpret-mode kernel and the oracle."""
+    rng = np.random.default_rng(11)
+    arrs = (_rand(rng, (b, s, hq, hd)), _rand(rng, (b, s, hkv, hd)),
+            _rand(rng, (b, s, hkv, hd)))
+    args = [_both(a) for a in arrs]
+    out = ops.flash_causal(*[t for _, t in args])
+    jargs = [j for j, _ in args]
+    _close(out, jops.flash_causal(*jargs, block_q=64, block_k=64,
+                                  backend="interpret"))
+    _close(out, jref.flash_prefill_ref(*jargs))
+
+
+@pytest.mark.parametrize("s", [96, 160, 1])
+def test_flash_causal_ragged_length_matches_oracle(s):
+    """Any S, a ragged last tile included (160 = 128 + 32), against the
+    oracle (the Pallas kernel leaves a partial tile's rows unwritten, so
+    it is no reference there); one query row attends only itself."""
+    rng = np.random.default_rng(12)
+    arrs = (_rand(rng, (2, s, 4, 64)), _rand(rng, (2, s, 2, 64)),
+            _rand(rng, (2, s, 2, 64)))
+    args = [_both(a) for a in arrs]
+    out = ops.flash_causal(*[t for _, t in args])
+    assert out.shape == (2, s, 4, 64)
+    _close(out, jref.flash_prefill_ref(*[j for j, _ in args]))
+
+
+# ---------------------------------------------------------------------------
+# int8 paged decode
+# ---------------------------------------------------------------------------
+def _int8_pool(rng, n, page, hkv, hd):
+    """int8 pages and bf16 per-token-head scales from the JAX package's
+    own quantizer, as numpy (scales as float32 holding bf16 values)."""
+    from repro.models.attention import quantize_kv
+    vals, scales = quantize_kv(jnp.asarray(_rand(rng, (n, page, hkv, hd))))
+    return np.array(vals), np.array(scales.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("b,hq,hkv,hd,page,pages", [
+    (3, 8, 2, 64, 16, 4),       # GQA
+    (2, 4, 4, 32, 32, 3),       # MHA
+])
+def test_paged_decode_int8_matches_pallas_interpret(b, hq, hkv, hd, page,
+                                                    pages):
+    """Ragged lengths, a length-0 row (zeros) and a clamped entry past
+    the length: the plain version equals the interpret-mode kernel and
+    the dequantize-then-attend oracle."""
+    rng = np.random.default_rng(13)
+    n = b * pages + 2
+    q = _rand(rng, (b, hq, hd))
+    kq, ks = _int8_pool(rng, n, page, hkv, hd)
+    vq, vs = _int8_pool(rng, n, page, hkv, hd)
+    bt = rng.permutation(n)[:b * pages].reshape(b, pages).astype(np.int32)
+    ln = rng.integers(1, pages * page, size=b).astype(np.int32)
+    ln[0] = pages * page - 3
+    ln[1] = 0
+    bt[-1, -1] = 999
+    ln[-1] = min(ln[-1], (pages - 1) * page)
+    jargs = [jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+             jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vs, jnp.bfloat16),
+             jnp.asarray(bt), jnp.asarray(ln)]
+    targs = [torch.from_numpy(a) for a in (q, kq, vq)] + [
+        torch.from_numpy(ks).bfloat16(), torch.from_numpy(vs).bfloat16(),
+        torch.from_numpy(bt), torch.from_numpy(ln)]
+    out = ops.paged_decode_int8(*targs)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    _close(out, jops.paged_decode_int8(*jargs, backend="interpret"))
+    # the oracle has no zero-length gate: hold it to the other rows
+    jargs[5] = jnp.clip(jargs[5], 0, n - 1)
+    live = [0] + list(range(2, b))
+    _close(out[live],
+           np.asarray(jref.paged_decode_attention_int8_ref(*jargs))[live])

@@ -202,7 +202,7 @@ def models():
     jp = jax.tree.map(lambda a: a.astype(jnp.float32),
                       jm.init_params(jax.random.PRNGKey(0)))
     tm = build_model(t_reduce(T_DEEPSEEK_V3))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 
@@ -214,7 +214,8 @@ def test_mla_param_tree_matches_jax(models):
     jm, jp, tm, tp = models
     jleaves = {tuple(p.key for p in path): leaf.shape for path, leaf in
                jax.tree_util.tree_flatten_with_path(jp)[0]}
-    mine = tm.init_params(0, dtype=torch.float32)
+    mine = tm.init_params(0, device="cpu",
+                          dtype=torch.float32)
     flat = {}
 
     def walk(tree, path):
@@ -311,7 +312,8 @@ def _engines(**ecfg):
     kw = dict(page_tokens=16, max_len=160, kv_budget_bytes=4e6, **ecfg)
     jeng = JEngine(jcfg, JConfig(tier_specs=J_TIERS, **kw), params=params)
     teng = TEngine(tcfg, TConfig(**kw),
-                   params=params_from_numpy(jax.tree.map(np.asarray, params)),
+                   params=params_from_numpy(jax.tree.map(np.asarray, params),
+                                            device="cpu"),
                    device="cpu")
     return jeng, teng
 
@@ -360,7 +362,8 @@ def test_mla_payload_roundtrip_as_uint16():
     """A bf16 latent pool hands out [1, L, n, dl+dr] payloads of uint16
     bits — the JAX engine's bytes — and injects them back unchanged."""
     cfg = t_reduce(T_DEEPSEEK_V3)
-    kv = PagedKVCache(build_model(cfg), 2, 64, page_tokens=16)
+    kv = PagedKVCache(build_model(cfg), 2, 64, page_tokens=16,
+                      device="cpu")
     rng = np.random.default_rng(11)
     lat = torch.from_numpy(_rand(rng, (cfg.n_layers, 1, 40, DL + DR)))
     kv.acquire(0, 40)

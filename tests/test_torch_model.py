@@ -32,7 +32,7 @@ def models():
     jp = jax.tree.map(lambda a: a.astype(jnp.float32),
                       jm.init_params(jax.random.PRNGKey(0)))
     tm = build_model(t_reduce(t_get("llama3.2-1b")))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 
@@ -67,7 +67,8 @@ def test_param_specs_match_jax_tree(models):
         assert (mine.shape, mine.axes, mine.init, mine.scale) == \
             (spec.shape, spec.axes, spec.init, spec.scale)
     # and the materialized port tree has the spec shapes
-    got = tm.init_params(0, dtype=torch.float32)
+    got = tm.init_params(0, device="cpu",
+                         dtype=torch.float32)
     assert got["layers"]["attn"]["wq"].shape == \
         jp["layers"]["attn"]["wq"].shape
 
