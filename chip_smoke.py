@@ -9,7 +9,11 @@ check raises and the script exits non-zero with no result line:
 
   device   the card's name and power limit (nvidia-smi) and torch's name;
   build    nvcc build of every kernel source (one nvcc per source, in
-           parallel) with the compiler's register and spill report;
+           parallel) with the compiler's register and spill report and,
+           per compiled entry, its tensor-core instructions (HMMA /
+           HGMMA) counted in ``cuobjdump -sass`` of the built library;
+           the tensor-core bodies of flash prefill and of both MLA chunk
+           prefill entries must hold some;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
            lengths up to 512 with inactive rows) against its plain
@@ -17,7 +21,8 @@ check raises and the script exits non-zero with no result line:
            over a window of launches queued ahead of the device (L2
            flushed before each launch, the flushes' own time taken
            off), beside the least time the card could take for the
-           same work;
+           same work, and the body the C entry ran for the case
+           (``body``: "tensor_core" or "cuda_core");
   mla_kernels  the same for the three absorbed-MLA kernels at the MLA
            path's shapes (DeepSeek-V3: Hq=128, dl=512, dr=64, page=64,
            C=64, a 1857-page bf16 latent pool, 56 rows with lengths up
@@ -59,6 +64,7 @@ last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -195,15 +201,51 @@ def ptxas_report(text: str) -> list:
     return out
 
 
+def sass_tensor_core_counts(build, name) -> dict:
+    """Compiled entry -> its tensor-core instructions (HMMA / HGMMA) in
+    ``cuobjdump -sass`` of the built library of ``csrc/<name>.cu``."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[cur] += 1
+    return counts
+
+
+# entries that must run on the tensor cores: (source, entry name part,
+# how many such entries)
+TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 4),
+                       ("mla_paged_prefill", "mla_prefill_tcILb0E", 2),
+                       ("mla_paged_prefill", "mla_prefill_tcILb1E", 2))
+
+
 def phase_build(build, card):
     t0 = time.perf_counter()
     log = build.build_all()
     wall = time.perf_counter() - t0
-    report = {name: {"nvcc_s": entry["seconds"],
-                     "entries": ptxas_report(entry["ptxas"])}
-              for name, entry in log.items()}
+    report = {}
+    for name, entry in log.items():
+        sass = sass_tensor_core_counts(build, name)
+        entries = {e["entry"]: e for e in ptxas_report(entry["ptxas"])}
+        for fn, n in sass.items():
+            entries.setdefault(fn, {"entry": fn})["tensor_core_sass"] = n
+        report[name] = {"nvcc_s": entry["seconds"],
+                        "entries": list(entries.values())}
     emit({"phase": "build", "card": card, "wall_s": wall,
           "sources": report})
+    for name, part, want in TENSOR_CORE_ENTRIES:
+        found = [e for e in report[name]["entries"] if part in e["entry"]]
+        if len(found) != want or not all(e.get("tensor_core_sass", 0) > 0
+                                         for e in found):
+            raise AssertionError(f"build: {name} entries {part}: {found} "
+                                 f"(want {want}, each with HMMA / HGMMA)")
 
 
 def make_kernel_inputs(torch, gen):
@@ -268,11 +310,33 @@ def prefill_cost(a, attended_pool, causal_pairs):
     return nbytes, flops
 
 
+def kernel_body(name, a) -> str:
+    """The body the C entry runs for case ``name`` on inputs ``a``, as
+    its dispatch by type and width decides: "tensor_core" or
+    "cuda_core" (kernels 1-4 and 8 have only the latter)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
+    tc = 0
+    if name.startswith("flash_prefill"):
+        fn = build.entry("flash_prefill", "flash_prefill_tensor_core",
+                         [ctypes.c_int] * 2)
+        tc = fn(a["q"].shape[-1], DTYPE_CODES[a["q"].dtype])
+    elif name.startswith("mla_paged_prefill"):
+        fn = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
+                         [ctypes.c_int] * 5)
+        q_lat = a["q_lat"]
+        n_cp = q_lat.shape[1] if "chunk_positions" in a else 0
+        tc = fn(q_lat.shape[-1], a["q_rope"].shape[-1], n_cp,
+                DTYPE_CODES[q_lat.dtype], DTYPE_CODES[a["latent_pages"].dtype])
+    return "tensor_core" if tc else "cuda_core"
+
+
 def check_and_time(torch, cases, card, phase):
     """Each case against its plain version (``backend="torch"``), then
     both timed, and the library call that computes the same function
     where one exists (``library``: a callable on the same inputs, held to
-    the plain version too); one JSON line per kernel."""
+    the plain version too); one JSON line per kernel, with the body the
+    kernel ran and its achieved TFLOP/s."""
     rows = {}
     for case in cases:
         name, fn, args, (nbytes, flops) = case[:4]
@@ -289,11 +353,13 @@ def check_and_time(torch, cases, card, phase):
         kt = time_ms(torch, lambda: fn(**args, backend="cuda"))
         pt = time_ms(torch, lambda: fn(**args, backend="torch"))
         bound_ms, bound_by = bound(nbytes, flops)
-        rows[name] = {"max_abs_err": err, "tol": KERNEL_ATOL,
+        rows[name] = {"body": kernel_body(name, args),
+                      "max_abs_err": err, "tol": KERNEL_ATOL,
                       "ms": kt["ms"], "plain_ms": pt["ms"],
                       "flush_ms": kt["flush_ms"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes,
-                      "flops": flops, "library_ms": None}
+                      "flops": flops, "tflops": flops / kt["ms"] / 1e9,
+                      "library_ms": None}
         if library is not None:
             lib_err = float((library().float() - plain.float()).abs().max())
             if not lib_err <= LIBRARY_ATOL:
@@ -1110,7 +1176,8 @@ def main() -> int:
             continue               # a second shape of a listed kernel
         source, replaces = REPLACES[name]
         summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "body": row["body"],
+                        "launches": launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

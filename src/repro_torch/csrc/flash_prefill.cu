@@ -11,22 +11,194 @@
 // tokens) the bytes.  A sequence does 4 * S(S+1)/2 * Hq * hd flops over
 // (2 * S * Hq + 2 * S * Hkv) * hd elements moved: about 0.4 * S flops per
 // bf16 byte at Hq = 32, Hkv = 8, so the card's ~295 is crossed only near
-// S = 740.  This first kernel computes on CUDA-core float32 FMAs out of
-// shared memory (tensor cores are later work).
+// S = 740.  In practice a kernel at these sizes is held by latency: a
+// 64-query tile walks at most S / 64 key tiles in order.
 //
-// Design: one block per (query tile of QT rows, query head, sequence).
-// The block keeps the online-softmax state (m, l, acc) of its rows in
-// shared memory and walks key tiles of KT keys from 0 up to the tile
-// holding its last row's diagonal, in order (the loop replaces the TPU
-// grid's sequential key axis); tiles above the diagonal are never read.
-// A ragged last tile (S not a multiple of QT) masks rows and keys >= S,
-// so any S is handled; the Pallas kernel computes S / block_q tiles and
-// leaves the rows of a partial tile unwritten.
+// Two bodies, chosen by type and width in `flash_prefill` below (never a
+// retry after a failure):
+//
+// * bf16 at hd 16, 32, 64, 128 -- the tensor-core body, FlashAttention-2's
+//   layout.  One block per (64-query tile, q head, sequence), 4 warps of
+//   16 query rows; each warp keeps its Q fragment in registers, computes
+//   S = Q K^T into float32 fragments with `mma.sync.m16n8k16` bf16, runs
+//   the online softmax on the fragment rows (quad shuffles), rounds P to
+//   bf16 in registers and uses it as the A operand of P V (V through
+//   `ldmatrix.trans`); the accumulator [16 x hd] float32 stays in
+//   registers.  K and V tiles of 64 keys are staged as bf16 by 16-byte
+//   `cp.async` into two stages, so tile j+1 loads while tile j computes
+//   (padded rows: conflict-free `ldmatrix`, mma_common.cuh).  Only the
+//   diagonal tile is masked; rows and keys >= S of a ragged last tile
+//   are zero-filled and never written, so any S is legal.  Blocks start
+//   with the longest query tiles.
+// * float32 at any hd, and bf16 at hd 256 -- the CUDA-core body: float32
+//   FMAs out of shared memory with the paged kernels' block code
+//   (paged_common.cuh), 64 x 64 tiles up to hd 128, 32 x 32 above.
 //
 // Layouts: q [B,S,Hq,hd]; k/v [B,S,Hkv,hd]; out [B,S,Hq,hd]; one type
-// for all four (float32 or bfloat16); float32 arithmetic throughout.
+// for all four (float32 or bfloat16); float32 softmax and accumulation.
+#include "mma_common.cuh"
 #include "paged_common.cuh"
 
+// ---------------------------------------------------------------------------
+// tensor-core body (bf16)
+// ---------------------------------------------------------------------------
+namespace flash_tc {
+constexpr int QT = 64, KT = 64, NT = 128;
+template <int HD>
+__host__ __device__ constexpr int ld() { return HD + 8; }
+template <int HD>
+constexpr size_t smem_bytes() {  // Q and two stages of K and V
+  return (size_t)(QT + 4 * KT) * ld<HD>() * sizeof(__nv_bfloat16);
+}
+}  // namespace flash_tc
+
+// Rows r0 .. r0+63 of one head ([row][HD], stride `stride` elements
+// between tokens) into a [64][HD + 8] tile; rows >= S are zero.
+template <int HD>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           size_t stride, int r0, int S) {
+  constexpr int CH = HD / 8, LD = flash_tc::ld<HD>();
+  for (int c = threadIdx.x; c < 64 * CH; c += flash_tc::NT) {
+    const int r = c / CH, col = (c - r * CH) * 8;
+    const bool ok = r0 + r < S;
+    mma::cp_async16(dst + r * LD + col,
+                    ok ? src + (size_t)(r0 + r) * stride + col : src, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(flash_tc::NT)
+    flash_prefill_tc(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
+                     float scale_log2) {
+  using namespace flash_tc;
+  constexpr int LD = ld<HD>(), KS = HD / 16, NS = KT / 8, NV = HD / 8;
+  extern __shared__ float4 flash_smem[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(flash_smem);
+  __nv_bfloat16* sk = sq + QT * LD;      // [2][KT][LD]
+  __nv_bfloat16* sv = sk + 2 * KT * LD;  // [2][KT][LD]
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int i0 = tile * QT, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
+  const __nv_bfloat16* qb = q + ((size_t)b * S * Hq + h) * HD;
+  const __nv_bfloat16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
+  const __nv_bfloat16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
+
+  stage_rows<HD>(sq, qb, q_stride, i0, S);
+  stage_rows<HD>(sk, kb, kv_stride, 0, S);
+  stage_rows<HD>(sv, vb, kv_stride, 0, S);
+  mma::cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float o[NV][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  m[0] = m[1] = mma::neg_inf();
+  l[0] = l[1] = 0.f;
+  const int row0 = i0 + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
+
+  // key tiles 0 .. tile; the last one holds the diagonal
+  for (int t = 0; t <= tile; ++t) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile t staged; stage (t+1)&1 no longer read
+    if (t < tile) {
+      const int st = (t + 1) & 1;
+      stage_rows<HD>(sk + st * KT * LD, kb, kv_stride, (t + 1) * KT, S);
+      stage_rows<HD>(sv + st * KT * LD, vb, kv_stride, (t + 1) * KT, S);
+      mma::cp_async_commit();
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        mma::ldsm_x4(qf[kk], mma::a_frag_addr(sq, LD, warp * 16, kk * 16,
+                                              lane));
+    }
+    const __nv_bfloat16* kt = sk + (t & 1) * KT * LD;
+    const __nv_bfloat16* vt = sv + (t & 1) * KT * LD;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4];
+        mma::ldsm_x4(bk, mma::bk_frag_addr(kt, LD, np * 16, kk * 16, lane));
+        mma::mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma::mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    const bool diag = t == tile;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t * KT + n * 8 + 2 * (lane & 3) + (e & 1);
+        const int row = row0 + (e >> 1) * 8;
+        s[n][e] = diag && key > row ? mma::neg_inf() : s[n][e] * scale_log2;
+      }
+    float alpha[2];
+    mma::softmax_update<NS>(s, m, l, alpha);
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t pa[4];
+      mma::probs_to_a<NS>(s, kk, pa);
+#pragma unroll
+      for (int np = 0; np < NV / 2; ++np) {
+        uint32_t bv[4];
+        mma::ldsm_x4_trans(bv, mma::bv_frag_addr(vt, LD, kk * 16, np * 16,
+                                                 lane));
+        mma::mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+        mma::mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = row0 + u * 8;
+    const float den = fmaxf(mma::quad_sum(l[u]), 1e-30f);
+    if (row >= S) continue;
+    __nv_bfloat16* orow = out + (((size_t)b * S + row) * Hq + h) * HD;
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * (lane & 3)) =
+          mma::pack_bf16(o[n][2 * u] / den, o[n][2 * u + 1] / den);
+  }
+}
+
+template <int HD>
+static int launch_tc(const void* q, const void* k, const void* v, void* out,
+                     int B, int S, int Hq, int Hkv, float scale,
+                     cudaStream_t stream) {
+  const size_t smem = flash_tc::smem_bytes<HD>();
+  auto kernel = flash_prefill_tc<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + flash_tc::QT - 1) / flash_tc::QT, Hq, B);
+  kernel<<<grid, flash_tc::NT, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Hq, Hkv,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core body (float32, and bf16 at hd 256)
+// ---------------------------------------------------------------------------
 template <typename T>
 __global__ void flash_prefill_kernel(const T* __restrict__ q,
                                      const T* __restrict__ k,
@@ -84,15 +256,34 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core body takes bf16 at hd 16, 32, 64 and 128.
+static bool tensor_core(int hd, int dtype) {
+  return dtype == 1 && (hd == 16 || hd == 32 || hd == 64 || hd == 128);
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, int B, int S, int Hq, int Hkv, int hd,
                              float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (tensor_core(hd, dtype)) {
+    if (hd == 16)
+      return launch_tc<16>(q, k, v, out, B, S, Hq, Hkv, scale, st);
+    if (hd == 32)
+      return launch_tc<32>(q, k, v, out, B, S, Hq, Hkv, scale, st);
+    if (hd == 64)
+      return launch_tc<64>(q, k, v, out, B, S, Hq, Hkv, scale, st);
+    return launch_tc<128>(q, k, v, out, B, S, Hq, Hkv, scale, st);
+  }
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, hd, scale, st);
   if (dtype == 0)
     return launch<float>(q, k, v, out, B, S, Hq, Hkv, hd, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// 1 when `flash_prefill` runs the tensor-core body for this type and width.
+extern "C" int flash_prefill_tensor_core(int hd, int dtype) {
+  return tensor_core(hd, dtype);
 }

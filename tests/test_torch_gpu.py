@@ -146,10 +146,15 @@ def test_engine_on_card_matches_cpu_engine(cuda):
 
 # (B, S, Hq, Hkv, hd): llama3.2-1b's width at the serve phase's padded
 # prompt lengths (416 ends in a ragged 32-row tile), GQA / MHA / MQA at
-# small widths, a single token, and hd 256 (the 32-row tiles)
+# small widths, a single token, and hd 256 (the 32-row tiles); then the
+# tensor-core tiles' edges at hd 64 and 128: a partial 16-row fragment
+# (17, 63), one row past a 64-key tile (65, 129)
 FLASH_SHAPES = [(1, 416, 32, 8, 64), (1, 384, 32, 8, 64),
                 (2, 160, 8, 2, 64), (1, 100, 4, 4, 32), (1, 70, 8, 1, 128),
-                (3, 1, 4, 2, 16), (1, 40, 2, 1, 256)]
+                (3, 1, 4, 2, 16), (1, 40, 2, 1, 256),
+                (1, 17, 4, 2, 64), (1, 17, 4, 2, 128), (2, 63, 4, 1, 64),
+                (2, 63, 4, 1, 128), (1, 65, 8, 2, 64), (1, 65, 8, 2, 128),
+                (1, 129, 4, 4, 64), (1, 129, 4, 4, 128)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
@@ -261,25 +266,45 @@ def test_mla_decode_kernel(cuda, dtype, tol, hq, dl, dr, scale):
     assert cuda.mla_paged_decode.launches == before + 1
 
 
+# (Hq, dl, dr, page, pages, C, offsets) of the prefill cases: each width
+# of MLA_WIDTHS at 16-token pages, then DeepSeek-V3's width at 64-token
+# pages with pool windows that are not a multiple of the 32-key tile
+# (45, 120) and a chunk that crosses a page boundary (120 .. 135)
+MLA_PREFILL_CASES = [w + (16, 5, 8, (0, 5, 40)) for w in MLA_WIDTHS] + [
+    (128, 512, 64, 64, 3, 16, (0, 45, 120))]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("hq,dl,dr", MLA_WIDTHS)
-def test_mla_prefill_kernel(cuda, dtype, tol, hq, dl, dr):
-    a = _mla_inputs(dtype, hq=hq, dl=dl, dr=dr)
-    offs = torch.tensor([0, 5, 40], dtype=torch.int32, device="cuda")
+@pytest.mark.parametrize("hq,dl,dr,page,pages,c,offs", MLA_PREFILL_CASES)
+def test_mla_prefill_kernel(cuda, dtype, tol, hq, dl, dr, page, pages, c,
+                            offs):
+    a = _mla_inputs(dtype, c=c, hq=hq, dl=dl, dr=dr, page=page, pages=pages)
+    offs = torch.tensor(offs, dtype=torch.int32, device="cuda")
     args = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"], offs)
     out = cuda.mla_prefill(*args, d_latent=dl)
     plain = cuda.mla_prefill(*args, d_latent=dl, backend="torch")
     assert _err(out, plain) <= tol
 
 
+# (Hq, dl, dr, page, pages, C, rows of chunk positions) of the segment
+# cases: each width at 16-token pages, then DeepSeek-V3's width at
+# 64-token pages: a gap chunk with a ragged pool window, a contiguous
+# chunk across the page boundary at 128, and a row of padding only
+MLA_SEG_CASES = [w + (16, 5, 8, ([3, 4, 5, 20, 21, 22, 23],
+                                  list(range(30, 38)), []))
+                 for w in MLA_WIDTHS] + [
+    (128, 512, 64, 64, 3, 16, (list(range(45, 53)) + list(range(100, 107)),
+                               list(range(120, 136)), []))]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("hq,dl,dr", MLA_WIDTHS)
-def test_mla_prefill_seg_kernel(cuda, dtype, tol, hq, dl, dr):
-    a = _mla_inputs(dtype, hq=hq, dl=dl, dr=dr)
-    rows = [[3, 4, 5, 20, 21, 22, 23], list(range(30, 38)), []]
-    cpos = torch.tensor([r + [-1] * (8 - len(r)) for r in rows],
+@pytest.mark.parametrize("hq,dl,dr,page,pages,c,rows", MLA_SEG_CASES)
+def test_mla_prefill_seg_kernel(cuda, dtype, tol, hq, dl, dr, page, pages,
+                                c, rows):
+    a = _mla_inputs(dtype, c=c, hq=hq, dl=dl, dr=dr, page=page, pages=pages)
+    cpos = torch.tensor([r + [-1] * (c - len(r)) for r in rows],
                         dtype=torch.int32, device="cuda")
     args = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"], cpos)
     out = cuda.mla_prefill_seg(*args, d_latent=dl)
@@ -287,16 +312,39 @@ def test_mla_prefill_seg_kernel(cuda, dtype, tol, hq, dl, dr):
     assert _err(out, plain) <= tol
 
 
-def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda):
-    a = _mla_inputs(torch.bfloat16, hq=128, dl=512, dr=64, page=64, pages=3)
+@pytest.mark.parametrize("hq,dl,dr", [(128, 512, 64), (40, 96, 16),
+                                      (4, 32, 8)])
+def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr):
+    a = _mla_inputs(torch.bfloat16, hq=hq, dl=dl, dr=dr, page=64, pages=3)
     offs = [0, 37, 120]
     cpos = torch.tensor([[o + i for i in range(8)] for o in offs],
                         dtype=torch.int32, device="cuda")
     base = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"])
-    seg = cuda.mla_prefill_seg(*base, cpos, d_latent=512)
+    seg = cuda.mla_prefill_seg(*base, cpos, d_latent=dl)
     off = cuda.mla_prefill(*base, torch.tensor(offs, dtype=torch.int32,
-                                               device="cuda"), d_latent=512)
+                                               device="cuda"), d_latent=dl)
     assert torch.equal(seg, off)
+
+
+def test_tensor_core_dispatch(cuda):
+    """The C entries choose a body by type and width: bf16 flash prefill
+    at hd 16-128 and bf16 MLA chunk prefill at every width above run on
+    the tensor cores; float32 (the float32 engine tests), a float32
+    query over a bf16 pool and flash hd 256 keep the CUDA-core bodies."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    flash = build.entry("flash_prefill", "flash_prefill_tensor_core",
+                        [ctypes.c_int] * 2)
+    assert [flash(hd, 1) for hd in (16, 32, 64, 128, 256)] == [1] * 4 + [0]
+    assert [flash(hd, 0) for hd in (16, 32, 64, 128, 256)] == [0] * 5
+    mla = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
+                      [ctypes.c_int] * 5)
+    for _, dl, dr in MLA_WIDTHS:
+        for n_cp in (0, 8, 64):
+            assert mla(dl, dr, n_cp, 1, 1) == 1
+            assert mla(dl, dr, n_cp, 0, 1) == 0
+            assert mla(dl, dr, n_cp, 0, 0) == 0
 
 
 def test_mla_kernel_wrappers_reject_bad_inputs(cuda):

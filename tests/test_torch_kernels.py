@@ -365,3 +365,89 @@ def test_paged_decode_int8_matches_pallas_interpret(b, hq, hkv, hd, page,
     live = [0] + list(range(2, b))
     _close(out[live],
            np.asarray(jref.paged_decode_attention_int8_ref(*jargs))[live])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernels' one extra rounding: P in bf16 before P V
+# ---------------------------------------------------------------------------
+# On the card, bf16 flash prefill and MLA chunk prefill round the
+# probabilities to bf16 in registers and use them as the A operand of the
+# value product (float32 scores, softmax, denominator and accumulation).
+# These tests hold the plain versions computed that way to the unchanged
+# float32 plain versions on bf16 inputs: both agree within 2^-6, the card
+# tests' bf16 tolerance, so that tolerance covers the extra rounding.
+P_BF16_TOL = 2.0 ** -6
+
+
+def _softmax_p_bf16(s, mask):
+    """Masked softmax weights of ``ref._attend`` and their denominator,
+    the weights rounded to bf16 as the value product's operand."""
+    s = s.masked_fill(~mask, ref.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    return p.bfloat16().float(), p.sum(dim=-1, keepdim=True)
+
+
+def _flash_p_bf16(q, k, v):
+    """``ref.flash_prefill`` with P rounded to bf16 before P V."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, hd).float()
+    sc = torch.einsum("bchgd,bthd->bchgt", qg, k.float()) / np.sqrt(hd)
+    mask = ref.causal_mask(s, s, 0, q.device)[:, :, None, None, :]
+    p, l = _softmax_p_bf16(sc, mask)
+    o = torch.einsum("bchgt,bthd->bchgd", p, v.float()) / l.clamp_min(1e-30)
+    return o.reshape(b, s, hq, hd).to(q.dtype)
+
+
+def _mla_chunk_p_bf16(q_lat, q_rope, lat_chunk, pages, tables, offsets,
+                      dl, scale):
+    """``ref._mla_chunk_attend`` over an offset prior with P rounded to
+    bf16 before P V."""
+    t = tables.shape[1] * pages.shape[1]
+    mask = ref._with_chunk(ref._offset_prior(offsets, q_lat.shape[1], t))
+    lat = torch.cat([ref._gather(pages, tables).float(),
+                     lat_chunk.float()], dim=1)
+    c, kr = lat[..., :dl], lat[..., dl:]
+    s = (torch.einsum("bchl,btl->bcht", q_lat.float(), c)
+         + torch.einsum("bchr,btr->bcht", q_rope.float(), kr)) * scale
+    p, l = _softmax_p_bf16(s, mask[:, :, None, :])
+    return (torch.einsum("bcht,btl->bchl", p, c)
+            / l.clamp_min(1e-30)).to(q_lat.dtype)
+
+
+def _bf16(rng, shape):
+    return torch.from_numpy(_rand(rng, shape)).bfloat16()
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd", [
+    (1, 416, 32, 8, 64), (2, 160, 8, 2, 64), (1, 100, 4, 4, 32),
+    (1, 70, 8, 1, 128), (3, 1, 4, 2, 16), (1, 17, 4, 2, 64),
+    (1, 65, 4, 2, 128), (1, 129, 4, 1, 64),
+])
+def test_flash_p_rounded_to_bf16_within_card_tolerance(b, s, hq, hkv, hd):
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (_bf16(rng, (b, s, h, hd)) for h in (hq, hkv, hkv))
+    exact = ref.flash_prefill(q, k, v)
+    rounded = _flash_p_bf16(q, k, v)
+    assert float((rounded.float() - exact.float()).abs().max()) <= P_BF16_TOL
+
+
+@pytest.mark.parametrize("hq,dl,dr,page,pages,c,offs", [
+    (4, 32, 8, 16, 5, 8, (0, 5, 40)),
+    (40, 96, 16, 16, 5, 8, (0, 5, 40)),
+    (128, 512, 64, 16, 5, 8, (0, 5, 40)),       # DeepSeek-V3's width
+    (128, 512, 64, 64, 3, 16, (45, 120)),       # ragged window, page cross
+])
+def test_mla_chunk_p_rounded_to_bf16_within_card_tolerance(hq, dl, dr, page,
+                                                           pages, c, offs):
+    rng = np.random.default_rng(hq + dl)
+    b = len(offs)
+    n = b * pages + 2
+    tables = torch.from_numpy(rng.permutation(n - 1)[:b * pages].reshape(
+        b, pages).astype(np.int32) + 1)
+    args = (_bf16(rng, (b, c, hq, dl)), _bf16(rng, (b, c, hq, dr)),
+            _bf16(rng, (b, c, dl + dr)), _bf16(rng, (n, page, dl + dr)),
+            tables, torch.tensor(offs, dtype=torch.int32))
+    exact = ref.mla_paged_prefill(*args, d_latent=dl)
+    rounded = _mla_chunk_p_bf16(*args, dl, ref.mla_scale(dl, dr))
+    assert float((rounded.float() - exact.float()).abs().max()) <= P_BF16_TOL
