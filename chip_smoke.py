@@ -12,11 +12,13 @@ check raises and the script exits non-zero with no result line:
            parallel) with the compiler's register and spill report and,
            per compiled entry, its tensor-core instructions (HMMA /
            HGMMA) counted in ``cuobjdump -sass`` of the built library;
-           the tensor-core bodies of flash prefill and of both MLA chunk
-           prefill entries must hold some;
+           the tensor-core bodies of flash prefill, of both MLA chunk
+           prefill entries, of the MLA split decode and of the GQA decode
+           bandwidth body must hold some;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
-           lengths up to 512 with inactive rows) against its plain
+           lengths up to 512 with inactive rows; the decode also with
+           every row at 512, ``paged_decode_full``) against its plain
            PyTorch version on the same inputs, timed with CUDA events
            over a window of launches queued ahead of the device (L2
            flushed before each launch, the flushes' own time taken
@@ -26,7 +28,10 @@ check raises and the script exits non-zero with no result line:
   mla_kernels  the same for the three absorbed-MLA kernels at the MLA
            path's shapes (DeepSeek-V3: Hq=128, dl=512, dr=64, page=64,
            C=64, a 1857-page bf16 latent pool, 56 rows with lengths up
-           to 2048);
+           to 2048), plus the decode on 8 rows of full 2048-token tables
+           (``mla_paged_decode_long``); the decode rows carry the split
+           plan (tokens a split, splits, blocks, partial bytes), the GQA
+           decode row its one-block-a-(row, KV head) plan;
   serve    the engine at full llama3.2-1b width (seeded random bf16
            weights, default EngineConfig) serving shared-prefix and
            segment-reuse traffic, 16 new tokens per request, with every
@@ -222,8 +227,10 @@ def sass_tensor_core_counts(build, name) -> dict:
 # entries that must run on the tensor cores: (source, entry name part,
 # how many such entries)
 TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 4),
-                       ("mla_paged_prefill", "mla_prefill_tcILb0E", 2),
-                       ("mla_paged_prefill", "mla_prefill_tcILb1E", 2))
+                       ("mla_paged_prefill", "mla_tc_kernelILi0E", 2),
+                       ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
+                       ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
+                       ("paged_decode", "paged_decode_tc", 4))
 
 
 def phase_build(build, card):
@@ -313,11 +320,22 @@ def prefill_cost(a, attended_pool, causal_pairs):
 def kernel_body(name, a) -> str:
     """The body the C entry runs for case ``name`` on inputs ``a``, as
     its dispatch by type and width decides: "tensor_core" or
-    "cuda_core" (kernels 1-4 and 8 have only the latter)."""
+    "cuda_core" (kernel 8 has only the latter)."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import mla_paged_decode as mpd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
     tc = 0
-    if name.startswith("flash_prefill"):
+    if name.startswith("paged_decode") and "int8" not in name:
+        fn = build.entry("paged_decode", "paged_decode_tensor_core",
+                         [ctypes.c_int] * 5)
+        q, kp = a["q"], a["k_pages"]
+        tc = fn(q.shape[1], kp.shape[2], q.shape[2], DTYPE_CODES[q.dtype],
+                DTYPE_CODES[kp.dtype])
+    elif name.startswith("mla_paged_decode"):
+        tc = mpd.tensor_core(a["q_lat"].shape[-1], a["q_rope"].shape[-1],
+                             DTYPE_CODES[a["q_lat"].dtype],
+                             DTYPE_CODES[a["latent_pages"].dtype])
+    elif name.startswith("flash_prefill"):
         fn = build.entry("flash_prefill", "flash_prefill_tensor_core",
                          [ctypes.c_int] * 2)
         tc = fn(a["q"].shape[-1], DTYPE_CODES[a["q"].dtype])
@@ -341,6 +359,7 @@ def check_and_time(torch, cases, card, phase):
     for case in cases:
         name, fn, args, (nbytes, flops) = case[:4]
         library = case[4] if len(case) > 4 else None
+        extra = case[5] if len(case) > 5 else {}
         out = fn(**args, backend="cuda")
         torch.cuda.synchronize()
         plain = fn(**args, backend="torch")
@@ -359,7 +378,7 @@ def check_and_time(torch, cases, card, phase):
                       "flush_ms": kt["flush_ms"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes,
                       "flops": flops, "tflops": flops / kt["ms"] / 1e9,
-                      "library_ms": None}
+                      "library_ms": None, **extra}
         if library is not None:
             lib_err = float((library().float() - plain.float()).abs().max())
             if not lib_err <= LIBRARY_ATOL:
@@ -391,8 +410,19 @@ def phase_kernels(torch, ops, card):
     off = int(pre["offsets"][0])
     seg_pool, seg_pairs = seg_counts(
         [int(x) for x in seg["chunk_positions"][0]])
+    B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
+    # the bandwidth body walks a row in one block per (row, KV head)
+    plan = {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}
+    # every row at the full 512-token table: the bytes of a batch with no
+    # short row, where the longest row no longer sets the time
+    full = dict(dec, lengths=torch.full_like(dec["lengths"],
+                                             dec["block_tables"].shape[1]
+                                             * dec["k_pages"].shape[1]))
     cases = [
-        ("paged_decode", ops.paged_decode, dec, decode_cost(dec)),
+        ("paged_decode", ops.paged_decode, dec, decode_cost(dec), None,
+         plan),
+        ("paged_decode_full", ops.paged_decode, full, decode_cost(full),
+         None, plan),
         ("paged_prefill", ops.paged_prefill, pre,
          prefill_cost(pre, off, C * off + C * (C + 1) // 2)),
         ("paged_prefill_seg", ops.paged_prefill_seg, seg,
@@ -482,6 +512,25 @@ def mla_cost(a, pool_tokens, pairs):
     return nbytes, pairs * Hq * (2 * dk + 2 * dl)
 
 
+def mla_decode_plan(a) -> dict:
+    """The tensor-core MLA decode's split plan on inputs ``a``: tokens a
+    split, splits of the grid, blocks launched (those past a row's
+    length exit at once), blocks that walk keys, and the float32 partial
+    bytes written (the combine reads them back once)."""
+    from repro_torch.kernels import mla_paged_decode as mpd
+    q_lat, lat = a["q_lat"], a["latent_pages"]
+    B, Hq, dl = q_lat.shape
+    window = a["block_tables"].shape[1] * lat.shape[1]
+    split, S = mpd.decode_split_tokens(window), mpd.decode_splits(window)
+    groups = -(-Hq // 64)
+    used = [max(1, -(-min(max(int(n), 0), window) // split))
+            for n in a["lengths"].tolist()]
+    return {"split_tokens": split, "splits": S, "blocks": groups * S * B,
+            "blocks_walking": groups * sum(used),
+            "partial_bytes": sum(n for n in used if n > 1)
+            * Hq * (dl + 2) * 4}
+
+
 def phase_mla_kernels(torch, ops, card, cfg):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     dec, pre, seg = make_mla_kernel_inputs(torch, gen, cfg)
@@ -491,9 +540,27 @@ def phase_mla_kernels(torch, ops, card, cfg):
     off = int(pre["offsets"][0])
     seg_pool, seg_pairs = seg_counts(
         [int(x) for x in seg["chunk_positions"][0]])
+    # the small batch of long rows the split exists for: 8 rows, each a
+    # full 2048-token table of its own pages
+    B8, P = 8, dec["block_tables"].shape[1]
+    lat = dec["latent_pages"]
+    perm = torch.randperm(lat.shape[0] - 1, generator=gen,
+                          device="cuda")[:B8 * P] + 1
+    Hq, dl = dec["q_lat"].shape[1:]
+    dr = dec["q_rope"].shape[-1]
+    long = dict(dec, q_lat=torch.randn((B8, Hq, dl), generator=gen,
+                                       device="cuda").to(torch.bfloat16),
+                q_rope=torch.randn((B8, Hq, dr), generator=gen,
+                                   device="cuda").to(torch.bfloat16),
+                block_tables=perm.reshape(B8, P).to(torch.int32),
+                lengths=torch.full((B8,), window, dtype=torch.int32,
+                                   device="cuda"))
     cases = [
         ("mla_paged_decode", ops.mla_decode, dec,
-         mla_cost(dec, dec_tokens, dec_tokens)),
+         mla_cost(dec, dec_tokens, dec_tokens), None, mla_decode_plan(dec)),
+        ("mla_paged_decode_long", ops.mla_decode, long,
+         mla_cost(long, B8 * window, B8 * window), None,
+         mla_decode_plan(long)),
         ("mla_paged_prefill", ops.mla_prefill, pre,
          mla_cost(pre, off, C * off + C * (C + 1) // 2)),
         ("mla_paged_prefill_seg", ops.mla_prefill_seg, seg,

@@ -9,24 +9,46 @@
 // Bound on the H100: HBM bytes.  Each row reads length * Hkv * hd
 // elements of K and as many of V, and does 4 * length * Hq * hd flops:
 // one flop per byte in bf16, far below the ~295 the card needs before
-// the tensor cores limit.  So the design reads every K/V byte once:
-// one block per (row, KV head) holds all G = Hq / Hkv query heads of
-// the group, so a page of K and V is staged into shared memory once and
-// serves the whole group.  The block walks only ceil(length / page)
-// pages (table entries clamped into [0, N-1]); the sequential page loop
-// replaces the TPU grid's page axis, with the online-softmax state
-// (m, l, acc) in shared memory.  A row of length 0 reads nothing and
-// writes zeros.
+// the tensor cores limit.  So the design reads every K/V byte once: one
+// block per (row, KV head) holds all G = Hq / Hkv query heads of the
+// group, so each key and value row is staged once and serves the whole
+// group.  The block walks only the row's min(length, P * page) tokens
+// (table entries clamped into [0, N-1]); the sequential walk replaces the
+// TPU grid's page axis.  A row of length 0 reads nothing and writes
+// zeros.  Two bodies, chosen by type and width in the C entries below
+// (never a retry after a failure):
 //
-// The int8 instantiation is the same body: its pages hold one byte an
-// element, half of bf16's (the reason the TPU kernel exists), plus one
-// bf16 scale per (token, KV head) for K and for V; each element is
+// * bf16 q and pages, hd 16 / 32 / 64 / 128 and G <= 16 -- the bandwidth
+//   body (`paged_decode_tc`): 4 warps; tiles of KT = 64 key positions
+//   (each row found through the block table, so any page size) arrive
+//   as bf16 by 16-byte `cp.async` into a three-stage ring of K and V
+//   tiles, two tiles in flight while one is scored, one barrier a tile.
+//   Warp w takes keys 16w .. 16w+15 of every tile and keeps its own
+//   online-softmax state; the four are merged once at the end, in warp
+//   order, through shared memory.  Scores and P V run on `mma.sync`
+//   m16n8k16 with the G query rows padded to 16 (zero rows): at 1 flop
+//   a byte the tensor cores idle either way, and the fragments give the
+//   per-row max and sum with two quad shuffles, keep Q (hd/16 x 4
+//   registers) and P (bf16, as the A operand) in registers, and read K
+//   and V out of shared memory with `ldmatrix` without conflicts.  56 KB
+//   of shared memory at hd 64 (Q shares the third stage until the walk
+//   starts), so four blocks an SM hold the 512 blocks of a 64-row batch
+//   at llama3.2-1b width in one wave.
+// * float32 q (with float32 or bf16 pages), bf16 at other widths, and
+//   int8 pages -- the CUDA-core body (`paged_decode_kernel`): one block
+//   per (row, KV head) stages each page into shared memory as float32
+//   and keeps the online-softmax state (m, l, acc) there.
+//
+// The int8 instantiation is the CUDA-core body: its pages hold one byte
+// an element, half of bf16's (the reason the TPU kernel exists), plus
+// one bf16 scale per (token, KV head) for K and for V; each element is
 // dequantized as float(int8) * float(scale) while the page is staged.
 //
 // Layouts: q [B,Hq,hd]; k/v pages [N,page,Hkv,hd]; int8 scales
 // [N,page,Hkv,1] bf16; block tables [B,P] int32; lengths [B] int32;
 // out [B,Hq,hd] in q's type.
 #include "paged_common.cuh"
+#include "mma_common.cuh"
 
 template <typename TQ, typename TKV, bool SCALED>
 __global__ void paged_decode_kernel(const TQ* __restrict__ q,
@@ -98,6 +120,210 @@ static int launch(const void* q, const void* kp, const void* vp,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bandwidth body (bf16 q and pages)
+// ---------------------------------------------------------------------------
+namespace gqa_tc {
+constexpr int NT = 128;     // threads: 4 warps
+constexpr int KT = 64;      // key positions a tile, 16 a warp
+constexpr int STAGES = 3;   // tiles: one scored, two in flight
+constexpr int RM = 16;      // query rows of the mma tile (G of them real)
+
+// Three stages of [K tile; V tile], [2 * KT][hd + 8] bf16 each; Q [RM][hd
+// + 8] lives in the third stage until the walk starts.
+inline size_t smem_bytes(int hd) {
+  return (size_t)STAGES * 2 * KT * (hd + 8) * 2;
+}
+
+inline bool width_ok(int Hq, int Hkv, int hd) {
+  return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= RM &&
+         (hd == 16 || hd == 32 || hd == 64 || hd == 128);
+}
+}  // namespace gqa_tc
+
+template <int HD>
+__global__ void __launch_bounds__(gqa_tc::NT, 4)
+    paged_decode_tc(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k_pages,
+                    const __nv_bfloat16* __restrict__ v_pages,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int N,
+                    int page, int P, float scale_log2) {
+  using namespace gqa_tc;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = HD + 8, CH = HD / 8;  // row stride; 16-byte chunks
+  constexpr int TILE = 2 * KT * LD;        // one stage: K then V
+  extern __shared__ float4 gqa_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(gqa_smem);
+  bf16* sq = ring + 2 * TILE;  // Q in the third stage
+  const int b = blockIdx.x, h = blockIdx.y, G = Hq / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int end = min(max(lengths[b], 0), P * page);
+  const int nt = (end + KT - 1) / KT;
+  const int* trow = tables + (size_t)b * P;
+  const size_t q0 = ((size_t)b * Hq + (size_t)h * G) * HD;
+
+  for (int c = tid; c < RM * CH; c += NT) {
+    const int r = c / CH, col = (c - r * CH) * 8;
+    mma::cp_async16(sq + r * LD + col, q + q0 + (r < G ? r * HD + col : 0),
+                    r < G);
+  }
+  auto stage = [&](int t) {
+    bf16* dst = ring + (t % STAGES) * TILE;
+    for (int c = tid; c < KT * CH; c += NT) {
+      const int j = c / CH, cc = c - j * CH, pos = t * KT + j;
+      const bool ok = pos < end;
+      size_t off = 0;
+      if (ok) {
+        const int pid = min(max(trow[pos / page], 0), N - 1);
+        off = (((size_t)pid * page + pos % page) * Hkv + h) * HD + cc * 8;
+      }
+      mma::cp_async16(dst + j * LD + cc * 8, k_pages + off, ok);
+      mma::cp_async16(dst + (KT + j) * LD + cc * 8, v_pages + off, ok);
+    }
+  };
+  stage(0);
+  mma::cp_async_commit();  // Q and tile 0
+  if (nt > 1) stage(1);
+  mma::cp_async_commit();
+
+  uint32_t qa[HD / 16][4];  // Q as A fragments, rows >= G zero
+  float o[HD / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  m[0] = m[1] = mma::neg_inf();
+  l[0] = l[1] = 0.f;
+  mma::cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma::ldsm_x4(qa[kk], mma::a_frag_addr(sq, LD, 0, kk * 16, lane));
+
+  const int k0 = warp * 16;  // this warp's keys of a tile
+  for (int t = 0; t < nt; ++t) {
+    mma::cp_async_wait<1>();
+    __syncthreads();  // tile t staged; every warp is done with t - 1
+    if (t + 2 < nt) stage(t + 2);
+    mma::cp_async_commit();
+    const bf16* kt = ring + (t % STAGES) * TILE;
+    const bf16* vt = kt + KT * LD;
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t bk[4];
+      mma::ldsm_x4(bk, mma::bk_frag_addr(kt, LD, k0, kk * 16, lane));
+      mma::mma_bf16(s[0], qa[kk], bk[0], bk[1]);
+      mma::mma_bf16(s[1], qa[kk], bk[2], bk[3]);
+    }
+    const int kpos = t * KT + k0 + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = kpos + n * 8 + (e & 1) < end ? s[n][e] * scale_log2
+                                               : mma::neg_inf();
+    float alpha[2];
+    mma::softmax_update<2>(s, m, l, alpha);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    uint32_t pa[4];
+    mma::probs_to_a<2>(s, 0, pa);
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t bv[4];
+      mma::ldsm_x4_trans(bv, mma::bv_frag_addr(vt, LD, k0, np * 16, lane));
+      mma::mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+      mma::mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+    }
+  }
+
+  // merge the four warps' states, in warp order, through the ring:
+  // m [4][RM], l [4][RM], o [4][RM][HD] (float32)
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  float* cm = reinterpret_cast<float*>(ring);
+  float* cl = cm + 4 * RM;
+  float* co = cl + 4 * RM;
+  const float lsum[2] = {mma::quad_sum(l[0]), mma::quad_sum(l[1])};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = g + 8 * u;
+    if (tq == 0) {
+      cm[warp * RM + r] = m[u];
+      cl[warp * RM + r] = lsum[u];
+    }
+    float* orow = co + (warp * RM + r) * HD + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(o[n][2 * u], o[n][2 * u + 1]);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += NT) {
+    const int r = i / HD, d = i - r * HD;
+    float mx = cm[r];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) mx = fmaxf(mx, cm[w * RM + r]);
+    const float base = mx == mma::neg_inf() ? 0.f : mx;
+    float den = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wt = exp2f(cm[w * RM + r] - base);
+      den += wt * cl[w * RM + r];
+      acc += wt * co[(w * RM + r) * HD + d];
+    }
+    out[q0 + i] = __float2bfloat16(acc / fmaxf(den, 1e-30f));
+  }
+}
+
+template <int HD>
+static int launch_tc(const void* q, const void* kp, const void* vp,
+                     const void* tables, const void* lengths, void* out,
+                     int B, int Hq, int Hkv, int N, int page, int P,
+                     float scale, cudaStream_t stream) {
+  const size_t smem = gqa_tc::smem_bytes(HD);
+  auto kernel = paged_decode_tc<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  using bf16 = __nv_bfloat16;
+  kernel<<<dim3(B, Hkv), gqa_tc::NT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)kp, (const bf16*)vp, (const int*)tables,
+      (const int*)lengths, (bf16*)out, Hq, Hkv, N, page, P,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+static int decode_tc(const void* q, const void* kp, const void* vp,
+                     const void* tables, const void* lengths, void* out,
+                     int B, int Hq, int Hkv, int hd, int N, int page, int P,
+                     float scale, cudaStream_t st) {
+  switch (hd) {
+    case 16:
+      return launch_tc<16>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
+                           page, P, scale, st);
+    case 32:
+      return launch_tc<32>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
+                           page, P, scale, st);
+    case 64:
+      return launch_tc<64>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
+                           page, P, scale, st);
+    case 128:
+      return launch_tc<128>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
+                            page, P, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* tables,
@@ -107,10 +333,14 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
                             void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (q_dtype == 1 && kv_dtype == 1)
+  if (q_dtype == 1 && kv_dtype == 1) {
+    if (gqa_tc::width_ok(Hq, Hkv, hd))
+      return decode_tc(q, k_pages, v_pages, tables, lengths, out, B, Hq, Hkv,
+                       hd, N, page, P, scale, st);
     return launch<__nv_bfloat16, __nv_bfloat16, false>(
         q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out, B, Hq,
         Hkv, hd, N, page, P, scale, st);
+  }
   if (q_dtype == 0 && kv_dtype == 1)
     return launch<float, __nv_bfloat16, false>(
         q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out, B, Hq,
@@ -141,4 +371,11 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pages,
                                        v_scales, tables, lengths, out, B, Hq,
                                        Hkv, hd, N, page, P, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// 1 when paged_decode runs the bandwidth body (bf16 mma.sync) for these
+// types and widths.
+extern "C" int paged_decode_tensor_core(int Hq, int Hkv, int hd, int q_dtype,
+                                        int kv_dtype) {
+  return q_dtype == 1 && kv_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd);
 }

@@ -8,8 +8,17 @@ part (``q_rope`` [B,Hq,dr]), attend the row's latent pool tokens below
 its length through the block table and return the latent-space context
 [B,Hq,dl]; the caller applies ``W_uv`` and the output projection.  On
 CPU tensors the wrapper runs the plain version in ``kernels/ref.py``.
+
+For bf16 at the tensor-core widths the kernel splits each row's key walk
+into splits of ``decode_split_tokens(P * page)`` tokens, chosen from the
+table window alone (the host never reads ``lengths``), and merges the
+float32 partials of a row of several splits in a second kernel; the
+wrapper allocates those partials.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -20,9 +29,34 @@ from repro_torch.kernels.paged_attention import (DTYPE_CODES, FLT, INT, PTR,
 
 # the kernels keep dl / 256 value columns a thread in registers
 MAX_D_LATENT = 512
-# q_lat, q_rope, pages, tables, lengths, out; B, Hq, dl, dr, N, page, P;
-# scale; q and pool dtype codes; stream
-MLA_DECODE_ARGS = [PTR] * 6 + [INT] * 7 + [FLT, INT, INT, PTR]
+# q_lat, q_rope, pages, tables, lengths, out, partials; B, Hq, dl, dr, N,
+# page, P; scale; tokens a split; q and pool dtype codes; stream
+MLA_DECODE_ARGS = [PTR] * 7 + [INT] * 7 + [FLT, INT, INT, INT, PTR]
+# the tensor-core body's split plan: 256 tokens (8 key tiles) a split,
+# at most 16 splits a row (longer windows take longer splits)
+SPLIT_TOKENS = 256
+MAX_SPLITS = 16
+
+
+def decode_split_tokens(window: int) -> int:
+    """Tokens a split of the key walk over a table window of ``window``
+    (= P * page) tokens."""
+    return SPLIT_TOKENS * max(1, -(-window // (SPLIT_TOKENS * MAX_SPLITS)))
+
+
+def decode_splits(window: int) -> int:
+    """Splits of the grid (a row uses ceil(min(length, window) / split)
+    of them, at least one)."""
+    return max(1, -(-window // decode_split_tokens(window)))
+
+
+@functools.lru_cache(maxsize=None)
+def tensor_core(dl: int, dr: int, q_dtype: int, kv_dtype: int) -> bool:
+    """Whether the C entry runs the tensor-core body (split walk and
+    combine) for these widths and dtype codes."""
+    fn = build.entry("mla_paged_decode", "mla_paged_decode_tensor_core",
+                     [ctypes.c_int] * 4)
+    return bool(fn(dl, dr, q_dtype, kv_dtype))
 
 
 def check_mla_args(name: str, q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -78,14 +112,22 @@ def mla_paged_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
             or lengths.shape != (b,):
         raise ValueError("mla_paged_decode: q_lat [B,Hq,dl], tables [B,P], "
                          "lengths [B]")
+    dr, qd, kd = q_rope.shape[-1], DTYPE_CODES[q_lat.dtype], \
+        DTYPE_CODES[latent_pages.dtype]
+    window = block_tables.shape[1] * page
+    part = None
+    if tensor_core(dl, dr, qd, kd):
+        # float32 partials: o [B, S, Hq, dl], then (m, l) [B, S, Hq, 2]
+        part = torch.empty(b * decode_splits(window) * hq * (dl + 2),
+                           dtype=torch.float32, device=q_lat.device)
     out = torch.empty_like(q_lat)
     fn = build.entry("mla_paged_decode", "mla_paged_decode", MLA_DECODE_ARGS)
     rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), latent_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, hq, dl, q_rope.shape[-1], n, page, block_tables.shape[1],
-            ref.mla_scale(dl, q_rope.shape[-1], scale),
-            DTYPE_CODES[q_lat.dtype], DTYPE_CODES[latent_pages.dtype],
-            stream_ptr(q_lat.device))
+            None if part is None else part.data_ptr(),
+            b, hq, dl, dr, n, page, block_tables.shape[1],
+            ref.mla_scale(dl, dr, scale), decode_split_tokens(window), qd,
+            kd, stream_ptr(q_lat.device))
     build.check(rc, "mla_paged_decode", "mla_paged_decode")
     mla_paged_decode.launches += 1
     return out

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (GQA paged decode / prefill / segment
 prefill, their absorbed-MLA counterparts, causal flash prefill and int8
-paged decode) against their plain PyTorch versions on the card.  Needs a CUDA device and the CUDA toolkit
-(the kernels build at first use); elsewhere every test skips.  Run on
-the card with
+paged decode) against their plain PyTorch versions on the card, and the
+bf16 decode kernels' split walks against themselves (bit for bit).
+Needs a CUDA device and the CUDA toolkit (the kernels build at first
+use); elsewhere every test skips.  Run on the card with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -61,6 +62,45 @@ def test_paged_decode_kernel(cuda, dtype, tol, hq, hkv, hd):
     assert _err(out, cuda.paged_decode(*args, backend="torch")) <= tol
     assert bool((out[0] == 0).all())            # length 0 -> zeros
     assert cuda.paged_decode_attention.launches == before + 1
+
+
+# lengths that start, end and cross the bandwidth body's 64-key tiles
+# (16 keys a warp), a row of length 0 and full tables
+EDGE_LENGTHS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300, 511, 512]
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page", [(32, 8, 64, 64), (32, 8, 64, 16),
+                                            (8, 1, 128, 64)])
+def test_paged_decode_kernel_long_rows(cuda, hq, hkv, hd, page):
+    """llama3.2-1b width (and MQA at hd 128), bf16 on the bandwidth
+    body: 64 rows over 512-token tables with lengths at the tile edges,
+    clamped table entries inside the length, one launch a call, and two
+    calls equal bit for bit."""
+    b, pages = 64, 512 // page
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n = b * pages + 2
+    kp = torch.randn((n, page, hkv, hd), generator=g,
+                     device="cuda").bfloat16()
+    vp = torch.randn((n, page, hkv, hd), generator=g,
+                     device="cuda").bfloat16()
+    tables = (torch.randperm(n - 1, generator=g, device="cuda")[:b * pages]
+              + 1).reshape(b, pages).to(torch.int32)
+    tables[-2, 0] = n + 40                      # clamps to page n - 1
+    tables[-1, 1] = -3                          # clamps to page 0
+    lengths = torch.randint(1, 513, (b,), generator=g,
+                            device="cuda").to(torch.int32)
+    lengths[:len(EDGE_LENGTHS)] = torch.tensor(EDGE_LENGTHS)
+    lengths[-2:] = 512
+    q = torch.randn((b, hq, hd), generator=g, device="cuda").bfloat16()
+    args = (q, kp, vp, tables, lengths)
+    before = cuda.paged_decode_attention.launches
+    out = cuda.paged_decode(*args)
+    torch.cuda.synchronize()
+    assert cuda.paged_decode_attention.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[0] == 0).all())            # length 0 -> zeros
+    assert _err(out, cuda.paged_decode(*args, backend="torch")) <= BF16_TOL
+    assert torch.equal(out, cuda.paged_decode(*args))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
@@ -266,6 +306,54 @@ def test_mla_decode_kernel(cuda, dtype, tol, hq, dl, dr, scale):
     assert cuda.mla_paged_decode.launches == before + 1
 
 
+# lengths at the MLA decode's split (256 tokens) and tile (32) edges, a
+# row of length 0 and one in the middle of a split
+SPLIT_LENGTHS = [0, 1, 31, 32, 33, 255, 256, 257, 700, 1023, 1024, 2047,
+                 2048]
+
+
+@pytest.mark.parametrize("b,full", [(56, False), (8, True)])
+def test_mla_decode_kernel_split_walk(cuda, b, full):
+    """DeepSeek-V3 width, bf16, 2048-token tables: the split key walk and
+    its combine against the plain version, at lengths crossing the split
+    and tile edges (56 rows) and on 8 full rows, with clamped table
+    entries inside the length; one launch a call, zeros for length 0, and
+    two calls equal bit for bit."""
+    from repro_torch.kernels import mla_paged_decode as mpd
+    hq, dl, dr, page, pages = 128, 512, 64, 64, 32
+    assert mpd.decode_split_tokens(pages * page) == 256
+    g = torch.Generator(device="cuda").manual_seed(12)
+    n = b * pages + 2
+    lp = torch.randn((n, page, dl + dr), generator=g,
+                     device="cuda").bfloat16()
+    tables = (torch.randperm(n - 1, generator=g, device="cuda")[:b * pages]
+              + 1).reshape(b, pages).to(torch.int32)
+    tables[-2, 5] = n + 7                       # clamps to page n - 1
+    tables[-1, 0] = -1                          # clamps to page 0
+    if full:
+        lengths = torch.full((b,), pages * page, dtype=torch.int32,
+                             device="cuda")
+    else:
+        lengths = torch.randint(1, pages * page + 1, (b,), generator=g,
+                                device="cuda").to(torch.int32)
+        lengths[:len(SPLIT_LENGTHS)] = torch.tensor(SPLIT_LENGTHS)
+        lengths[-2:] = pages * page
+    args = (torch.randn((b, hq, dl), generator=g, device="cuda").bfloat16(),
+            torch.randn((b, hq, dr), generator=g, device="cuda").bfloat16(),
+            lp, tables, lengths)
+    scale = 1.0 / (128 + dr) ** 0.5            # the engine's scale
+    before = cuda.mla_paged_decode.launches
+    out = cuda.mla_decode(*args, d_latent=dl, scale=scale)
+    torch.cuda.synchronize()
+    assert cuda.mla_paged_decode.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    plain = cuda.mla_decode(*args, d_latent=dl, scale=scale, backend="torch")
+    assert _err(out, plain) <= BF16_TOL
+    if not full:
+        assert bool((out[0] == 0).all())        # length 0 -> zeros
+    assert torch.equal(out, cuda.mla_decode(*args, d_latent=dl, scale=scale))
+
+
 # (Hq, dl, dr, page, pages, C, offsets) of the prefill cases: each width
 # of MLA_WIDTHS at 16-token pages, then DeepSeek-V3's width at 64-token
 # pages with pool windows that are not a multiple of the 32-key tile
@@ -328,9 +416,11 @@ def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr):
 
 def test_tensor_core_dispatch(cuda):
     """The C entries choose a body by type and width: bf16 flash prefill
-    at hd 16-128 and bf16 MLA chunk prefill at every width above run on
-    the tensor cores; float32 (the float32 engine tests), a float32
-    query over a bf16 pool and flash hd 256 keep the CUDA-core bodies."""
+    at hd 16-128, bf16 MLA chunk prefill and MLA decode at every width
+    above and bf16 GQA decode at hd 16-128 with up to 16 query heads a
+    KV head run on the tensor cores; float32 (the float32 engine tests),
+    a float32 query over a bf16 pool, flash hd 256 and GQA decode at
+    other widths keep the CUDA-core bodies."""
     import ctypes
 
     from repro_torch.kernels import build
@@ -345,6 +435,22 @@ def test_tensor_core_dispatch(cuda):
             assert mla(dl, dr, n_cp, 1, 1) == 1
             assert mla(dl, dr, n_cp, 0, 1) == 0
             assert mla(dl, dr, n_cp, 0, 0) == 0
+    mla_dec = build.entry("mla_paged_decode", "mla_paged_decode_tensor_core",
+                          [ctypes.c_int] * 4)
+    for _, dl, dr in MLA_WIDTHS:
+        assert mla_dec(dl, dr, 1, 1) == 1
+        assert mla_dec(dl, dr, 0, 1) == 0
+        assert mla_dec(dl, dr, 0, 0) == 0
+    assert mla_dec(640, 64, 1, 1) == 0          # past 512 latent columns
+    gqa = build.entry("paged_decode", "paged_decode_tensor_core",
+                      [ctypes.c_int] * 5)
+    for hq, hkv, hd in [(32, 8, 64), (8, 2, 64), (4, 4, 32), (8, 1, 128),
+                        (16, 1, 16)]:
+        assert gqa(hq, hkv, hd, 1, 1) == 1
+        assert gqa(hq, hkv, hd, 0, 1) == 0
+        assert gqa(hq, hkv, hd, 0, 0) == 0
+    assert gqa(32, 1, 64, 1, 1) == 0            # 32 query heads a KV head
+    assert gqa(8, 2, 256, 1, 1) == 0            # hd 256
 
 
 def test_mla_kernel_wrappers_reject_bad_inputs(cuda):

@@ -451,3 +451,158 @@ def test_mla_chunk_p_rounded_to_bf16_within_card_tolerance(hq, dl, dr, page,
     exact = ref.mla_paged_prefill(*args, d_latent=dl)
     rounded = _mla_chunk_p_bf16(*args, dl, ref.mla_scale(dl, dr))
     assert float((rounded.float() - exact.float()).abs().max()) <= P_BF16_TOL
+
+
+# ---------------------------------------------------------------------------
+# the bf16 decode kernels' split key walks: partials merged in order
+# ---------------------------------------------------------------------------
+# On the card, bf16 MLA decode splits each row's key walk into splits of
+# `decode_split_tokens(P * page)` tokens over blocks, and bf16 GQA decode
+# gives each of a block's four warps 16 keys of every 64-key tile; each
+# split (warp) keeps its own float32 (m, l, acc) with P rounded to bf16
+# for P V, and the partials are merged in split order:
+# w_s = 2^(m_s - max m), out = sum w_s acc_s / max(sum w_s l_s, 1e-30),
+# with m kept finite (>= NEG_INF) for a split with no valid key.  These
+# tests compute the plain versions that way, over every split of the
+# window (the kernels skip the empty ones), and hold them to the
+# unchanged plain versions and to the JAX package's Pallas kernels.
+LOG2E = 1.4426950408889634
+
+
+def _split_merge(s, mask, split_of, pv, p_bf16):
+    """Scores ``s`` [..., T] (scaled), ``mask`` [..., T], ``split_of``
+    [T] (each key's split) and ``pv`` (probabilities [..., T] -> their
+    product with the values [..., dv]) -> the merged context."""
+    x = (s * LOG2E).masked_fill(~mask, ref.NEG_INF)
+    parts = []
+    for sp in range(int(split_of.max()) + 1):
+        own = mask & (split_of == sp)
+        xs = x.masked_fill(~own, ref.NEG_INF)
+        m = xs.amax(dim=-1, keepdim=True).clamp_min(ref.NEG_INF)
+        p = torch.exp2(xs - m) * own
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      pv(p.bfloat16().float() if p_bf16 else p)))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    den, acc = 0.0, 0.0
+    for m, l, a in parts:                       # in split order
+        w = torch.exp2(m - mx)
+        den, acc = den + w * l, acc + w * a
+    return acc / den.clamp_min(1e-30)
+
+
+def _mla_split_decode(q_lat, q_rope, pages, tables, lengths, dl, scale,
+                      p_bf16=True):
+    """``ref.mla_paged_decode`` with the key walk split as the kernel
+    splits it."""
+    from repro_torch.kernels import mla_paged_decode as mpd
+    lat = ref._gather(pages, tables).float()
+    t = lat.shape[1]
+    c, kr = lat[..., :dl], lat[..., dl:]
+    s = (torch.einsum("bhl,btl->bht", q_lat.float(), c)
+         + torch.einsum("bhr,btr->bht", q_rope.float(), kr)) * scale
+    mask = ref._length_mask(lengths, t)
+    split_of = torch.arange(t) // mpd.decode_split_tokens(t)
+    return _split_merge(s, mask, split_of,
+                        lambda p: torch.einsum("bht,btl->bhl", p, c), p_bf16)
+
+
+def _gqa_warp_decode(q, k_pages, v_pages, tables, lengths, p_bf16=True):
+    """``ref.paged_decode_attention`` with the keys of each 64-key tile
+    dealt to four warps, 16 each, as the bandwidth body does."""
+    k = ref._gather(k_pages, tables).float()
+    v = ref._gather(v_pages, tables).float()
+    b, hq, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k) / np.sqrt(hd)
+    mask = ref._length_mask(lengths, t)[:, :, None, :]
+    split_of = (torch.arange(t) % 64) // 16
+    out = _split_merge(s, mask, split_of,
+                       lambda p: torch.einsum("bhgt,bthd->bhgd", p, v),
+                       p_bf16)
+    return out.reshape(b, hq, hd)
+
+
+def _tables(rng, b, pages, n):
+    t = rng.permutation(n - 1)[:b * pages].reshape(b, pages) + 1
+    return torch.from_numpy(t.astype(np.int32))
+
+
+def _zero_rows_and_finite(out, lengths):
+    assert bool(torch.isfinite(out).all())
+    for r in np.flatnonzero(np.asarray(lengths) == 0):
+        assert torch.equal(out[r], torch.zeros_like(out[r]))
+
+
+@pytest.mark.parametrize("hq,dl,dr,page,pages,lens", [
+    # window 640: splits of 256 (the last one partial), tile edges
+    (4, 32, 8, 16, 40, (0, 1, 31, 32, 33, 255, 256, 257, 300, 640)),
+    (40, 96, 16, 16, 20, (0, 100, 255, 256, 257, 320)),
+    # DeepSeek-V3's width and window: 8 splits of 256
+    (128, 512, 64, 64, 32, (0, 1, 256, 513, 700, 2048)),
+    # a window of 5120: 10 splits of 512 (at most 16 splits a row)
+    (8, 64, 16, 64, 80, (0, 511, 512, 513, 4097, 5120)),
+])
+def test_mla_decode_split_merge_within_card_tolerance(hq, dl, dr, page,
+                                                      pages, lens):
+    rng = np.random.default_rng(hq + dl + pages)
+    b = len(lens)
+    n = b * pages + 2
+    tables = _tables(rng, b, pages, n)
+    tables[-1, 1] = n + 3                       # clamps to page n - 1
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    args = (_bf16(rng, (b, hq, dl)), _bf16(rng, (b, hq, dr)),
+            _bf16(rng, (n, page, dl + dr)), tables, lengths)
+    scale = ref.mla_scale(dl, dr)
+    exact = ref.mla_paged_decode(*args, d_latent=dl).float()
+    rounded = _mla_split_decode(*args, dl, scale)
+    _zero_rows_and_finite(rounded, lens)
+    assert float((rounded - exact).abs().max()) <= P_BF16_TOL
+    # without the rounding the split walk is the plain version's algebra
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    merged = _mla_split_decode(*f32, dl, scale, p_bf16=False)
+    _close(merged, ref.mla_paged_decode(*f32, d_latent=dl))
+    if dl == 32:
+        # and the Pallas kernel's, on the rows whose table entries are in
+        # the pool (the clamp is the ``xla`` fallback's semantics)
+        pallas = np.asarray(jops.mla_decode(
+            *[jnp.asarray(a.numpy()) for a in f32], d_latent=dl,
+            backend="interpret"))[:-1]
+        _close(merged[:-1], pallas)
+        assert float(np.abs(rounded[:-1].numpy() - pallas).max()) \
+            <= P_BF16_TOL
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,lens", [
+    # llama3.2-1b width: tile and warp edges, a full 512-token table
+    (32, 8, 64, 64, 8, (0, 1, 15, 16, 17, 63, 64, 65, 300, 512)),
+    (8, 2, 64, 16, 6, (0, 1, 17, 96, 50)),
+    (4, 4, 32, 32, 3, (0, 33, 96)),
+    (8, 1, 128, 16, 6, (0, 70, 96)),
+])
+def test_paged_decode_warp_merge_within_card_tolerance(hq, hkv, hd, page,
+                                                       pages, lens):
+    rng = np.random.default_rng(hq + hd + page)
+    b = len(lens)
+    n = b * pages + 2
+    tables = _tables(rng, b, pages, n)
+    tables[-1, 0] = -4                          # clamps to page 0
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    args = (_bf16(rng, (b, hq, hd)), _bf16(rng, (n, page, hkv, hd)),
+            _bf16(rng, (n, page, hkv, hd)), tables, lengths)
+    exact = ref.paged_decode_attention(*args).float()
+    rounded = _gqa_warp_decode(*args)
+    _zero_rows_and_finite(rounded, lens)
+    assert float((rounded - exact).abs().max()) <= P_BF16_TOL
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    merged = _gqa_warp_decode(*f32, p_bf16=False)
+    _close(merged, ref.paged_decode_attention(*f32))
+    if hd == 64 and page == 64:
+        # and the Pallas kernel's, on the rows whose table entries are in
+        # the pool (the clamp is the ``xla`` fallback's semantics)
+        pallas = np.asarray(jops.paged_decode(
+            *[jnp.asarray(a.numpy()) for a in f32],
+            backend="interpret"))[:-1]
+        _close(merged[:-1], pallas)
+        assert float(np.abs(rounded[:-1].numpy() - pallas).max()) \
+            <= P_BF16_TOL
