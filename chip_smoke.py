@@ -13,12 +13,15 @@ check raises and the script exits non-zero with no result line:
            per compiled entry, its tensor-core instructions (HMMA /
            HGMMA) counted in ``cuobjdump -sass`` of the built library;
            the tensor-core bodies of flash prefill, of both MLA chunk
-           prefill entries, of the MLA split decode and of the GQA decode
-           bandwidth body must hold some;
+           prefill entries, of the MLA split decode, of the GQA decode
+           bandwidth body and of both GQA chunk prefill entries must
+           hold some;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
            lengths up to 512 with inactive rows; the decode also with
-           every row at 512, ``paged_decode_full``) against its plain
+           every row at 512, ``paged_decode_full``; the chunk prefill at
+           offset 320 and at the window's last chunk, offset 448,
+           ``paged_prefill_long``) against its plain
            PyTorch version on the same inputs, timed with CUDA events
            over a window of launches queued ahead of the device (L2
            flushed before each launch, the flushes' own time taken
@@ -31,7 +34,8 @@ check raises and the script exits non-zero with no result line:
            to 2048), plus the decode on 8 rows of full 2048-token tables
            (``mla_paged_decode_long``); the decode rows carry the split
            plan (tokens a split, splits, blocks, partial bytes), the GQA
-           decode row its one-block-a-(row, KV head) plan;
+           decode and chunk prefill rows their one-wave plans (blocks,
+           warp splits merged inside the block, no partials);
   serve    the engine at full llama3.2-1b width (seeded random bf16
            weights, default EngineConfig) serving shared-prefix and
            segment-reuse traffic, 16 new tokens per request, with every
@@ -230,7 +234,9 @@ TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 4),
                        ("mla_paged_prefill", "mla_tc_kernelILi0E", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
-                       ("paged_decode", "paged_decode_tc", 4))
+                       ("paged_decode", "paged_decode_tc", 4),
+                       ("paged_prefill", "paged_prefill_tcILb0E", 4),
+                       ("paged_prefill", "paged_prefill_tcILb1E", 4))
 
 
 def phase_build(build, card):
@@ -325,11 +331,13 @@ def kernel_body(name, a) -> str:
     from repro_torch.kernels import mla_paged_decode as mpd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
     tc = 0
-    if name.startswith("paged_decode") and "int8" not in name:
-        fn = build.entry("paged_decode", "paged_decode_tensor_core",
-                         [ctypes.c_int] * 5)
+    if (name.startswith(("paged_decode", "paged_prefill"))
+            and "int8" not in name):
+        src = ("paged_decode" if name.startswith("paged_decode")
+               else "paged_prefill")
+        fn = build.entry(src, f"{src}_tensor_core", [ctypes.c_int] * 5)
         q, kp = a["q"], a["k_pages"]
-        tc = fn(q.shape[1], kp.shape[2], q.shape[2], DTYPE_CODES[q.dtype],
+        tc = fn(q.shape[-2], kp.shape[2], q.shape[-1], DTYPE_CODES[q.dtype],
                 DTYPE_CODES[kp.dtype])
     elif name.startswith("mla_paged_decode"):
         tc = mpd.tensor_core(a["q_lat"].shape[-1], a["q_rope"].shape[-1],
@@ -403,6 +411,18 @@ def seg_counts(cpos):
     return len(pool), pairs
 
 
+def prefill_plan(a) -> dict:
+    """The GQA chunk prefill's plan on inputs ``a`` (tensor-core body):
+    one block per (16 / G queries, KV head, row), its key walk dealt to
+    four warps (16 keys of every 64-key tile each) and merged inside the
+    block, so no partial leaves it."""
+    B, C, Hq, _ = a["q"].shape
+    Hkv = a["k_pages"].shape[2]
+    qb = 16 // (Hq // Hkv)
+    return {"splits": 1, "warp_splits": 4, "queries_a_block": qb,
+            "blocks": B * Hkv * -(-C // qb), "partial_bytes": 0}
+
+
 def phase_kernels(torch, ops, card):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     dec, pre, seg = make_kernel_inputs(torch, gen)
@@ -410,6 +430,9 @@ def phase_kernels(torch, ops, card):
     off = int(pre["offsets"][0])
     seg_pool, seg_pairs = seg_counts(
         [int(x) for x in seg["chunk_positions"][0]])
+    # the window's last chunk: the longest pool walk on the serve path
+    long_off = pre["block_tables"].shape[1] * pre["k_pages"].shape[1] - C
+    pre_long = dict(pre, offsets=torch.full_like(pre["offsets"], long_off))
     B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
     # the bandwidth body walks a row in one block per (row, KV head)
     plan = {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}
@@ -424,9 +447,14 @@ def phase_kernels(torch, ops, card):
         ("paged_decode_full", ops.paged_decode, full, decode_cost(full),
          None, plan),
         ("paged_prefill", ops.paged_prefill, pre,
-         prefill_cost(pre, off, C * off + C * (C + 1) // 2)),
+         prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
+         prefill_plan(pre)),
+        ("paged_prefill_long", ops.paged_prefill, pre_long,
+         prefill_cost(pre_long, long_off,
+                      C * long_off + C * (C + 1) // 2), None,
+         prefill_plan(pre_long)),
         ("paged_prefill_seg", ops.paged_prefill_seg, seg,
-         prefill_cost(seg, seg_pool, seg_pairs)),
+         prefill_cost(seg, seg_pool, seg_pairs), None, prefill_plan(seg)),
     ]
     rows = check_and_time(torch, cases, card, "kernels")
     check_contiguous(torch, ops.paged_prefill_seg, ops.paged_prefill, pre,

@@ -6,6 +6,12 @@
 // tile of the chunk's own keys) into shared memory; the block computes the
 // R x KT scores, masks them to NEG_INF, and folds them into the running
 // max m, denominator l and accumulator acc (float32, shared memory).
+//
+// Every bf16 kernel on the serving paths has a tensor-core body
+// (gqa_tc.cuh, mla_tc.cuh, flash_prefill.cu).  This float32 tile is now
+// the CUDA-core body of the float32 inputs and the widths those bodies
+// do not take in every GQA kernel and in flash prefill, and the only
+// body of the int8 paged decode.
 #pragma once
 
 #include <cuda_bf16.h>

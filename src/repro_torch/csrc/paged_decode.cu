@@ -19,7 +19,8 @@
 // (never a retry after a failure):
 //
 // * bf16 q and pages, hd 16 / 32 / 64 / 128 and G <= 16 -- the bandwidth
-//   body (`paged_decode_tc`): 4 warps; tiles of KT = 64 key positions
+//   body (`paged_decode_tc`, on the block layout of gqa_tc.cuh, which the
+//   bf16 chunk prefill shares): 4 warps; tiles of KT = 64 key positions
 //   (each row found through the block table, so any page size) arrive
 //   as bf16 by 16-byte `cp.async` into a three-stage ring of K and V
 //   tiles, two tiles in flight while one is scored, one barrier a tile.
@@ -47,8 +48,8 @@
 // Layouts: q [B,Hq,hd]; k/v pages [N,page,Hkv,hd]; int8 scales
 // [N,page,Hkv,1] bf16; block tables [B,P] int32; lengths [B] int32;
 // out [B,Hq,hd] in q's type.
+#include "gqa_tc.cuh"
 #include "paged_common.cuh"
-#include "mma_common.cuh"
 
 template <typename TQ, typename TKV, bool SCALED>
 __global__ void paged_decode_kernel(const TQ* __restrict__ q,
@@ -121,26 +122,9 @@ static int launch(const void* q, const void* kp, const void* vp,
 }
 
 // ---------------------------------------------------------------------------
-// bandwidth body (bf16 q and pages)
+// bandwidth body (bf16 q and pages; block layout and tile code in
+// gqa_tc.cuh)
 // ---------------------------------------------------------------------------
-namespace gqa_tc {
-constexpr int NT = 128;     // threads: 4 warps
-constexpr int KT = 64;      // key positions a tile, 16 a warp
-constexpr int STAGES = 3;   // tiles: one scored, two in flight
-constexpr int RM = 16;      // query rows of the mma tile (G of them real)
-
-// Three stages of [K tile; V tile], [2 * KT][hd + 8] bf16 each; Q [RM][hd
-// + 8] lives in the third stage until the walk starts.
-inline size_t smem_bytes(int hd) {
-  return (size_t)STAGES * 2 * KT * (hd + 8) * 2;
-}
-
-inline bool width_ok(int Hq, int Hkv, int hd) {
-  return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= RM &&
-         (hd == 16 || hd == 32 || hd == 64 || hd == 128);
-}
-}  // namespace gqa_tc
-
 template <int HD>
 __global__ void __launch_bounds__(gqa_tc::NT, 4)
     paged_decode_tc(const __nv_bfloat16* __restrict__ q,
@@ -159,7 +143,7 @@ __global__ void __launch_bounds__(gqa_tc::NT, 4)
   bf16* sq = ring + 2 * TILE;  // Q in the third stage
   const int b = blockIdx.x, h = blockIdx.y, G = Hq / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
+  const int tq = lane & 3;
   const int end = min(max(lengths[b], 0), P * page);
   const int nt = (end + KT - 1) / KT;
   const int* trow = tables + (size_t)b * P;
@@ -210,19 +194,8 @@ __global__ void __launch_bounds__(gqa_tc::NT, 4)
     if (t + 2 < nt) stage(t + 2);
     mma::cp_async_commit();
     const bf16* kt = ring + (t % STAGES) * TILE;
-    const bf16* vt = kt + KT * LD;
     float s[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t bk[4];
-      mma::ldsm_x4(bk, mma::bk_frag_addr(kt, LD, k0, kk * 16, lane));
-      mma::mma_bf16(s[0], qa[kk], bk[0], bk[1]);
-      mma::mma_bf16(s[1], qa[kk], bk[2], bk[3]);
-    }
+    gqa_tc::warp_scores<HD>(qa, kt, k0, lane, s);
     const int kpos = t * KT + k0 + 2 * tq;
 #pragma unroll
     for (int n = 0; n < 2; ++n)
@@ -230,60 +203,13 @@ __global__ void __launch_bounds__(gqa_tc::NT, 4)
       for (int e = 0; e < 4; ++e)
         s[n][e] = kpos + n * 8 + (e & 1) < end ? s[n][e] * scale_log2
                                                : mma::neg_inf();
-    float alpha[2];
-    mma::softmax_update<2>(s, m, l, alpha);
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    uint32_t pa[4];
-    mma::probs_to_a<2>(s, 0, pa);
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t bv[4];
-      mma::ldsm_x4_trans(bv, mma::bv_frag_addr(vt, LD, k0, np * 16, lane));
-      mma::mma_bf16(o[2 * np], pa, bv[0], bv[1]);
-      mma::mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
-    }
+    gqa_tc::warp_fold<HD>(s, kt + KT * LD, k0, lane, m, l, o);
   }
 
-  // merge the four warps' states, in warp order, through the ring:
-  // m [4][RM], l [4][RM], o [4][RM][HD] (float32)
-  mma::cp_async_wait<0>();
-  __syncthreads();
-  float* cm = reinterpret_cast<float*>(ring);
-  float* cl = cm + 4 * RM;
-  float* co = cl + 4 * RM;
-  const float lsum[2] = {mma::quad_sum(l[0]), mma::quad_sum(l[1])};
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int r = g + 8 * u;
-    if (tq == 0) {
-      cm[warp * RM + r] = m[u];
-      cl[warp * RM + r] = lsum[u];
-    }
-    float* orow = co + (warp * RM + r) * HD + 2 * tq;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8) =
-          make_float2(o[n][2 * u], o[n][2 * u + 1]);
-  }
-  __syncthreads();
-  for (int i = tid; i < G * HD; i += NT) {
-    const int r = i / HD, d = i - r * HD;
-    float mx = cm[r];
-#pragma unroll
-    for (int w = 1; w < 4; ++w) mx = fmaxf(mx, cm[w * RM + r]);
-    const float base = mx == mma::neg_inf() ? 0.f : mx;
-    float den = 0.f, acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float wt = exp2f(cm[w * RM + r] - base);
-      den += wt * cl[w * RM + r];
-      acc += wt * co[(w * RM + r) * HD + d];
-    }
-    out[q0 + i] = __float2bfloat16(acc / fmaxf(den, 1e-30f));
-  }
+  gqa_tc::merge_warps<HD>(reinterpret_cast<float*>(ring), m, l, o, G,
+                          [&](int r, int d, float x) {
+                            out[q0 + r * HD + d] = __float2bfloat16(x);
+                          });
 }
 
 template <int HD>
@@ -291,7 +217,7 @@ static int launch_tc(const void* q, const void* kp, const void* vp,
                      const void* tables, const void* lengths, void* out,
                      int B, int Hq, int Hkv, int N, int page, int P,
                      float scale, cudaStream_t stream) {
-  const size_t smem = gqa_tc::smem_bytes(HD);
+  const size_t smem = gqa_tc::ring_bytes(HD);
   auto kernel = paged_decode_tc<HD>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -9,9 +9,11 @@ Replace the Pallas TPU kernels ``paged_prefill_attention``,
 chunk of C queries attends resident pool tokens through the block table
 plus its own densely passed keys, causally by index; the caller
 scatters the chunk's KV into the pool afterwards.  The GQA kernels are
-bound by the HBM bytes of the pool pages they read, the MLA ones by
-their operations (see the source notes).  On CPU tensors the wrappers
-run the plain versions in ``kernels/ref.py``.
+bound by the HBM bytes of the pool pages they read (at the serving
+path's sizes by the latency of a short walk of key tiles), the MLA ones
+by their operations; bf16 inputs run tensor-core bodies (see the source
+notes).  On CPU tensors the wrappers run the plain versions in
+``kernels/ref.py``.
 """
 from __future__ import annotations
 

@@ -103,35 +103,99 @@ def test_paged_decode_kernel_long_rows(cuda, hq, hkv, hd, page):
     assert torch.equal(out, cuda.paged_decode(*args))
 
 
+# (Hq, Hkv, hd, page, pages, C, offsets) of the chunk prefill cases: the
+# tensor-core body's widths (hd 16 / 32 / 64 / 128, G 1 / 4 / 8 / 16) at
+# 16- and 64-token pages, offsets at 0 and at tile and page edges, a chunk
+# of two key tiles (C 80); G 32 (the CUDA-core body in bf16); then
+# llama3.2-1b's geometry at the window's last chunk (offset 448) and at
+# its first (offset 0)
+PREFILL_CASES = [
+    (8, 2, 64, 16, 6, 16, (0, 5, 16, 40, 80)),
+    (8, 2, 16, 64, 3, 16, (0, 5, 64, 100, 180)),
+    (4, 4, 32, 16, 6, 80, (0, 15, 63, 64, 96)),
+    (8, 1, 128, 64, 3, 16, (0, 63, 64, 65, 190)),
+    (16, 1, 32, 16, 6, 16, (0, 1, 33, 95)),
+    (32, 1, 64, 16, 6, 16, (0, 5, 40)),
+    (32, 8, 64, 64, 8, 64, (448,)),
+    (32, 8, 64, 64, 8, 64, (0,)),
+]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
-def test_paged_prefill_kernel(cuda, dtype, tol):
-    a = _inputs(dtype)
-    offs = torch.tensor([0, 5, 16, 40, 80], dtype=torch.int32,
-                        device="cuda")
-    args = (a["q"], a["kc"], a["vc"], a["kp"], a["vp"], a["tables"], offs)
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,c,offs", PREFILL_CASES)
+def test_paged_prefill_kernel(cuda, dtype, tol, hq, hkv, hd, page, pages, c,
+                              offs):
+    """Against the plain version, with a clamped table entry inside a
+    row's window; one launch a call, and two calls equal bit for bit."""
+    a = _inputs(dtype, b=len(offs), c=c, hq=hq, hkv=hkv, hd=hd, page=page,
+                pages=pages)
+    tables = a["tables"].clone()
+    tables[-1, 0] = -2                          # clamps to page 0
+    offs = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    args = (a["q"], a["kc"], a["vc"], a["kp"], a["vp"], tables, offs)
+    before = cuda.paged_prefill_attention.launches
     out = cuda.paged_prefill(*args)
+    torch.cuda.synchronize()
+    assert cuda.paged_prefill_attention.launches == before + 1
+    assert bool(torch.isfinite(out).all())
     assert _err(out, cuda.paged_prefill(*args, backend="torch")) <= tol
+    assert torch.equal(out, cuda.paged_prefill(*args))
+
+
+# (Hq, Hkv, hd, page, pages, C, rows of chunk positions) of the segment
+# cases: the widths of PREFILL_CASES with two gap chunks around resumed
+# islands (one crossing a 64-key tile), a contiguous row, a row of
+# padding only and a short row; then llama3.2-1b's geometry with the
+# serve phase's gap chunk (block 0's second half, a resumed block, the
+# tail), a gap chunk whose pool limit (520) lies past the 512-token
+# window, a contiguous last chunk and a row of padding only
+SEG_ROWS = ([3, 4, 5, 6, 40, 41, 42, 43], list(range(16)), [],
+            [10, 11, 12, 50, 51, 52, 53, 54, 55, 56, 57, 70, 71], [90, 91])
+PREFILL_SEG_CASES = [w[:6] + (SEG_ROWS,) for w in PREFILL_CASES[:6]] + [
+    (32, 8, 64, 64, 8, 64, (list(range(64, 96)) + list(range(256, 280)),
+                            list(range(100, 120)) + list(range(520, 560)),
+                            list(range(448, 512)), [])),
+]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
-def test_paged_prefill_seg_kernel(cuda, dtype, tol):
-    a = _inputs(dtype)
-    rows = [[3, 4, 5, 6, 40, 41, 42, 43],
-            list(range(16)),
-            [],
-            [10, 11, 12, 50, 51, 52, 53, 54, 55, 56, 57],
-            [90, 91]]
-    cpos = torch.tensor([r + [-1] * (16 - len(r)) for r in rows],
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,c,rows", PREFILL_SEG_CASES)
+def test_paged_prefill_seg_kernel(cuda, dtype, tol, hq, hkv, hd, page, pages,
+                                  c, rows):
+    """Against the plain version; stale slots (the chunk's own and those
+    past every position) hold 8x larger K/V, which a one-slot mask error
+    would read; one launch a call, and two calls equal bit for bit."""
+    a = _inputs(dtype, b=len(rows), c=c, hq=hq, hkv=hkv, hd=hd, page=page,
+                pages=pages)
+    cpos = torch.tensor([r + [-1] * (c - len(r)) for r in rows],
                         dtype=torch.int32, device="cuda")
-    args = (a["q"], a["kc"], a["vc"], a["kp"], a["vp"], a["tables"], cpos)
+    window, tab = pages * page, a["tables"].cpu()
+    stale = [(int(tab[b, t // page]), t % page) for b, r in enumerate(rows)
+             for t in set(r) | set(range(max(r, default=-1) + 1, window))
+             if t < window]
+    pid, slot = (torch.tensor(x, device="cuda") for x in zip(*stale))
+    kp, vp = a["kp"].clone(), a["vp"].clone()
+    kp[pid, slot] *= 8
+    vp[pid, slot] *= 8
+    args = (a["q"], a["kc"], a["vc"], kp, vp, a["tables"], cpos)
+    before = cuda.paged_prefill_segments.launches
     out = cuda.paged_prefill_seg(*args)
+    torch.cuda.synchronize()
+    assert cuda.paged_prefill_segments.launches == before + 1
+    assert bool(torch.isfinite(out).all())
     assert _err(out, cuda.paged_prefill_seg(*args, backend="torch")) <= tol
+    assert torch.equal(out, cuda.paged_prefill_seg(*args))
 
 
-def test_seg_kernel_contiguous_equals_offset_bitwise(cuda):
-    a = _inputs(torch.bfloat16)
+@pytest.mark.parametrize("hq,hkv,hd,page,pages", [(8, 2, 64, 16, 6),
+                                                  (8, 2, 64, 64, 3),
+                                                  (32, 8, 64, 64, 8)])
+def test_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, hkv, hd, page,
+                                                     pages):
+    a = _inputs(torch.bfloat16, hq=hq, hkv=hkv, hd=hd, page=page,
+                pages=pages)
     offs = [0, 5, 16, 40, 80]
     cpos = torch.tensor([[o + i for i in range(16)] for o in offs],
                         dtype=torch.int32, device="cuda")
@@ -417,10 +481,11 @@ def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr):
 def test_tensor_core_dispatch(cuda):
     """The C entries choose a body by type and width: bf16 flash prefill
     at hd 16-128, bf16 MLA chunk prefill and MLA decode at every width
-    above and bf16 GQA decode at hd 16-128 with up to 16 query heads a
-    KV head run on the tensor cores; float32 (the float32 engine tests),
-    a float32 query over a bf16 pool, flash hd 256 and GQA decode at
-    other widths keep the CUDA-core bodies."""
+    above and bf16 GQA decode and GQA chunk / segment prefill at hd
+    16-128 with up to 16 query heads a KV head run on the tensor cores;
+    float32 (the float32 engine tests), a float32 query over a bf16
+    pool, flash hd 256 and the GQA kernels at other widths keep the
+    CUDA-core bodies."""
     import ctypes
 
     from repro_torch.kernels import build
@@ -451,6 +516,15 @@ def test_tensor_core_dispatch(cuda):
         assert gqa(hq, hkv, hd, 0, 0) == 0
     assert gqa(32, 1, 64, 1, 1) == 0            # 32 query heads a KV head
     assert gqa(8, 2, 256, 1, 1) == 0            # hd 256
+    pre = build.entry("paged_prefill", "paged_prefill_tensor_core",
+                      [ctypes.c_int] * 5)
+    for hq, hkv, hd in [(32, 8, 64), (8, 2, 16), (4, 4, 32), (8, 1, 128),
+                        (16, 1, 32)]:
+        assert pre(hq, hkv, hd, 1, 1) == 1
+        assert pre(hq, hkv, hd, 0, 1) == 0
+        assert pre(hq, hkv, hd, 0, 0) == 0
+    assert pre(32, 1, 64, 1, 1) == 0            # 32 query heads a KV head
+    assert pre(8, 2, 256, 1, 1) == 0            # hd 256
 
 
 def test_mla_kernel_wrappers_reject_bad_inputs(cuda):

@@ -606,3 +606,89 @@ def test_paged_decode_warp_merge_within_card_tolerance(hq, hkv, hd, page,
         _close(merged[:-1], pallas)
         assert float(np.abs(rounded[:-1].numpy() - pallas).max()) \
             <= P_BF16_TOL
+
+
+# ---------------------------------------------------------------------------
+# the bf16 GQA chunk prefill's key walk: four warps, merged in order
+# ---------------------------------------------------------------------------
+# On the card, bf16 chunk and segment prefill walk the pool window in
+# 64-key tiles and then the chunk's own keys in 64-key tiles, and deal
+# the keys of every tile to four warps, 16 each, as the bf16 GQA decode
+# does.  Each warp keeps its own float32 (m, l, acc) with P rounded to
+# bf16 for P V, and the four are merged in warp order.  These tests
+# compute the plain versions that way and hold them to the unchanged
+# plain versions and to the JAX package's oracles.
+def _prefill_warp_walk(q, k_chunk, v_chunk, k_pages, v_pages, tables, prior,
+                       p_bf16=True):
+    """``ref._chunk_attend`` over ``prior`` with the pool window's keys
+    and the chunk's keys each cut into 64-key tiles dealt to four warps,
+    as the tensor-core body walks them."""
+    k = torch.cat([ref._gather(k_pages, tables).float(), k_chunk.float()], 1)
+    v = torch.cat([ref._gather(v_pages, tables).float(), v_chunk.float()], 1)
+    b, c, hq, hd = q.shape
+    hkv, t = k.shape[2], prior.shape[2]
+    qg = q.reshape(b, c, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bchgd,bthd->bchgt", qg, k) / np.sqrt(hd)
+    mask = ref._with_chunk(prior)[:, :, None, None, :]
+    split_of = torch.cat([torch.arange(t) % 64 // 16,
+                          torch.arange(c) % 64 // 16])
+    out = _split_merge(s, mask, split_of,
+                       lambda p: torch.einsum("bchgt,bthd->bchgd", p, v),
+                       p_bf16)
+    return out.reshape(b, c, hq, hd)
+
+
+# (C, Hq, Hkv, hd, page, pages, offsets, or rows of chunk positions):
+# GQA / MHA / MQA at 16- and 64-token pages, offsets at 0 and at page and
+# tile edges; gap chunks around resumed islands, a contiguous row and a
+# row of padding only; then llama3.2-1b's attention geometry (the model's
+# depth is not involved) at the window's middle and last chunks and with
+# the serve phase's gap chunk
+PREFILL_WALK_CASES = [
+    (16, 8, 2, 64, 16, 6, (0, 40, 80)),
+    (16, 4, 4, 32, 64, 3, (5, 64, 150)),
+    (16, 8, 1, 128, 16, 6, (0, 63, 96)),
+    (16, 8, 2, 64, 16, 6, ([3, 4, 5, 6, 40, 41, 42, 43], list(range(16)),
+                           [])),
+    (16, 8, 1, 16, 64, 3, ([10, 11, 12] + list(range(100, 111)), [90, 91],
+                           [])),
+    (64, 32, 8, 64, 64, 8, (320, 448)),
+    (64, 32, 8, 64, 64, 8, (list(range(64, 96)) + list(range(256, 280)),
+                            list(range(448, 512)))),
+]
+
+
+@pytest.mark.parametrize("c,hq,hkv,hd,page,pages,where", PREFILL_WALK_CASES)
+def test_prefill_warp_walk_within_card_tolerance(c, hq, hkv, hd, page, pages,
+                                                 where):
+    seg = isinstance(where[0], list)
+    rng = np.random.default_rng(c + hq + hd + page)
+    b = len(where)
+    n = b * pages + 2
+    args = (_bf16(rng, (b, c, hq, hd)), _bf16(rng, (b, c, hkv, hd)),
+            _bf16(rng, (b, c, hkv, hd)), _bf16(rng, (n, page, hkv, hd)),
+            _bf16(rng, (n, page, hkv, hd)), _tables(rng, b, pages, n))
+    t = pages * page
+    if seg:
+        w = torch.from_numpy(_cpos(where, c))
+        plain, oracle = ref.paged_prefill_segments, \
+            jref.paged_prefill_segments_ref
+        prior = ref._segment_prior(w, t)
+    else:
+        w = torch.tensor(where, dtype=torch.int32)
+        plain, oracle = ref.paged_prefill_attention, \
+            jref.paged_prefill_attention_ref
+        prior = ref._offset_prior(w, c, t)
+    exact = plain(*args, w).float()
+    rounded = _prefill_warp_walk(*args, prior)
+    assert bool(torch.isfinite(rounded).all())
+    assert float((rounded - exact).abs().max()) <= P_BF16_TOL
+    # without the rounding the warp walk is the plain version's algebra,
+    # and the JAX package's oracle on the same values
+    f32 = [a.float() for a in args[:5]] + [args[5]]
+    merged = _prefill_warp_walk(*f32, prior, p_bf16=False)
+    _close(merged, plain(*f32, w))
+    jout = np.asarray(oracle(*[jnp.asarray(a.numpy()) for a in f32],
+                             jnp.asarray(w.numpy())))
+    _close(merged, jout)
+    assert float(np.abs(rounded.numpy() - jout).max()) <= P_BF16_TOL
