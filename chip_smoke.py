@@ -14,8 +14,8 @@ check raises and the script exits non-zero with no result line:
            HGMMA) counted in ``cuobjdump -sass`` of the built library;
            the tensor-core bodies of flash prefill, of both MLA chunk
            prefill entries, of the MLA split decode, of the GQA decode
-           bandwidth body and of both GQA chunk prefill entries must
-           hold some;
+           bandwidth body, of the int8 decode and of both GQA chunk
+           prefill entries must hold some;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
            lengths up to 512 with inactive rows; the decode also with
@@ -52,7 +52,10 @@ check raises and the script exits non-zero with no result line:
            S=384 and the ragged S=416) beside
            F.scaled_dot_product_attention as the library yardstick, and
            int8 paged decode over 64 slots of 512 tokens seen as 64-token
-           pages, each against its plain version and timed as above;
+           pages and over the int8_decode path's 4 slots at its eighth
+           step (``paged_decode_int8_path``, also timed with a float32
+           query on the CUDA-core body, ``cuda_core_ms``), each against
+           its plain version and timed as above;
   dense_serve  the serve traffic on EngineConfig(paged=False): the dense
            slot cache, monolithic prefill (flash prefill for a prompt
            with no prefix hit) and decode through the paged decode
@@ -235,6 +238,7 @@ TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 4),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
                        ("paged_decode", "paged_decode_tc", 4),
+                       ("paged_decode", "paged_decode_int8_tc", 4),
                        ("paged_prefill", "paged_prefill_tcILb0E", 4),
                        ("paged_prefill", "paged_prefill_tcILb1E", 4))
 
@@ -326,13 +330,18 @@ def prefill_cost(a, attended_pool, causal_pairs):
 def kernel_body(name, a) -> str:
     """The body the C entry runs for case ``name`` on inputs ``a``, as
     its dispatch by type and width decides: "tensor_core" or
-    "cuda_core" (kernel 8 has only the latter)."""
+    "cuda_core"."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mla_paged_decode as mpd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
     tc = 0
-    if (name.startswith(("paged_decode", "paged_prefill"))
-            and "int8" not in name):
+    if name.startswith("paged_decode_int8"):
+        fn = build.entry("paged_decode", "paged_decode_int8_tensor_core",
+                         [ctypes.c_int] * 4)
+        q = a["q"]
+        tc = fn(q.shape[-2], a["k_pages"].shape[2], q.shape[-1],
+                DTYPE_CODES[q.dtype])
+    elif name.startswith(("paged_decode", "paged_prefill")):
         src = ("paged_decode" if name.startswith("paged_decode")
                else "paged_prefill")
         fn = build.entry(src, f"{src}_tensor_core", [ctypes.c_int] * 5)
@@ -614,21 +623,27 @@ def flash_cost(a):
     return nbytes, 4 * B * (S * (S + 1) // 2) * Hq * hd
 
 
-def make_int8_decode_inputs(torch, gen, attn):
+def make_int8_decode_inputs(torch, gen, attn, lengths=None):
     """The dense int8 decode's shapes at llama3.2-1b width: 64 slots of
     512 tokens (the default engine's slot count and max_len) quantized
     with the port's quantize_kv and seen as 64-token pages; ragged
-    lengths, every 7th row inactive (length 0), one full row."""
+    lengths, every 7th row inactive (length 0), one full row.  With
+    ``lengths``, one slot a length instead."""
     B, S, Hq, Hkv, hd = 64, 512, 32, 8, 64
     dev = "cuda"
+    if lengths is not None:
+        B = len(lengths)
     k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
     v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
     (kq, ks), (vq, vs) = attn.quantize_kv(k), attn.quantize_kv(v)
     (kp, vp, ksp, vsp), tables = attn.slot_pages(kq, vq, ks, vs)
-    lengths = torch.randint(1, S + 1, (B,), generator=gen,
-                            device=dev).to(torch.int32)
-    lengths[::7] = 0
-    lengths[1] = S
+    if lengths is None:
+        lengths = torch.randint(1, S + 1, (B,), generator=gen,
+                                device=dev).to(torch.int32)
+        lengths[::7] = 0
+        lengths[1] = S
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return dict(q=torch.randn((B, Hq, hd), generator=gen,
                               device=dev).to(torch.bfloat16),
                 k_pages=kp, v_pages=vp, k_scales=ksp, v_scales=vsp,
@@ -672,9 +687,28 @@ def phase_dense_kernels(torch, ops, card):
                 qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
         cases.append((name, ops.flash_causal, a, flash_cost(a), sdpa))
     dec = make_int8_decode_inputs(torch, gen, attn)
-    cases.append(("paged_decode_int8", ops.paged_decode_int8, dec,
-                  int8_decode_cost(dec)))
-    return check_and_time(torch, cases, card, "kernels")
+    # the int8_decode path's own shape: its 4 slots at the eighth of its
+    # 16 decode steps (prompts of 384 / 256 / 448 / 100 tokens, + 8)
+    path = make_int8_decode_inputs(torch, gen, attn,
+                                   lengths=INT8_PATH_LENGTHS)
+    for name, a in (("paged_decode_int8", dec),
+                    ("paged_decode_int8_path", path)):
+        # one block per (row, KV head) walks the row; nothing to combine
+        plan = {"splits": 1, "blocks": a["q"].shape[0]
+                * a["k_pages"].shape[2], "partial_bytes": 0}
+        cases.append((name, ops.paged_decode_int8, a, int8_decode_cost(a),
+                      None, plan))
+    rows = check_and_time(torch, cases, card, "kernels")
+    # for the record: the same call with a float32 query, which runs the
+    # CUDA-core body
+    f32 = dict(path, q=path["q"].float())
+    body = kernel_body("paged_decode_int8_path", f32)
+    if body != "cuda_core":
+        raise AssertionError(f"int8 decode with a float32 query ran {body}")
+    cc = time_ms(torch, lambda: ops.paged_decode_int8(**f32, backend="cuda"))
+    emit({"phase": "kernels", "card": card,
+          "kernel": "paged_decode_int8_path", "cuda_core_ms": cc["ms"]})
+    return rows
 
 
 def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
@@ -953,6 +987,12 @@ def phase_mla_parity(torch, params, cfg, card):
     parity_report(runs, MLA_PARITY_RTOL, card, "mla_parity")
 
 
+# the int8_decode phase's prompt lengths; its kernel sees each row's
+# length plus the decode steps so far (the new token included)
+INT8_PROMPTS = (384, 256, 448, 100)
+INT8_PATH_LENGTHS = tuple(n + 8 for n in INT8_PROMPTS)
+
+
 def phase_int8_decode(torch, kernel_fns, params, card, cfg):
     """``build_model(cfg, kv_dtype="int8")``: bf16 prefills of four
     prompts of ragged lengths (the flash prefill kernel), their K/V
@@ -964,7 +1004,7 @@ def phase_int8_decode(torch, kernel_fns, params, card, cfg):
     from repro_torch.models.model import build_model
 
     model = build_model(cfg, kv_dtype="int8")
-    lens, max_len, steps = (384, 256, 448, 100), 512, 16
+    lens, max_len, steps = INT8_PROMPTS, 512, 16
     gen = torch.Generator(device="cuda").manual_seed(21)
     prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
                              device="cuda").to(torch.int32) for n in lens]

@@ -14,6 +14,10 @@
 // bf16 in registers as the A operand, V read by `ldmatrix.trans`.  The
 // four states are merged once at the end, in warp order, through shared
 // memory.
+//
+// The int8 paged decode (`paged_decode_int8_tc`, paged_decode.cu) runs
+// the same tile code on bf16 copies of its int8 tiles, with its value
+// scales put into P through `warp_fold`'s hook.
 #pragma once
 
 #include "mma_common.cuh"
@@ -55,21 +59,32 @@ __device__ __forceinline__ void warp_scores(const uint32_t (&qa)[HD / 16][4],
   }
 }
 
+// The identity hook of `warp_fold`: bf16 pools carry no value scale.
+struct NoProbScale {
+  __device__ __forceinline__ void operator()(float (&)[2][4]) const {}
+};
+
 // Fold the warp's masked scores (log2 units, masked keys -inf) into its
 // state: online softmax, then o = o * alpha + P V over keys k0 .. k0+15
-// of the staged value tile `vt`.
-template <int HD>
+// of the staged value tile `vt`.  `prob_scale(p)` runs on the
+// probabilities after the softmax update (l already holds their
+// unscaled sum) and before they are rounded to bf16 as the A operand:
+// the int8 decode folds each key's value scale into P there.  The
+// default hook does nothing, so the bf16 kernels compile as without it.
+template <int HD, typename ProbScale = NoProbScale>
 __device__ __forceinline__ void warp_fold(float (&s)[2][4],
                                           const __nv_bfloat16* vt, int k0,
                                           int lane, float (&m)[2],
                                           float (&l)[2],
-                                          float (&o)[HD / 8][4]) {
+                                          float (&o)[HD / 8][4],
+                                          ProbScale prob_scale = ProbScale()) {
   float alpha[2];
   mma::softmax_update<2>(s, m, l, alpha);
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+  prob_scale(s);
   uint32_t pa[4];
   mma::probs_to_a<2>(s, 0, pa);
 #pragma unroll

@@ -7,11 +7,13 @@
 // R x KT scores, masks them to NEG_INF, and folds them into the running
 // max m, denominator l and accumulator acc (float32, shared memory).
 //
-// Every bf16 kernel on the serving paths has a tensor-core body
-// (gqa_tc.cuh, mla_tc.cuh, flash_prefill.cu).  This float32 tile is now
-// the CUDA-core body of the float32 inputs and the widths those bodies
-// do not take in every GQA kernel and in flash prefill, and the only
-// body of the int8 paged decode.
+// Every bf16-query kernel on the serving paths, the int8 paged decode
+// included, has a tensor-core body (gqa_tc.cuh, mla_tc.cuh,
+// flash_prefill.cu, paged_decode.cu).  This float32 tile is only the
+// fallback body, chosen by type and width: for float32 inputs (the int8
+// decode with a float32 query among them) and for the widths the
+// tensor-core bodies do not take, in every GQA kernel and in flash
+// prefill.
 #pragma once
 
 #include <cuda_bf16.h>

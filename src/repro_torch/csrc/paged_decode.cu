@@ -2,21 +2,24 @@
 // float32 pages and over int8 pages with per-token-head scales.
 //
 // Replaces the Pallas TPU kernels `paged_decode_attention` and
-// `paged_decode_attention_int8` (src/repro/kernels/paged_attention.py).
-// One query per batch row attends the row's pool tokens < length
-// through its block table.
+// `paged_decode_attention_int8` (src/repro/kernels/paged_attention.py,
+// the latter's body `_decode_kernel_int8`).  One query per batch row
+// attends the row's pool tokens < length through its block table.
 //
 // Bound on the H100: HBM bytes.  Each row reads length * Hkv * hd
 // elements of K and as many of V, and does 4 * length * Hq * hd flops:
-// one flop per byte in bf16, far below the ~295 the card needs before
-// the tensor cores limit.  So the design reads every K/V byte once: one
-// block per (row, KV head) holds all G = Hq / Hkv query heads of the
-// group, so each key and value row is staged once and serves the whole
-// group.  The block walks only the row's min(length, P * page) tokens
-// (table entries clamped into [0, N-1]); the sequential walk replaces the
-// TPU grid's page axis.  A row of length 0 reads nothing and writes
-// zeros.  Two bodies, chosen by type and width in the C entries below
-// (never a retry after a failure):
+// one flop per byte in bf16 (two in int8), far below the ~295 the card
+// needs before the tensor cores limit.  So the design reads every K/V
+// byte once: one block per (row, KV head) holds all G = Hq / Hkv query
+// heads of the group, so each key and value row is staged once and
+// serves the whole group.  The block walks only the row's
+// min(length, P * page) tokens (table entries clamped into [0, N-1]);
+// the sequential walk replaces the TPU grid's page axis.  A row of
+// length 0 reads nothing and writes zeros; a key at or past the length
+// is never loaded (its tile row and its scales are zero-filled), so
+// stale or non-finite slots cannot reach the output.  Three bodies,
+// chosen by type and width in the C entries below (never a retry after
+// a failure):
 //
 // * bf16 q and pages, hd 16 / 32 / 64 / 128 and G <= 16 -- the bandwidth
 //   body (`paged_decode_tc`, on the block layout of gqa_tc.cuh, which the
@@ -35,15 +38,30 @@
 //   of shared memory at hd 64 (Q shares the third stage until the walk
 //   starts), so four blocks an SM hold the 512 blocks of a 64-row batch
 //   at llama3.2-1b width in one wave.
-// * float32 q (with float32 or bf16 pages), bf16 at other widths, and
-//   int8 pages -- the CUDA-core body (`paged_decode_kernel`): one block
-//   per (row, KV head) stages each page into shared memory as float32
-//   and keeps the online-softmax state (m, l, acc) there.
-//
-// The int8 instantiation is the CUDA-core body: its pages hold one byte
-// an element, half of bf16's (the reason the TPU kernel exists), plus
-// one bf16 scale per (token, KV head) for K and for V; each element is
-// dequantized as float(int8) * float(scale) while the page is staged.
+// * bf16 q over int8 pages at the same widths -- the int8 body
+//   (`paged_decode_int8_tc`), on the same block layout, warps and tile
+//   code.  Its pages hold one byte an element, half of bf16's (the
+//   reason the TPU kernel exists), plus one bf16 scale per (token, KV
+//   head) for K and for V.  The K and V tiles arrive as int8 by 16-byte
+//   `cp.async` into a three-stage ring of rows of hd bytes (a tile is
+//   read in order, so no padding is needed); each key's two scales ride
+//   one tile behind in registers (a 2-byte scale lies at a stride of Hkv
+//   elements, out of `cp.async`'s reach) and land in the stage as
+//   float32 before its barrier.  Every int8 value, -127..127, is exact in
+//   bf16, so each warp widens its own 16 keys of K and V into a private
+//   bf16 buffer of rows of (hd + 8) with no rounding and no scale (four
+//   bytes at a time, through the float 2^23 + u) and runs the bf16
+//   body's `warp_scores` / `warp_fold` on it unchanged.  The scales go
+//   into the products in float32: the K scale multiplies the score
+//   fragment before masking, the V scale multiplies P after the online
+//   softmax update (l keeps the unscaled sum) and before P is rounded to
+//   bf16 as the A operand -- the body's only rounding beyond the bf16
+//   body's.  No dequantized copy of a page exists anywhere.
+// * float32 q (with float32, bf16 or int8 pages) and the other widths --
+//   the CUDA-core body (`paged_decode_kernel`): one block per (row, KV
+//   head) stages each page into shared memory as float32 (int8 values
+//   times their scales) and keeps the online-softmax state (m, l, acc)
+//   there.
 //
 // Layouts: q [B,Hq,hd]; k/v pages [N,page,Hkv,hd]; int8 scales
 // [N,page,Hkv,1] bf16; block tables [B,P] int32; lengths [B] int32;
@@ -81,16 +99,17 @@ __global__ void paged_decode_kernel(const TQ* __restrict__ q,
     const auto row_offset = [&](int j) {
       return base + ((size_t)j * Hkv + h) * hd;
     };
+    const int start = p * page;
+    const int rows = min(KT, len - start);  // slots past the length stay 0
     if constexpr (SCALED) {
       const size_t sbase = (size_t)pid * page * Hkv + h;
-      tile_load_kv(t, k_pages, v_pages, KT, hd, KT, row_offset, [&](int j) {
+      tile_load_kv(t, k_pages, v_pages, KT, hd, rows, row_offset, [&](int j) {
         const size_t s = sbase + (size_t)j * Hkv;
         return make_float2(to_f(k_scales[s]), to_f(v_scales[s]));
       });
     } else {
-      tile_load_kv(t, k_pages, v_pages, KT, hd, KT, row_offset);
+      tile_load_kv(t, k_pages, v_pages, KT, hd, rows, row_offset);
     }
-    const int start = p * page;
     tile_scores(t, R, KT, hd, scale,
                 [&](int, int j) { return start + j < len; });
     tile_update(t, R, KT, hd);
@@ -250,6 +269,259 @@ static int decode_tc(const void* q, const void* kp, const void* vp,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// int8 body (bf16 q, int8 pages, bf16 scales; block layout and tile code
+// in gqa_tc.cuh)
+// ---------------------------------------------------------------------------
+namespace int8_tc {
+using bf16 = __nv_bfloat16;
+
+// Four int8 values (one word, lowest byte first) as four bf16, exactly:
+// each byte, offset to unsigned u = x + 128, is the low mantissa byte of
+// the float 2^23 + u, and subtracting 2^23 + 128 leaves x, whose top 16
+// bits are its bf16 (|x| <= 128 needs at most 8 significant bits).
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  w ^= 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7650 + i)) -
+        8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
+
+// Widen keys k0 .. k0+15 of the staged int8 K and V tiles (rows of HD
+// bytes) into the warp's bf16 buffer: K in rows 0-15, V in rows 16-31,
+// rows of HD + 8 (the `ldmatrix` stride of gqa_tc.cuh).
+template <int HD>
+__device__ __forceinline__ void widen_rows(const int8_t* kt, const int8_t* vt,
+                                           int k0, bf16* buf, int lane) {
+  constexpr int CH = HD / 16;  // 16-byte chunks of an int8 row
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane + 32 * i, r = c / CH, cc = c - r * CH;
+    const int8_t* src =
+        (r < 16 ? kt + (k0 + r) * HD : vt + (k0 + r - 16) * HD) + cc * 16;
+    const uint4 w = *reinterpret_cast<const uint4*>(src);
+    const uint2 a = widen4(w.x), b = widen4(w.y), c2 = widen4(w.z),
+                d = widen4(w.w);
+    uint4* dst = reinterpret_cast<uint4*>(buf + r * (HD + 8) + cc * 16);
+    dst[0] = make_uint4(a.x, a.y, b.x, b.y);
+    dst[1] = make_uint4(c2.x, c2.y, d.x, d.y);
+  }
+}
+
+// `warp_fold`'s hook: P' = p * (value scale of its key).  v[n] holds the
+// scales of keys 8n + 2t and 8n + 2t + 1 of the warp's 16 (t = lane % 4),
+// the keys of the fragment's columns.
+struct ValueScale {
+  float2 v[2];
+  __device__ __forceinline__ void operator()(float (&p)[2][4]) const {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] *= (e & 1) ? v[n].y : v[n].x;
+  }
+};
+
+// Tiles of gqa_tc::KT = 64 keys, 16 a warp, as the bf16 body's.
+constexpr int SC = 2 * gqa_tc::KT / gqa_tc::NT;  // scales a thread stages
+static_assert(SC * gqa_tc::NT == 2 * gqa_tc::KT, "scales split evenly");
+
+// One stage: K [KT][HD] int8, V [KT][HD] int8, then the tile's K and V
+// scales [2][KT] float32.
+template <int HD>
+constexpr int tile_bytes = 2 * gqa_tc::KT * HD + 8 * gqa_tc::KT;
+
+// The ring, then each warp's bf16 buffer of [K 16; V 16] rows of HD + 8;
+// the merge reuses the space.
+template <int HD>
+constexpr size_t smem_bytes() {
+  const size_t walk = gqa_tc::STAGES * (size_t)tile_bytes<HD> +
+                      (size_t)(gqa_tc::NT / 32) * 32 * (HD + 8) * 2;
+  const size_t merge = (size_t)(gqa_tc::NT / 32) * gqa_tc::RM * (HD + 2) * 4;
+  return walk > merge ? walk : merge;
+}
+}  // namespace int8_tc
+
+// Four blocks an SM up to hd 64; at hd 128 shared memory holds two, and
+// a bound of four would cap the registers at 128 and spill.
+template <int HD>
+__global__ void __launch_bounds__(gqa_tc::NT, HD == 128 ? 2 : 4)
+    paged_decode_int8_tc(const __nv_bfloat16* __restrict__ q,
+                         const int8_t* __restrict__ k_pages,
+                         const int8_t* __restrict__ v_pages,
+                         const unsigned short* __restrict__ k_scales,
+                         const unsigned short* __restrict__ v_scales,
+                         const int* __restrict__ tables,
+                         const int* __restrict__ lengths,
+                         __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
+                         int N, int page, int P, float scale_log2) {
+  using namespace gqa_tc;
+  using bf16 = __nv_bfloat16;
+  constexpr int SC = int8_tc::SC, TILE = int8_tc::tile_bytes<HD>;
+  constexpr int LD = HD + 8, CH = HD / 16;  // bf16 row stride; int8 chunks
+  extern __shared__ float4 gqa_smem[];
+  char* ring = reinterpret_cast<char*>(gqa_smem);
+  bf16* bufs = reinterpret_cast<bf16*>(ring + STAGES * TILE);
+  const int b = blockIdx.x, h = blockIdx.y, G = Hq / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tq = lane & 3;
+  bf16* wbuf = bufs + warp * 32 * LD;  // this warp's [K 16; V 16] rows
+  bf16* sq = bufs;                     // Q in warp 0's buffer until the walk
+  const int end = min(max(lengths[b], 0), P * page);
+  const int nt = (end + KT - 1) / KT;
+  const int* trow = tables + (size_t)b * P;
+  const size_t q0 = ((size_t)b * Hq + (size_t)h * G) * HD;
+
+  for (int c = tid; c < RM * (HD / 8); c += NT) {
+    const int r = c / (HD / 8), col = (c - r * (HD / 8)) * 8;
+    mma::cp_async16(sq + r * LD + col, q + q0 + (r < G ? r * HD + col : 0),
+                    r < G);
+  }
+  const auto slot = [&](int pos) {
+    const int pid = min(max(trow[pos / page], 0), N - 1);
+    return ((size_t)pid * page + pos % page) * Hkv + h;
+  };
+  auto stage = [&](int t) {
+    int8_t* dst = reinterpret_cast<int8_t*>(ring + (t % STAGES) * TILE);
+    for (int c = tid; c < KT * CH; c += NT) {
+      const int j = c / CH, cc = c - j * CH, pos = t * KT + j;
+      const bool ok = pos < end;
+      const size_t off = ok ? slot(pos) * HD + cc * 16 : 0;
+      mma::cp_async16(dst + j * HD + cc * 16, k_pages + off, ok);
+      mma::cp_async16(dst + (KT + j) * HD + cc * 16, v_pages + off, ok);
+    }
+  };
+  // Entry i < KT of a tile's scales is key i's K scale, entry KT + i its
+  // V scale; thread tid holds entries tid + NT u as raw bf16 (0 past the
+  // length: never loaded), so the loads stay in flight until the store.
+  auto load_scales = [&](int t, unsigned short (&r)[SC]) {
+#pragma unroll
+    for (int u = 0; u < SC; ++u) {
+      const int i = tid + NT * u, j = i % KT, pos = t * KT + j;
+      r[u] = 0;
+      if (pos < end) r[u] = (i < KT ? k_scales : v_scales)[slot(pos)];
+    }
+  };
+  auto store_scales = [&](int t, const unsigned short (&r)[SC]) {
+    float* dst = reinterpret_cast<float*>(ring + (t % STAGES) * TILE +
+                                          2 * KT * HD);
+#pragma unroll
+    for (int u = 0; u < SC; ++u)
+      dst[tid + NT * u] = __uint_as_float((uint32_t)r[u] << 16);
+  };
+  stage(0);
+  mma::cp_async_commit();  // Q and tile 0
+  if (nt > 1) stage(1);
+  mma::cp_async_commit();
+  unsigned short sc_next[SC];  // tile t + 1's scales, stored after tile t
+  load_scales(0, sc_next);
+  store_scales(0, sc_next);
+  load_scales(1, sc_next);
+
+  uint32_t qa[HD / 16][4];  // Q as A fragments, rows >= G zero
+  float o[HD / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  m[0] = m[1] = mma::neg_inf();
+  l[0] = l[1] = 0.f;
+  mma::cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma::ldsm_x4(qa[kk], mma::a_frag_addr(sq, LD, 0, kk * 16, lane));
+
+  for (int t = 0; t < nt; ++t) {
+    mma::cp_async_wait<1>();
+    __syncthreads();  // tile t and its scales staged; tile t - 1 done
+    if (t + 2 < nt) stage(t + 2);
+    mma::cp_async_commit();
+    unsigned short sc_after[SC];
+    load_scales(t + 2, sc_after);
+    const char* st = ring + (t % STAGES) * TILE;
+    const int8_t* kt8 = reinterpret_cast<const int8_t*>(st);
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * KT * HD);
+    const int k0 = warp * 16;  // this warp's keys of the tile
+    __syncwarp();  // the warp is done with its buffer's previous keys
+    int8_tc::widen_rows<HD>(kt8, kt8 + KT * HD, k0, wbuf, lane);
+    __syncwarp();
+    float s[2][4];
+    gqa_tc::warp_scores<HD>(qa, wbuf, 0, lane, s);
+    const int kpos = t * KT + k0 + 2 * tq;
+    int8_tc::ValueScale vs;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float2 ks =
+          *reinterpret_cast<const float2*>(ksc + k0 + n * 8 + 2 * tq);
+      vs.v[n] =
+          *reinterpret_cast<const float2*>(ksc + KT + k0 + n * 8 + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = kpos + n * 8 + (e & 1) < end
+                      ? s[n][e] * ((e & 1) ? ks.y : ks.x) * scale_log2
+                      : mma::neg_inf();
+    }
+    gqa_tc::warp_fold<HD>(s, wbuf + 16 * LD, 0, lane, m, l, o, vs);
+    if (t + 1 < nt) store_scales(t + 1, sc_next);
+#pragma unroll
+    for (int u = 0; u < SC; ++u) sc_next[u] = sc_after[u];
+  }
+
+  gqa_tc::merge_warps<HD>(reinterpret_cast<float*>(ring), m, l, o, G,
+                          [&](int r, int d, float x) {
+                            out[q0 + r * HD + d] = __float2bfloat16(x);
+                          });
+}
+
+template <int HD>
+static int launch_int8_tc(const void* q, const void* kp, const void* vp,
+                          const void* ks, const void* vs, const void* tables,
+                          const void* lengths, void* out, int B, int Hq,
+                          int Hkv, int N, int page, int P, float scale,
+                          cudaStream_t stream) {
+  const size_t smem = int8_tc::smem_bytes<HD>();
+  auto kernel = paged_decode_int8_tc<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  using bf16 = __nv_bfloat16;
+  kernel<<<dim3(B, Hkv), gqa_tc::NT, smem, stream>>>(
+      (const bf16*)q, (const int8_t*)kp, (const int8_t*)vp,
+      (const unsigned short*)ks, (const unsigned short*)vs,
+      (const int*)tables, (const int*)lengths, (bf16*)out, Hq, Hkv, N, page,
+      P, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+static int decode_int8_tc(const void* q, const void* kp, const void* vp,
+                          const void* ks, const void* vs, const void* tables,
+                          const void* lengths, void* out, int B, int Hq,
+                          int Hkv, int hd, int N, int page, int P,
+                          float scale, cudaStream_t st) {
+  // the 16-byte copies need 16-byte aligned q and pages
+  if (((uintptr_t)q | (uintptr_t)kp | (uintptr_t)vp) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  switch (hd) {
+    case 16:
+      return launch_int8_tc<16>(q, kp, vp, ks, vs, tables, lengths, out, B,
+                                Hq, Hkv, N, page, P, scale, st);
+    case 32:
+      return launch_int8_tc<32>(q, kp, vp, ks, vs, tables, lengths, out, B,
+                                Hq, Hkv, N, page, P, scale, st);
+    case 64:
+      return launch_int8_tc<64>(q, kp, vp, ks, vs, tables, lengths, out, B,
+                                Hq, Hkv, N, page, P, scale, st);
+    case 128:
+      return launch_int8_tc<128>(q, kp, vp, ks, vs, tables, lengths, out, B,
+                                 Hq, Hkv, N, page, P, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* tables,
@@ -288,6 +560,10 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pages,
                                  void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (q_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd))
+    return decode_int8_tc(q, k_pages, v_pages, k_scales, v_scales, tables,
+                          lengths, out, B, Hq, Hkv, hd, N, page, P, scale,
+                          st);
   if (q_dtype == 1)
     return launch<__nv_bfloat16, int8_t, true>(
         q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out, B, Hq,
@@ -304,4 +580,11 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pages,
 extern "C" int paged_decode_tensor_core(int Hq, int Hkv, int hd, int q_dtype,
                                         int kv_dtype) {
   return q_dtype == 1 && kv_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd);
+}
+
+// 1 when paged_decode_int8 runs the int8 body (bf16 mma.sync over tiles
+// widened from int8) for this query type and these widths.
+extern "C" int paged_decode_int8_tensor_core(int Hq, int Hkv, int hd,
+                                             int q_dtype) {
+  return q_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd);
 }

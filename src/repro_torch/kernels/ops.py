@@ -83,8 +83,8 @@ def flash_causal(q, k, v, backend: str | None = None):
 
 def paged_decode_int8(q, k_pages, v_pages, k_scales, v_scales, block_tables,
                       lengths, backend: str | None = None):
-    """int8-paged decode (per-token-head scales, dequantized in
-    registers): q [B,Hq,hd] -> [B,Hq,hd]."""
+    """int8-paged decode (per-token-head scales, applied to the scores
+    and the probabilities): q [B,Hq,hd] -> [B,Hq,hd]."""
     return paged_decode_attention_int8(q, k_pages, v_pages, k_scales,
                                        v_scales, block_tables, lengths,
                                        backend=backend)

@@ -6,8 +6,9 @@ Replace the Pallas TPU kernels ``paged_decode_attention`` and
 One query per batch row attends the row's pool tokens below its length
 through the block table; the kernels are bound by the HBM bytes of the
 K and V pages they read (see the source note in
-``csrc/paged_decode.cu``), which the int8 version halves, dequantizing
-with one scale per (token, KV head) as it stages a page.  On CPU
+``csrc/paged_decode.cu``), which the int8 version halves: with bf16 q it
+widens its int8 tiles to bf16 exactly and applies the one scale per
+(token, KV head) to the scores (K) and the probabilities (V).  On CPU
 tensors the wrappers run the plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations

@@ -139,7 +139,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     Runs the paged decode kernel over the caches seen as pages
     (``slot_pages``); with int8 caches and their bf16 scales
-    [B,S,Hkv,1], the int8 kernel, which dequantizes in float32."""
+    [B,S,Hkv,1], the int8 kernel."""
     scales = () if k_scale is None else (k_scale, v_scale)
     (kp, vp, *sp), tables = slot_pages(k_cache, v_cache, *scales)
     q1 = q[:, 0].contiguous()

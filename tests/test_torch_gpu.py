@@ -297,6 +297,9 @@ def _int8_inputs(b, hq, hkv, hd, page, pages, seed=0):
 @pytest.mark.parametrize("hq,hkv,hd,page", [(32, 8, 64, 64), (8, 2, 64, 16),
                                             (4, 4, 32, 32), (8, 1, 128, 16)])
 def test_paged_decode_int8_kernel(cuda, dtype, tol, hq, hkv, hd, page):
+    """bf16 q on the int8 tensor-core body, float32 q on the CUDA-core
+    body: against the plain version, one launch a call, finite, and two
+    calls equal bit for bit."""
     q, kq, vq, ks, vs, tables = _int8_inputs(5, hq, hkv, hd, page, 6)
     lengths = torch.tensor([0, 1, 17, 6 * page, 50], dtype=torch.int32,
                            device="cuda")
@@ -306,8 +309,80 @@ def test_paged_decode_int8_kernel(cuda, dtype, tol, hq, hkv, hd, page):
     out = cuda.paged_decode_int8(*args)
     torch.cuda.synchronize()
     assert cuda.paged_decode_attention_int8.launches == before + 1
+    assert bool(torch.isfinite(out).all())
     assert _err(out, cuda.paged_decode_int8(*args, backend="torch")) <= tol
     assert bool((out[0] == 0).all())            # length 0 -> zeros
+    assert torch.equal(out, cuda.paged_decode_int8(*args))
+
+
+def _int8_long_rows(hq, hkv, hd, page, seed):
+    """64 rows over 512-token int8 tables at llama3.2-1b width, clamped
+    table entries inside the length, lengths at the tile edges."""
+    b, pages = 64, 512 // page
+    q, kq, vq, ks, vs, tables = _int8_inputs(b, hq, hkv, hd, page, pages,
+                                             seed=seed)
+    n = kq.shape[0]
+    tables[-2, 0] = n + 40                      # clamps to page n - 1
+    tables[-1, 1] = -3                          # clamps to page 0
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    lengths = torch.randint(1, 513, (b,), generator=g,
+                            device="cuda").to(torch.int32)
+    lengths[:len(EDGE_LENGTHS)] = torch.tensor(EDGE_LENGTHS)
+    lengths[-2:] = 512
+    return q.bfloat16(), kq, vq, ks, vs, tables, lengths
+
+
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("page", [64, 16])
+def test_paged_decode_int8_kernel_long_rows(cuda, page, full):
+    """The int8 body at llama3.2-1b width: every row full, or ragged
+    lengths at its tile and warp edges."""
+    q, kq, vq, ks, vs, tables, lengths = _int8_long_rows(32, 8, 64, page,
+                                                         seed=12)
+    if full:
+        lengths.fill_(512)
+    args = (q, kq, vq, ks, vs, tables, lengths)
+    before = cuda.paged_decode_attention_int8.launches
+    out = cuda.paged_decode_int8(*args)
+    torch.cuda.synchronize()
+    assert cuda.paged_decode_attention_int8.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    if not full:
+        assert bool((out[0] == 0).all())        # length 0 -> zeros
+    assert _err(out, cuda.paged_decode_int8(*args, backend="torch")) \
+        <= BF16_TOL
+    assert torch.equal(out, cuda.paged_decode_int8(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_int8_ignores_stale_slots(cuda, dtype):
+    """Slots at or past each row's length that hold int8 +-127 and inf /
+    NaN scales leave the output bit for bit as with clean slots: a key
+    past the length is never loaded (bf16: the tensor-core body; float32:
+    the CUDA-core body)."""
+    q, kq, vq, ks, vs, tables, lengths = _int8_long_rows(32, 8, 64, 16,
+                                                         seed=13)
+    args = (q.to(dtype), kq, vq, ks, vs, tables, lengths)
+    clean = cuda.paged_decode_int8(*args)
+    page = kq.shape[1]
+    pos = torch.arange(tables.shape[1] * page, device="cuda")
+    pid = tables.long().clamp(0, kq.shape[0] - 1)[:, pos // page]
+    stale = pos[None, :] >= lengths.long()[:, None]
+    slots = (pid * page + pos % page)[stale]
+    # slots past one row's length that another row reads stay clean
+    live = (pid * page + pos % page)[~stale]
+    slots = slots[~torch.isin(slots, live)]
+    assert slots.numel() > 0
+    dirty = []
+    for t, bad in ((kq, 127), (vq, -127), (ks, float("inf")),
+                   (vs, float("nan"))):
+        t = t.clone()
+        t.view(-1, *t.shape[2:])[slots] = bad
+        dirty.append(t)
+    out = cuda.paged_decode_int8(args[0], *dirty, tables, lengths)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, clean)
 
 
 def test_dense_decode_on_slot_pages_matches_plain(cuda):
@@ -482,9 +557,10 @@ def test_tensor_core_dispatch(cuda):
     """The C entries choose a body by type and width: bf16 flash prefill
     at hd 16-128, bf16 MLA chunk prefill and MLA decode at every width
     above and bf16 GQA decode and GQA chunk / segment prefill at hd
-    16-128 with up to 16 query heads a KV head run on the tensor cores;
-    float32 (the float32 engine tests), a float32 query over a bf16
-    pool, flash hd 256 and the GQA kernels at other widths keep the
+    16-128 with up to 16 query heads a KV head run on the tensor cores,
+    and so does the int8 GQA decode with a bf16 query at those widths;
+    float32 (the float32 engine tests), a float32 query over a bf16 or
+    int8 pool, flash hd 256 and the GQA kernels at other widths keep the
     CUDA-core bodies."""
     import ctypes
 
@@ -525,6 +601,14 @@ def test_tensor_core_dispatch(cuda):
         assert pre(hq, hkv, hd, 0, 0) == 0
     assert pre(32, 1, 64, 1, 1) == 0            # 32 query heads a KV head
     assert pre(8, 2, 256, 1, 1) == 0            # hd 256
+    int8 = build.entry("paged_decode", "paged_decode_int8_tensor_core",
+                       [ctypes.c_int] * 4)
+    for hq, hkv, hd in [(32, 8, 64), (8, 2, 64), (4, 4, 32), (8, 1, 128),
+                        (16, 1, 16)]:
+        assert int8(hq, hkv, hd, 1) == 1
+        assert int8(hq, hkv, hd, 0) == 0
+    assert int8(32, 1, 64, 1) == 0              # 32 query heads a KV head
+    assert int8(8, 2, 256, 1) == 0              # hd 256
 
 
 def test_mla_kernel_wrappers_reject_bad_inputs(cuda):

@@ -608,6 +608,89 @@ def test_paged_decode_warp_merge_within_card_tolerance(hq, hkv, hd, page,
             <= P_BF16_TOL
 
 
+# On the card, int8 decode with a bf16 query runs the bf16 GQA decode's
+# walk on its int8 tiles widened to bf16 (exact for -127..127): the K
+# scale multiplies each float32 score, the V scale multiplies P after the
+# online-softmax update (l keeps the unscaled sum) and before P is
+# rounded to bf16 for P V, and each tile's keys are dealt to four warps,
+# 16 each, merged in warp order.
+def _gqa_warp_decode_int8(q, k_pages, v_pages, k_scales, v_scales, tables,
+                          lengths, p_bf16=True):
+    """``ref.paged_decode_attention_int8`` computed as the int8 body
+    computes it."""
+    k = ref._gather(k_pages, tables).float()
+    v = ref._gather(v_pages, tables).float()
+    b, hq, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+
+    def per_key(scales):                        # [B,T,Hkv,1] -> [B,Hkv,1,T]
+        return ref._gather(scales, tables).float()[..., 0].permute(
+            0, 2, 1)[:, :, None, :]
+    ks, vs = per_key(k_scales), per_key(v_scales)
+    qg = q.reshape(b, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k) * ks / np.sqrt(hd)
+    mask = ref._length_mask(lengths, t)[:, :, None, :]
+    split_of = (torch.arange(t) % 64) // 16
+
+    def pv(p):
+        p = p * vs
+        if p_bf16:
+            p = p.bfloat16().float()
+        return torch.einsum("bhgt,bthd->bhgd", p, v)
+    out = _split_merge(s, mask, split_of, pv, p_bf16=False)
+    return out.reshape(b, hq, hd)
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,lens", [
+    # llama3.2-1b attention geometry: tile and warp edges, a full table
+    (32, 8, 64, 64, 8, (0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300,
+                        512)),
+    (8, 2, 64, 16, 6, (0, 1, 17, 96, 50)),      # GQA
+    (8, 2, 32, 32, 4, (0, 31, 64, 128)),
+    (4, 4, 32, 32, 3, (0, 33, 96)),             # MHA
+    (4, 4, 128, 16, 6, (0, 16, 96)),
+    (8, 1, 128, 16, 6, (0, 70, 96)),            # MQA
+    (8, 1, 32, 32, 4, (0, 5, 128)),
+])
+def test_paged_decode_int8_warp_merge_within_card_tolerance(hq, hkv, hd, page,
+                                                            pages, lens):
+    rng = np.random.default_rng(hq + hd + page + 1)
+    b = len(lens)
+    n = b * pages + 2
+    kq, ks = _int8_pool(rng, n, page, hkv, hd)
+    vq, vs = _int8_pool(rng, n, page, hkv, hd)
+    tables = _tables(rng, b, pages, n)
+    tables[-1, 0] = -4                          # clamps to page 0
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    pool = (torch.from_numpy(kq), torch.from_numpy(vq),
+            torch.from_numpy(ks).bfloat16(), torch.from_numpy(vs).bfloat16())
+    q = _bf16(rng, (b, hq, hd))
+    exact = ref.paged_decode_attention_int8(q, *pool, tables,
+                                            lengths).float()
+    rounded = _gqa_warp_decode_int8(q, *pool, tables, lengths)
+    _zero_rows_and_finite(rounded, lens)
+    assert float((rounded - exact).abs().max()) <= P_BF16_TOL
+    # without the rounding the int8 walk is the plain version's algebra,
+    # the Pallas kernel's and the JAX oracle's, on the rows whose table
+    # entries are in the pool (the clamp is the ``xla`` fallback's
+    # semantics; the oracle has no zero-length gate)
+    merged = _gqa_warp_decode_int8(q.float(), *pool, tables, lengths,
+                                   p_bf16=False)
+    _close(merged, ref.paged_decode_attention_int8(q.float(), *pool, tables,
+                                                   lengths))
+    jargs = [jnp.asarray(q.float().numpy()), jnp.asarray(kq),
+             jnp.asarray(vq), jnp.asarray(ks, jnp.bfloat16),
+             jnp.asarray(vs, jnp.bfloat16), jnp.asarray(tables.numpy()),
+             jnp.asarray(lengths.numpy())]
+    pallas = np.asarray(jops.paged_decode_int8(*jargs,
+                                               backend="interpret"))[:-1]
+    _close(merged[:-1], pallas)
+    assert float(np.abs(rounded[:-1].numpy() - pallas).max()) <= P_BF16_TOL
+    live = [r for r in range(b - 1) if lens[r] > 0]
+    _close(merged[live],
+           np.asarray(jref.paged_decode_attention_int8_ref(*jargs))[live])
+
+
 # ---------------------------------------------------------------------------
 # the bf16 GQA chunk prefill's key walk: four warps, merged in order
 # ---------------------------------------------------------------------------
