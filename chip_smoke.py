@@ -27,7 +27,10 @@ check raises and the script exits non-zero with no result line:
            flushed before each launch, the flushes' own time taken
            off), beside the least time the card could take for the
            same work, and the body the C entry ran for the case
-           (``body``: "tensor_core" or "cuda_core");
+           (``body``: "tensor_core" or "cuda_core"); then the three at
+           the trace replay's 32-token pages (``*_page32``: the chunk at
+           offset 336, every slot no row may read holding 8x larger
+           K/V);
   mla_kernels  the same for the three absorbed-MLA kernels at the MLA
            path's shapes (DeepSeek-V3: Hq=128, dl=512, dr=64, page=64,
            C=64, a 1857-page bf16 latent pool, 56 rows with lengths up
@@ -68,7 +71,32 @@ check raises and the script exits non-zero with no result line:
   dense_parity  one prefill and one bf16 and one int8 decode step of the
            full-width model with the kernels, the plain versions and
            one-token mask-error versions (slots past each row's length
-           hold 8x larger K/V).
+           hold 8x larger K/V);
+  replay   the live-engine trace replay (``traces/serving_replay.py``)
+           of the reduced llama3.2-1b at 32-token blocks and pages, four
+           cells (lmsys and agentic whole-prefix, sharegpt and lmsys with
+           segment reuse; 12 sessions x 6 turns, seed 0, bayesian,
+           transfers inline), every counter equal to the CPU run's
+           (``REPLAY_PINS``, pinned in tests/test_torch_replay.py);
+           calls 1, 2, 4, 8, ... of kernels 1-3 on the path held to their
+           plain versions on the same tensors, and every injected block
+           read back from the pool bit for bit against its payload;
+  replay_full  the same four cells with llama3.2-1b at full width on one
+           shared params tree, with the same kernel and inject checks:
+           every turn completes with finite logits and in-vocab tokens,
+           KV is demoted, fetched back and injected (payload bytes across
+           the host link counted), kernels 1-3 launch at 32-token pages;
+  cluster  two full-width replicas on the lmsys replay under round-robin
+           routing with the fleet-shared tier 4 and the async transfer
+           worker, one replica failed mid-replay: shared-tier imports
+           (read back bit for bit), every turn completes on the survivor,
+           the device memory falls by at least the failed replica's KV
+           pool; then the serve CLI (``repro_torch.launch.serve``) with
+           two replicas and a failure;
+  frontend the wall-clock ``ServingFrontend`` over the full-width replay
+           engine under a 5-second open-loop lmsys load, its pump thread
+           stepping the card on that thread's default stream; the ledger
+           must balance.
 
 Then the ``{"kernels": [...]}`` summary, the card's nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
@@ -121,6 +149,35 @@ MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES = 56, 32, 1857
 # one-token mask error over stale slots move the same tensors by at
 # least 2^0.40 of it; the phase checks both sides.
 MLA_PARITY_RTOL = 2.0 ** -4
+# (workload, segment_reuse) -> the reduced replay's counters; the same
+# dict as tests/test_torch_replay.py, which holds the CPU run to it and
+# this copy to its own
+REPLAY_PINS = {
+    ("lmsys", False): {
+        "engine_hit_rate": 0.852, "seen_blocks": 250, "hot_hits_t0": 142,
+        "hot_hits_t1": 71, "cow_share_hits": 142, "inject_hits": 76,
+        "segment_hit_blocks": 0, "promotions": 5, "requests_done": 28,
+        "ttft_p50": 0.07900000000000004, "ttft_p95": 0.14482343999999994,
+        "ttft_p99": 0.15272343999999993},
+    ("agentic", False): {
+        "engine_hit_rate": 0.8393393393393394, "seen_blocks": 666,
+        "hot_hits_t0": 267, "hot_hits_t1": 292, "cow_share_hits": 267,
+        "inject_hits": 318, "segment_hit_blocks": 0, "promotions": 26,
+        "requests_done": 71, "ttft_p50": 0.1264000000000003,
+        "ttft_p95": 0.24490000000000012, "ttft_p99": 0.2844000000000001},
+    ("sharegpt", True): {
+        "engine_hit_rate": 0.7196819085487077, "seen_blocks": 503,
+        "hot_hits_t0": 127, "hot_hits_t1": 235, "cow_share_hits": 91,
+        "inject_hits": 196, "segment_hit_blocks": 216, "promotions": 141,
+        "requests_done": 58, "ttft_p50": 0.0868999999999999,
+        "ttft_p95": 0.11849999999999997, "ttft_p99": 0.12639999999999996},
+    ("lmsys", True): {
+        "engine_hit_rate": 0.944, "seen_blocks": 250, "hot_hits_t0": 142,
+        "hot_hits_t1": 94, "cow_share_hits": 142, "inject_hits": 76,
+        "segment_hit_blocks": 32, "promotions": 14, "requests_done": 28,
+        "ttft_p50": 0.07900000000000004, "ttft_p95": 0.14482343999999994,
+        "ttft_p99": 0.15272343999999993},
+}
 # pool slots no correct mask reads (past a row's length, at or past a
 # chunk's offset, a segment chunk's own slots) hold stale latents this
 # many times larger, as unwritten slots of a live pool hold whatever
@@ -265,10 +322,12 @@ def phase_build(build, card):
                                  f"(want {want}, each with HMMA / HGMMA)")
 
 
-def make_kernel_inputs(torch, gen):
-    """Main-path shapes: 64 decode rows over a 529-page pool (the
-    default engine's slot and page counts at llama3.2-1b width)."""
-    B, Hq, Hkv, hd, page, P, C = 64, 32, 8, 64, 64, 8, 64
+def make_kernel_inputs(torch, gen, page=64, offset=320):
+    """Main-path shapes: 64 decode rows over a 512-token window, at
+    64-token pages a 529-page pool (the default engine's slot and page
+    counts at llama3.2-1b width); one chunk at ``offset`` of row 1."""
+    B, Hq, Hkv, hd, C = 64, 32, 8, 64, 64
+    P = 512 // page
     N = 1 + B * P + 16
     dev = "cuda"
 
@@ -286,7 +345,7 @@ def make_kernel_inputs(torch, gen):
     dec = dict(q=randn(B, Hq, hd), k_pages=kp, v_pages=vp,
                block_tables=tables, lengths=lengths)
     table1 = tables[1:2].contiguous()
-    off = torch.tensor([320], dtype=torch.int32, device=dev)
+    off = torch.tensor([offset], dtype=torch.int32, device=dev)
     pre = dict(q=randn(1, C, Hq, hd), k_chunk=randn(1, C, Hkv, hd),
                v_chunk=randn(1, C, Hkv, hd), k_pages=kp, v_pages=vp,
                block_tables=table1, offsets=off)
@@ -465,10 +524,56 @@ def phase_kernels(torch, ops, card):
         ("paged_prefill_seg", ops.paged_prefill_seg, seg,
          prefill_cost(seg, seg_pool, seg_pairs), None, prefill_plan(seg)),
     ]
+    cases += page32_cases(torch, gen, ops)
     rows = check_and_time(torch, cases, card, "kernels")
     check_contiguous(torch, ops.paged_prefill_seg, ops.paged_prefill, pre,
                      C, "kernels")
     return rows
+
+
+def stale_pools(torch, a, unread):
+    """Case ``a`` with clones of its K/V pools [N, page, Hkv, hd] whose
+    slots at the row positions where ``unread`` [B, T] holds are scaled
+    by STALE_SCALE, as pool pages reused under tier churn hold stale
+    rows."""
+    page = a["k_pages"].shape[1]
+    pos = torch.arange(unread.shape[1], device=unread.device)
+    pid = a["block_tables"].long()[:, pos // page][unread]
+    slot = (pos % page).expand_as(unread)[unread]
+    out = dict(a)
+    for key in ("k_pages", "v_pages"):
+        out[key] = a[key].clone()
+        out[key][pid, slot] *= STALE_SCALE
+    return out
+
+
+def page32_cases(torch, gen, ops):
+    """Kernels 1-3 at the trace replay's 32-token pages (a 64-key tile
+    gathers two pages), the same heads and 512-token window, the chunk
+    at offset 336 (mid-page); every slot no row may read (past a decode
+    row's length, at or past the chunk's offset, a segment chunk's own
+    slots and those past its last position) holds stale K/V."""
+    dec, pre, seg = make_kernel_inputs(torch, gen, page=32, offset=336)
+    C = pre["q"].shape[1]
+    pos = torch.arange(dec["block_tables"].shape[1] * 32, device="cuda")
+    dec = stale_pools(torch, dec, pos[None] >= dec["lengths"].long()[:, None])
+    pre = stale_pools(torch, pre, pos[None] >= pre["offsets"].long()[:, None])
+    cpos = seg["chunk_positions"].long()
+    own = (pos[None, :, None] == cpos[:, None, :]).any(-1)
+    past = pos[None] > cpos.max(-1).values[:, None]
+    seg = stale_pools(torch, seg, own | past)
+    off = int(pre["offsets"][0])
+    B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
+    return [
+        ("paged_decode_page32", ops.paged_decode, dec, decode_cost(dec),
+         None, {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}),
+        ("paged_prefill_page32", ops.paged_prefill, pre,
+         prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
+         prefill_plan(pre)),
+        ("paged_prefill_seg_page32", ops.paged_prefill_seg, seg,
+         prefill_cost(seg, *seg_counts([int(x) for x in cpos[0]])), None,
+         prefill_plan(seg)),
+    ]
 
 
 def check_contiguous(torch, seg_op, offset_op, pre, C, phase):
@@ -1199,6 +1304,459 @@ def one_token_mask_errors(torch):
             setattr(ref, n, fn)
 
 
+# ---------------------------------------------------------------------------
+# the trace-replay, cluster and front-end drivers
+# ---------------------------------------------------------------------------
+# llama3.2-1b at full width with the replay's 32-token blocks
+REPLAY_BLOCK_TOKENS = 32
+
+
+def cell_name(workload, segments) -> str:
+    return workload + ("_segments" if segments else "")
+
+
+def replay_full_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-1b"),
+                               kv_block_tokens=REPLAY_BLOCK_TOKENS)
+
+
+@contextlib.contextmanager
+def checked_sampling(torch, record):
+    """Keep, for every fused decode step, whether its logits are finite
+    and the range of the tokens it sampled (device tensors, read once
+    the run is over)."""
+    from repro_torch.serving import sampler
+    orig = sampler.sample_batched
+
+    def sample_batched(logits, *a, **kw):
+        toks = orig(logits, *a, **kw)
+        record.append(torch.stack([torch.isfinite(logits).all().long(),
+                                   toks.min().long(), toks.max().long()]))
+        return toks
+    sampler.sample_batched = sample_batched
+    try:
+        yield
+    finally:
+        sampler.sample_batched = orig
+
+
+def sampling_ok(torch, record, vocab) -> bool:
+    if not record:
+        return False
+    finite, lo, hi = torch.stack(record).cpu().T.tolist()
+    return all(finite) and min(lo) >= 0 and max(hi) < vocab
+
+
+@contextlib.contextmanager
+def host_link(torch, out):
+    """Count the tier payloads that cross the host link: each block
+    payload copied device->host (``payload_from_tensor``) or host->device
+    (``tensor_from_payload``), its bytes and the host-clock seconds of
+    the copy alone (the device is synchronized before it, and after a
+    host->device copy)."""
+    from repro_torch.serving import kvcache
+    d2h, h2d = kvcache.payload_from_tensor, kvcache.tensor_from_payload
+    for key in ("d2h", "h2d"):
+        out.update({key + "_copies": 0, key + "_bytes": 0, key + "_s": 0.0})
+
+    def count(key, nbytes, t0):
+        out[key + "_copies"] += 1
+        out[key + "_bytes"] += nbytes
+        out[key + "_s"] += time.perf_counter() - t0
+
+    def payload_from_tensor(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = d2h(t)
+        count("d2h", a.nbytes, t0)
+        return a
+
+    def tensor_from_payload(a, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = h2d(a, device)
+        torch.cuda.synchronize()
+        count("h2d", a.nbytes, t0)
+        return t
+    kvcache.payload_from_tensor = payload_from_tensor
+    kvcache.tensor_from_payload = tensor_from_payload
+    try:
+        yield
+    finally:
+        kvcache.payload_from_tensor, kvcache.tensor_from_payload = d2h, h2d
+
+
+@contextlib.contextmanager
+def checked_kernel_calls(torch, record):
+    """Hold calls 1, 2, 4, 8, ... of each of kernels 1-3 on the driven
+    path against the plain version on the very tensors the path gave
+    the kernel, right after the path's own launch (so the pool holds
+    what that launch read): per checked call its page size and, as
+    device tensors read once the run is over, the kernel's max_abs_err,
+    the plain output's largest magnitude and whether the output is
+    finite.  The plain calls launch no kernel."""
+    from repro_torch.kernels import ops
+    # kernel -> (ops global it is reached through, position of k_pages)
+    where = {"paged_decode": ("paged_decode_attention", 1),
+             "paged_prefill": ("paged_prefill_attention", 3),
+             "paged_prefill_seg": ("paged_prefill_segments", 3)}
+    saved = {attr: getattr(ops, attr) for attr, _ in where.values()}
+    calls = dict.fromkeys(where, 0)
+
+    def wrap(name, fn, k_arg):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            calls[name] += 1
+            if calls[name] & (calls[name] - 1) == 0:
+                plain = fn(*a, **dict(kw, backend="torch")).float()
+                record.append((name, a[k_arg].shape[1], torch.stack([
+                    (out.float() - plain).abs().max(), plain.abs().max(),
+                    torch.isfinite(out).all().float()])))
+            return out
+        return call
+    for name, (attr, k_arg) in where.items():
+        setattr(ops, attr, wrap(name, saved[attr], k_arg))
+    try:
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(ops, attr, fn)
+
+
+def kernel_check_report(torch, record) -> dict:
+    """Per kernel: the calls checked, their page sizes and the worst
+    error beside its limit: one bf16 step at the plain output's largest
+    magnitude, 2^(floor(log2 |o|) - 7), and at least KERNEL_ATOL (the
+    step below magnitude 4, as in the kernels phase).  Both sides round
+    a float32 value to bf16 once, so while their float32 values lie
+    within one step the outputs differ by at most one."""
+    report = {}
+    vals = torch.stack([v for _, _, v in record]).cpu().tolist() \
+        if record else []
+    for (name, page, _), (err, scale, finite) in zip(record, vals):
+        row = report.setdefault(name, {"calls": 0, "pages": [],
+                                       "max_abs_err": 0.0, "max_abs": 0.0,
+                                       "tol": 0.0,
+                                       "worst_err_over_tol": 0.0,
+                                       "finite": True})
+        tol = max(KERNEL_ATOL, 2.0 ** (math.floor(math.log2(scale)) - 7)
+                  if 0 < scale < math.inf else 0.0)
+        row["calls"] += 1
+        row["pages"] = sorted(set(row["pages"]) | {page})
+        row["finite"] = row["finite"] and finite == 1.0
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_abs"] = max(row["max_abs"], scale)
+        row["tol"] = max(row["tol"], tol)
+        row["worst_err_over_tol"] = max(row["worst_err_over_tol"],
+                                        err / tol)
+    return report
+
+
+@contextlib.contextmanager
+def checked_injects(torch, record):
+    """After every block inject into a paged pool (a tier fetch, a
+    shared-tier import, a restored preemption), read the block back
+    from the pool and keep whether its bits equal the payload's (device
+    tensors, read once the run is over).  Enter it before ``host_link``:
+    its own copies are not counted there."""
+    from repro_torch.serving import kvcache
+    orig = kvcache.PagedKVCache.inject_block
+    h2d = kvcache.tensor_from_payload
+
+    def inject_block(self, slot, payload, start):
+        n = orig(self, slot, payload, start)
+        got = torch.stack([self._gather(pool, slot, start, n)
+                           for pool, _ in self.kinds])
+        want = h2d(payload, self.device)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"inject: pool block {got.dtype} "
+                                 f"{tuple(got.shape)} vs payload "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        record.append((got.contiguous().view(torch.uint8)
+                       == want.contiguous().view(torch.uint8)).all())
+        return n
+    kvcache.PagedKVCache.inject_block = inject_block
+    try:
+        yield
+    finally:
+        kvcache.PagedKVCache.inject_block = orig
+
+
+def injects_exact(torch, record) -> bool:
+    return bool(torch.stack(record).all()) if record else True
+
+
+def replay_cell(res, turns) -> dict:
+    row = {key: getattr(res, key) for key in (
+        "engine_hit_rate", "reuse_rate", "seen_blocks", "hot_hits_t0",
+        "hot_hits_t1", "cow_share_hits", "inject_hits", "segment_hit_blocks",
+        "segment_share_hits", "segment_inject_hits", "promotions",
+        "demotions", "requests_done", "turns_submitted", "generated_tokens",
+        "ttft_p50", "ttft_p95", "ttft_p99", "tbt_p50", "tbt_p95",
+        "virtual_time_s", "steps", "wall_s")}
+    row["turns"] = turns
+    return row
+
+
+def run_replays(torch, kernel_fns, cfg, params, vocab) -> dict:
+    """The four replay cells on the card; every kernel count zeroed just
+    before them and read just after; sampled tokens, injected blocks and
+    kernels 1-3 checked along the way."""
+    from repro_torch.traces import serving_replay as sr
+    cells, sampled, link, calls, injects = {}, [], {}, [], []
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    with checked_injects(torch, injects), host_link(torch, link), \
+            checked_sampling(torch, sampled), \
+            checked_kernel_calls(torch, calls):
+        for workload, seg in REPLAY_PINS:
+            log = []
+            res = sr.run_serving_replay(
+                sr.ServingReplayConfig(workload=workload, segment_reuse=seg,
+                                       async_transfers=False),
+                log, cfg=cfg, device="cuda", params=params)
+            cells[cell_name(workload, seg)] = replay_cell(res, len(log))
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    return {"cells": cells, "launches": launches, "host_link": link,
+            "sampled_ok": sampling_ok(torch, sampled, vocab),
+            "kernel_checks": kernel_check_report(torch, calls),
+            "injects_checked": len(injects),
+            "injects_bit_exact": injects_exact(torch, injects)}
+
+
+def page_tokens(run) -> list:
+    """The page sizes kernels 1-3 were given on the run (their checked
+    calls)."""
+    return sorted({p for row in run["kernel_checks"].values()
+                   for p in row["pages"]})
+
+
+def check_replay_run(phase, run):
+    for name, row in run["cells"].items():
+        if not row["requests_done"] == row["turns_submitted"] == row["turns"]:
+            raise AssertionError(f"{phase} {name}: {row['requests_done']} of "
+                                 f"{row['turns']} turns completed")
+    if not run["sampled_ok"]:
+        raise AssertionError(f"{phase}: non-finite logits or a sampled "
+                             f"token outside the vocabulary")
+    if not (run["injects_checked"] > 0 and run["injects_bit_exact"]):
+        raise AssertionError(f"{phase}: an injected block reads back from "
+                             f"the pool with other bits than its payload")
+    for name in GQA_PATH:
+        if run["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+        row = run["kernel_checks"].get(name)
+        if not row or not row["finite"] or row["worst_err_over_tol"] > 1.0:
+            raise AssertionError(f"{phase}: kernel {name} vs its plain "
+                                 f"version on the path's own calls: {row}")
+    if page_tokens(run) != [REPLAY_BLOCK_TOKENS]:
+        raise AssertionError(f"{phase}: kernels 1-3 ran at pages "
+                             f"{page_tokens(run)}, not "
+                             f"{REPLAY_BLOCK_TOKENS}")
+
+
+def run_fields(run) -> dict:
+    return {"page_tokens": page_tokens(run), "cells": run["cells"],
+            **{k: run[k] for k in ("launches", "host_link", "kernel_checks",
+                                   "injects_checked", "injects_bit_exact")}}
+
+
+def phase_replay(torch, kernel_fns, card):
+    """The reduced replay model on the card: every pinned counter equal
+    to the CPU run's."""
+    from repro_torch.traces.serving_replay import replay_model_config
+    cfg = replay_model_config(REPLAY_BLOCK_TOKENS)
+    run = run_replays(torch, kernel_fns, cfg, None, cfg.vocab_size)
+    mismatch = {}
+    for cell, want in REPLAY_PINS.items():
+        got = run["cells"][cell_name(*cell)]
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            mismatch[cell_name(*cell)] = bad
+    emit({"phase": "replay", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, **run_fields(run),
+          "pins_equal": not mismatch})
+    check_replay_run("replay", run)
+    if mismatch:
+        raise AssertionError(f"replay: counters differ from the CPU pins "
+                             f"(got, pinned): {mismatch}")
+    return run["launches"]
+
+
+def phase_replay_full(torch, kernel_fns, card, cfg, params):
+    """The four cells at full llama3.2-1b width: tier traffic across the
+    host link, kernels 1-3 at 32-token pages held to their plain
+    versions on the path's own calls."""
+    t0 = time.perf_counter()
+    run = run_replays(torch, kernel_fns, cfg, params, cfg.vocab_size)
+    wall = time.perf_counter() - t0
+    cells = run["cells"]
+    for cell, pin in REPLAY_PINS.items():
+        row = cells[cell_name(*cell)]
+        row["hit_rate_minus_reduced"] = (row["engine_hit_rate"]
+                                         - pin["engine_hit_rate"])
+    totals = {key: sum(row[key] for row in cells.values())
+              for key in ("demotions", "promotions", "inject_hits",
+                          "steps")}
+    link = run["host_link"]
+    emit({"phase": "replay_full", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "wall_s": wall, "totals": totals,
+          **run_fields(run)})
+    check_replay_run("replay_full", run)
+    missed = [key for key in ("demotions", "promotions", "inject_hits")
+              if totals[key] <= 0]
+    if missed or link["d2h_bytes"] <= 0 or link["h2d_bytes"] <= 0:
+        raise AssertionError(f"replay_full: no tier traffic in {missed} "
+                             f"or across the host link ({link})")
+    return run["launches"]
+
+
+@contextlib.contextmanager
+def failover_memory(torch, out):
+    """Read the device memory around each ``fail_replica``, beside the
+    failed replica's KV pool bytes."""
+    from repro_torch.serving.cluster import ReplicaCluster
+    orig = ReplicaCluster.fail_replica
+
+    def fail_replica(self, name):
+        out["failed_pool_bytes"] = sum(
+            t.numel() * t.element_size()
+            for t in self.engines[name].kv.pools.values())
+        torch.cuda.synchronize()
+        out["allocated_before"] = torch.cuda.memory_allocated()
+        n = orig(self, name)
+        torch.cuda.synchronize()
+        out["allocated_after"] = torch.cuda.memory_allocated()
+        out["released_bytes"] = (out["allocated_before"]
+                                 - out["allocated_after"])
+        return n
+    ReplicaCluster.fail_replica = fail_replica
+    try:
+        yield
+    finally:
+        ReplicaCluster.fail_replica = orig
+
+
+def phase_cluster(torch, kernel_fns, card, cfg, params):
+    """Two full-width replicas on one params tree, the fleet-shared tier
+    4, one replica failed once 10 turns have completed; then the serve
+    CLI at full width with two replicas and a failure."""
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.traces import serving_replay as sr
+    ccfg = sr.ClusterReplayConfig(workload="lmsys", n_replicas=2,
+                                  routing="round_robin", shared_tier=True,
+                                  fail_replica_after_turns=10)
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    log, mem, injects = [], {}, []
+    t0 = time.perf_counter()
+    with failover_memory(torch, mem), checked_injects(torch, injects):
+        res = sr.run_cluster_replay(ccfg, log, cfg=cfg, device="cuda",
+                                    params=params)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    cli_out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        rc = serve.main(["--arch", "llama3.2-1b", "--replicas", "2",
+                         "--fail-replica", "--device", "cuda"])
+    cli_s = time.perf_counter() - t1
+    survivors = [r for r in res.per_replica if not r.failed]
+    emit({"phase": "cluster", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "routing": res.routing,
+          "async_transfers": ccfg.async_transfers, "turns": len(log),
+          "requests_done": res.requests_done,
+          "redispatched": res.redispatched,
+          "reprefill_tokens": res.reprefill_tokens,
+          "failed_replicas": res.failed_replicas,
+          "fleet_hit_rate": res.fleet_hit_rate,
+          "fleet_hit_rate_incl_shared": res.fleet_hit_rate_incl_shared,
+          "shared_hit_blocks": res.shared_hit_blocks,
+          "per_replica": [dataclasses.asdict(r) for r in res.per_replica],
+          "ttft_p50": res.ttft_p50, "ttft_p95": res.ttft_p95,
+          "steps": res.steps, "wall_s": wall, "memory": mem,
+          "injects_checked": len(injects),
+          "injects_bit_exact": injects_exact(torch, injects),
+          "launches": launches, "cli_rc": rc, "cli_s": cli_s,
+          "cli_output": cli_out.getvalue().splitlines()})
+    if res.shared_hit_blocks <= 0:
+        raise AssertionError("cluster: no block imported from the "
+                             "fleet-shared tier")
+    if not injects_exact(torch, injects):
+        raise AssertionError("cluster: an injected block reads back from "
+                             "the pool with other bits than its payload")
+    if not (res.failed_replicas and res.redispatched > 0 and survivors
+            and res.requests_done == len(log)):
+        raise AssertionError(f"cluster: {res.requests_done} of {len(log)} "
+                             f"turns completed after failing "
+                             f"{res.failed_replicas} ({res.redispatched} "
+                             f"redispatched)")
+    if not mem.get("released_bytes", -1) >= mem.get("failed_pool_bytes", 0) \
+            > 0:
+        raise AssertionError(f"cluster: the failed replica's KV pool was "
+                             f"not freed: {mem}")
+    for name in GQA_PATH[:2]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"cluster path")
+    if rc != 0:
+        raise AssertionError(f"cluster: the serve CLI returned {rc}")
+
+
+def phase_frontend(torch, kernel_fns, card, cfg, params, duration_s=5.0,
+                   qps=8.0):
+    """``launch/serve.py --frontend`` on the full-width replay engine:
+    the pump thread steps the card while the main thread submits an
+    open-loop lmsys schedule in real time; drain, then the ledger."""
+    import threading
+    from repro_torch.launch.serve import run_open_loop
+    from repro_torch.serving import ServingFrontend
+    from repro_torch.traces.loadgen import offered_summary, trace_load
+    from repro_torch.traces.serving_replay import (ServingReplayConfig,
+                                                   build_engine)
+    engine = build_engine(ServingReplayConfig(workload="lmsys", seed=0,
+                                              async_transfers=False),
+                          cfg, device="cuda", params=params)
+    streams, main = set(), threading.get_ident()
+    step = engine.step
+
+    def pumped_step():
+        streams.add((threading.get_ident() != main,
+                     torch.cuda.current_stream().cuda_stream
+                     == torch.cuda.default_stream().cuda_stream))
+        return step()
+    engine.step = pumped_step
+    fe = ServingFrontend(engine)
+    arrivals = trace_load("lmsys", qps, duration_s=duration_s, seed=0)
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    wall = run_open_loop(fe, arrivals)
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    st = fe.stats()
+    engine.shutdown()
+    emit({"phase": "frontend", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "qps": qps, "duration_s": duration_s,
+          "offered_summary": offered_summary(arrivals), "wall_s": wall,
+          "ledger_ok": True, "launches": launches,
+          "pump_on_other_thread_default_stream": sorted(streams),
+          **{k: (None if v == float("inf") else v) for k, v in st.items()}})
+    if streams != {(True, True)}:
+        raise AssertionError(f"frontend: steps ran on (other thread, "
+                             f"default stream) = {streams}")
+    if not (st["offered"] == len(arrivals) and st["done"] > 0
+            and st["done"] + st["shed"] == st["offered"]
+            and st["in_flight"] == 0):
+        raise AssertionError(f"frontend: ledger {st}")
+    for name in GQA_PATH[:2]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"frontend path")
+
+
 REPLACES = {
     "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:92"),
@@ -1250,6 +1808,7 @@ def main() -> int:
                                                    mla_paged_prefill_segments,
                                                    paged_prefill_attention,
                                                    paged_prefill_segments)
+    from repro_torch.models.model import build_model
     from repro_torch.serving import EngineConfig
     kernel_fns = {"paged_decode": paged_decode_attention,
                   "paged_prefill": paged_prefill_attention,
@@ -1304,6 +1863,15 @@ def main() -> int:
     counts = phase_int8_decode(torch, kernel_fns, params, smi, llama)
     launches["paged_decode_int8"] = counts["paged_decode_int8"]
     phase_dense_parity(torch, params, llama, smi)
+    del params
+    torch.cuda.empty_cache()
+
+    phase_replay(torch, kernel_fns, smi)
+    full = replay_full_config()
+    params = build_model(full).init_params(0, device="cuda")
+    phase_replay_full(torch, kernel_fns, smi, full, params)
+    phase_cluster(torch, kernel_fns, smi, full, params)
+    phase_frontend(torch, kernel_fns, smi, full, params)
 
     summary = []
     for name, row in rows.items():

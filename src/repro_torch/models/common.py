@@ -20,14 +20,14 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: the CUDA card unless the caller
-    names another device (``device="cpu"``); with no card it raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: entry points run on the card unless they "
-                "are given device='cpu'")
-        return torch.device("cuda")
-    return torch.device(device)
+    names another device (``device="cpu"``); with no card it raises, as
+    it does when asked for the card by name."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: entry points run on the card unless they "
+            "are given device='cpu'")
+    return device
 
 
 # ---------------------------------------------------------------------------

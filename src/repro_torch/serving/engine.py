@@ -44,10 +44,16 @@ paths are ported too:
 
 Segment reuse needs chunked prefill.  MLA models serve only the paged,
 chunked path (their dense-layout model entry points are not ported).
-The cluster / front-end hooks (fleet-shared tier binding, request
-cancellation, failover teardown) come with the slice that ports the
-cluster and the front-end.  Entry points run on CUDA unless the caller
-passes ``device="cpu"``.
+
+The hooks of the cluster and the front-end are the JAX engine's:
+``bind_fleet_store`` binds tier 4 to a fleet-shared store, which
+admission probes past the local prefix match (``shared_fetch_hits``)
+and registration publishes to; ``cancel_request`` drops one live
+request; ``release_resources`` tears a failed replica down and, unlike
+the JAX engine, also drops its KV pool from the device at once.  The
+payloads crossing the fleet store are the tiers' numpy payloads (bf16
+as ``uint16`` bits).  Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -195,6 +201,9 @@ class ServingEngine:
         self.monolithic_prefills = 0   # requests prefilled at admission
         self.cow_share_hits = 0        # prefix blocks served by CoW page map
         self.inject_hits = 0           # ... by tier payload injection
+        self.shared_fetch_hits = 0     # ... imported from the fleet-shared
+        #                                tier (content another replica
+        #                                published; charged as tier-4 fetch)
         self.segment_share_hits = 0    # mid-prompt blocks resumed by CoW
         self.segment_inject_hits = 0   # ... by tier payload injection
         self.segment_chunks = 0        # position-explicit kernel chunks
@@ -204,6 +213,11 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _tokens(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.int32, device=self.device)
+
+    def bind_fleet_store(self, store, owner: str) -> bool:
+        """Bind this replica's tier 4 to the cluster's fleet-shared KV
+        store (see ``core/tiers.FleetKVStore``); call before traffic."""
+        return self.manager.bind_fleet_store(store, owner)
 
     # ------------------------------------------------------------------
     def submit(self, prompt: Sequence[int], *, params: SamplingParams = None,
@@ -279,6 +293,28 @@ class ServingEngine:
                 self.inject_hits += 1
             prefix_len += bt
             n_hit += 1
+        # fleet-shared tier probe: past the local radix match, content
+        # another replica published extends the prefix by a tier-4
+        # fetch and a payload injection
+        if mgr.fleet_bound:
+            while prefix_len + bt <= len(effective):
+                blk = effective[prefix_len:prefix_len + bt]
+                btype = req.block_type
+                if req.block_types is not None and \
+                        prefix_len // bt < len(req.block_types):
+                    btype = req.block_types[prefix_len // bt]
+                got = mgr.import_shared_block(
+                    blk, block_type=btype,
+                    recompute_cost=self._block_recompute_cost(),
+                    positions=(prefix_len, prefix_len + bt))
+                if got is None:
+                    break
+                _, pl = got
+                self.kv.inject_block(slot, pl, prefix_len)
+                self.shared_fetch_hits += 1
+                req.shared_hit_blocks += 1
+                prefix_len += bt
+                n_hit += 1
         req.prefix_hit_blocks = n_hit
 
         # segment reuse: resident runs of full blocks at matching
@@ -375,6 +411,9 @@ class ServingEngine:
                 mgr.hierarchy.attach_payload(bid, pl)
             if self.paged:
                 self.kv.register_block_pages(bid, slot, i * bt, bt)
+            if mgr.fleet_bound:
+                # publish on registration: sibling replicas may import it
+                mgr.publish_block(bid)
         req.block_ids = new_ids
         if new_ids:
             self._block_epoch += 1
@@ -777,6 +816,7 @@ class ServingEngine:
                "max_step_prefill_tokens": self.max_step_prefill_tokens,
                "cow_share_hits": self.cow_share_hits,
                "inject_hits": self.inject_hits,
+               "shared_fetch_hits": self.shared_fetch_hits,
                "segment_reuse": self.seg_enabled,
                "segment_share_hits": self.segment_share_hits,
                "segment_inject_hits": self.segment_inject_hits,
@@ -790,8 +830,50 @@ class ServingEngine:
         out["faults"] = self.manager.hierarchy.fault_stats()
         return out
 
+    def cancel_request(self, req: Request) -> bool:
+        """Drop one live request from every scheduler queue and release
+        its slot's pages, its dedup refs and its staged preempt payload
+        (the front-end's drain-deadline shed path).  False when the
+        request is not live on this engine."""
+        sch = self.scheduler
+        rid = req.request_id
+        if rid in sch.running:
+            sch.running.pop(rid)
+            if req.slot is not None and req.slot >= 0:
+                self.kv.release(req.slot)
+        elif rid in sch.blocked:
+            sch.blocked.pop(rid)
+        elif req in sch.waiting:
+            sch.waiting.remove(req)
+        elif req in sch.preempted:
+            sch.preempted.remove(req)
+        else:
+            return False
+        self.manager.release_sequence(req.block_ids,
+                                      retain=req.retain_blocks)
+        self._preempted_payloads.pop(rid, None)
+        self._demote_tickets.pop(rid, None)
+        self._drop_tier_copy(rid)
+        req.phase = Phase.DONE
+        if self.paged:
+            self.kv.gc_blocks(self.manager)
+        return True
+
     def shutdown(self) -> None:
         if self.worker is not None:
             self.worker.drain(timeout=5.0, escalate=True)
             self.worker.close()
             self.worker = None
+
+    def release_resources(self) -> None:
+        """Failover teardown: close the transfer worker, release the
+        cache manager's block and tier registrations (its
+        ``ManagerStats`` survive for the fleet rollup) and drop the KV
+        pool from the device.  The weights stay: replicas may share
+        them."""
+        self.shutdown()
+        self._preempted_payloads.clear()
+        self._demote_tickets.clear()
+        self._inflight_prefetch.clear()
+        self.manager.release_all()
+        self.kv.release_storage()

@@ -148,6 +148,10 @@ class SlotKVCache(_KVCacheBase):
         self.slots[slot] = SlotInfo()
         self.state["lengths"][slot] = 0
 
+    def release_storage(self) -> None:
+        """Drop the device state (failover teardown)."""
+        self.state = {}
+
     def set_length(self, slot: int, length: int) -> None:
         self.slots[slot].length = length
         self.state["lengths"][slot] = length
@@ -239,6 +243,12 @@ class PagedKVCache(_KVCacheBase):
     def set_length(self, slot: int, length: int) -> None:
         self.slots[slot].length = length
         self.state_version += 1
+
+    def release_storage(self) -> None:
+        """Drop the device pools (failover teardown); the host tables
+        and page refcounts stay readable."""
+        self.pools = {}
+        self._cached_state = None
 
     # ------------------------------------------------------------------
     # page mapping

@@ -206,6 +206,56 @@ def test_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, hkv, hd, page,
     assert torch.equal(seg, off)
 
 
+def test_gqa_kernels_at_replay_page(cuda):
+    """Kernels 1-3 at the trace replay's 32-token pages (each 64-key
+    tile gathers two pages) with llama3.2-1b's heads, bf16, over a
+    768-token window: ragged decode rows, chunks at offsets on and off
+    page edges, and gap chunks around resumed blocks; every slot no row
+    may read (past a row's length or offset, a gap chunk's own slots)
+    holds 8x larger K/V, as reused pool pages hold stale rows."""
+    hq, hkv, hd, page, pages, c = 32, 8, 64, 32, 24, 64
+    window = page * pages
+    a = _inputs(torch.bfloat16, b=6, c=c, hq=hq, hkv=hkv, hd=hd, page=page,
+                pages=pages, seed=32)
+    tab = a["tables"].cpu()
+
+    def stale(limits, own=()):
+        """Pool K/V with row b's slots at positions >= limits[b] (and
+        its ``own`` positions) scaled by 8."""
+        idx = [(int(tab[b, t // page]), t % page)
+               for b, lim in enumerate(limits)
+               for t in set(range(lim, window)) | set(own[b] if own else ())]
+        pid, slot = (torch.tensor(x, device="cuda") for x in zip(*idx))
+        kp, vp = a["kp"].clone(), a["vp"].clone()
+        kp[pid, slot] *= 8
+        vp[pid, slot] *= 8
+        return kp, vp
+
+    lengths = [0, 1, 31, 33, 417, window]
+    kp, vp = stale(lengths)
+    dec = (a["q"][:, 0].contiguous(), kp, vp, a["tables"],
+           torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    offs = [0, 31, 32, 96, 415, window - c]
+    kp, vp = stale(offs)
+    pre = (a["q"], a["kc"], a["vc"], kp, vp, a["tables"],
+           torch.tensor(offs, dtype=torch.int32, device="cuda"))
+    rows = [list(range(16, 32)) + list(range(96, 128)),
+            list(range(31, 34)) + list(range(200, 240)),
+            list(range(window - c, window)), [], [5],
+            list(range(320, 352)) + list(range(384, 400))]
+    kp, vp = stale([max(r, default=-1) + 1 for r in rows], own=rows)
+    seg = (a["q"], a["kc"], a["vc"], kp, vp, a["tables"],
+           torch.tensor([r + [-1] * (c - len(r)) for r in rows],
+                        dtype=torch.int32, device="cuda"))
+    for op, args in ((cuda.paged_decode, dec), (cuda.paged_prefill, pre),
+                     (cuda.paged_prefill_seg, seg)):
+        out = op(*args)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert _err(out, op(*args, backend="torch")) <= BF16_TOL
+    assert bool((cuda.paged_decode(*dec)[0] == 0).all())   # length 0
+
+
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     a = _inputs(torch.bfloat16)
     q = a["q"][:, 0]                            # not contiguous

@@ -23,9 +23,11 @@ VERBATIM = (["config.py", "configs/__init__.py"]
             + [f"core/{m}.py" for m in (
                 "__init__", "sizing", "bayesian", "tiers", "faults",
                 "eviction", "prefetch", "dedup", "agentic", "policy",
-                "cache_manager")]
+                "cache_manager", "metrics", "projection")]
             + [f"serving/{m}.py" for m in (
-                "request", "scheduler", "block_allocator")])
+                "request", "scheduler", "block_allocator", "frontend")]
+            + [f"traces/{m}.py" for m in (
+                "__init__", "generators", "ingest", "replay", "loadgen")])
 
 
 def _imported_roots(path: Path):
