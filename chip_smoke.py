@@ -30,12 +30,17 @@ check raises and the script exits non-zero with no result line:
            (``body``: "tensor_core" or "cuda_core"); then the three at
            the trace replay's 32-token pages (``*_page32``: the chunk at
            offset 336, every slot no row may read holding 8x larger
-           K/V);
+           K/V); then the three at granite-moe-3b-a800m's engine
+           shapes (``*_g3``: Hq 24 over Hkv 8, G = 3, hd 64, 32 slots);
   mla_kernels  the same for the three absorbed-MLA kernels at the MLA
            path's shapes (DeepSeek-V3: Hq=128, dl=512, dr=64, page=64,
            C=64, a 1857-page bf16 latent pool, 56 rows with lengths up
            to 2048), plus the decode on 8 rows of full 2048-token tables
-           (``mla_paged_decode_long``); the decode rows carry the split
+           (``mla_paged_decode_long``), the chunk prefill of a whole
+           1100-token prompt at offset 0 (``mla_paged_prefill_offset0``,
+           the monolithic prefill's call) and the decode over 56 latent
+           slots of 2048 tokens seen as pages (``mla_paged_decode_slots``,
+           the dense layout's call); the decode rows carry the split
            plan (tokens a split, splits, blocks, partial bytes), the GQA
            decode and chunk prefill rows their one-wave plans (blocks,
            warp splits merged inside the block, no partials);
@@ -48,9 +53,28 @@ check raises and the script exits non-zero with no result line:
            plain versions (explicit backend="torch") on the same weights
            and state, and with plain versions that each get one mask
            wrong by one token, which the limit must catch;
+  moe_serve  the serve traffic on granite-moe-3b-a800m at full width
+           (40 experts top-8, seeded bf16 weights, default EngineConfig:
+           32 slots): kernels 1-3 at G = 3, and the share of the active
+           decode rows' (expert, slot) assignments that capacity dropped;
+  moe_parity  ``parity`` on that model with its routing pinned to the
+           kernels' run (a bf16 step flips top-k choices at near ties),
+           then layer 0's MoE FFN at the decode batch in float32 on the
+           card and on the CPU (routing identical, outputs within the
+           limit), and the bf16 layer timed beside its weight-read bound
+           (``moe_layer``);
   mla_serve, mla_parity  the same two for DeepSeek-V3 at every
            published width with the depth cut to 8 layers
            (EngineConfig(max_len=2048), 512-token blocks);
+  mla_dense_serve, mla_monolithic_serve  the mla_serve traffic on the
+           same weights with EngineConfig(paged=False) (latent slots,
+           kernel 5 at offset 0 for a whole prompt, kernel 4 over the
+           slots seen as pages) and with chunked_prefill=False,
+           fused_step=False (the paged pool, kernel 5 at offset 0);
+  mla_dense_parity  one 1100-token monolithic prefill and one dense
+           decode step (8 slots of 2048 tokens, 8x stale latents past
+           each row) with the kernels, the plain versions and one-token
+           mask-error versions;
   kernels  (continued) causal flash prefill at llama3.2-1b width (B=1,
            S=384 and the ragged S=416) beside
            F.scaled_dot_product_attention as the library yardstick, and
@@ -322,11 +346,12 @@ def phase_build(build, card):
                                  f"(want {want}, each with HMMA / HGMMA)")
 
 
-def make_kernel_inputs(torch, gen, page=64, offset=320):
+def make_kernel_inputs(torch, gen, page=64, offset=320, B=64, Hq=32):
     """Main-path shapes: 64 decode rows over a 512-token window, at
     64-token pages a 529-page pool (the default engine's slot and page
-    counts at llama3.2-1b width); one chunk at ``offset`` of row 1."""
-    B, Hq, Hkv, hd, C = 64, 32, 8, 64, 64
+    counts at llama3.2-1b width); one chunk at ``offset`` of row 1.
+    ``B=32, Hq=24``: granite-moe-3b-a800m's engine (G = 3)."""
+    Hkv, hd, C = 8, 64, 64
     P = 512 // page
     N = 1 + B * P + 16
     dev = "cuda"
@@ -525,6 +550,7 @@ def phase_kernels(torch, ops, card):
          prefill_cost(seg, seg_pool, seg_pairs), None, prefill_plan(seg)),
     ]
     cases += page32_cases(torch, gen, ops)
+    cases += g3_cases(torch, gen, ops)
     rows = check_and_time(torch, cases, card, "kernels")
     check_contiguous(torch, ops.paged_prefill_seg, ops.paged_prefill, pre,
                      C, "kernels")
@@ -572,6 +598,27 @@ def page32_cases(torch, gen, ops):
          prefill_plan(pre)),
         ("paged_prefill_seg_page32", ops.paged_prefill_seg, seg,
          prefill_cost(seg, *seg_counts([int(x) for x in cpos[0]])), None,
+         prefill_plan(seg)),
+    ]
+
+
+def g3_cases(torch, gen, ops):
+    """Kernels 1-3 at the moe_serve engine's shapes: granite-moe-3b-a800m
+    (Hq 24 over Hkv 8, G = 3, hd 64), its 32 slots of 512 tokens at
+    64-token pages; the chunk at offset 320 (``*_g3`` rows)."""
+    dec, pre, seg = make_kernel_inputs(torch, gen, B=32, Hq=24)
+    C = pre["q"].shape[1]
+    off = int(pre["offsets"][0])
+    B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
+    return [
+        ("paged_decode_g3", ops.paged_decode, dec, decode_cost(dec), None,
+         {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}),
+        ("paged_prefill_g3", ops.paged_prefill, pre,
+         prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
+         prefill_plan(pre)),
+        ("paged_prefill_seg_g3", ops.paged_prefill_seg, seg,
+         prefill_cost(seg, *seg_counts(
+             [int(x) for x in seg["chunk_positions"][0]])), None,
          prefill_plan(seg)),
     ]
 
@@ -708,10 +755,55 @@ def phase_mla_kernels(torch, ops, card, cfg):
         ("mla_paged_prefill_seg", ops.mla_prefill_seg, seg,
          mla_cost(seg, seg_pool, seg_pairs)),
     ]
+    cases += mla_dense_cases(torch, gen, cfg, ops)
     rows = check_and_time(torch, cases, card, "mla_kernels")
     check_contiguous(torch, ops.mla_prefill_seg, ops.mla_prefill, pre, C,
                      "mla_kernels")
     return rows
+
+
+# the mla_dense_parity prompt: a whole prompt through kernel 5 at offset 0
+MLA_PROMPT = 1100
+
+
+def mla_dense_cases(torch, gen, cfg, ops):
+    """Kernels 4 and 5 on the dense layout's routes at DeepSeek-V3 width:
+    the chunk prefill at offset 0 with a whole 1100-token prompt as the
+    chunk over a one-slot pool it never reads
+    (``mla_paged_prefill_offset0``, the monolithic prefill's call), and
+    the decode over the mla_dense_serve engine's latent slot cache (56
+    slots of 2048 tokens seen as 64-token pages by ``slot_pages``, ragged
+    lengths, every 7th row empty; ``mla_paged_decode_slots``)."""
+    from repro_torch.models import attention as attn
+    Hq, dl, dr, C = cfg.n_heads, cfg.d_latent, cfg.d_rope, MLA_PROMPT
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    scale = attn.mla_scale(cfg)
+    pre = dict(q_lat=randn(1, C, Hq, dl), q_rope=randn(1, C, Hq, dr),
+               lat_chunk=randn(1, C, dl + dr),
+               latent_pages=torch.zeros((1, 1, dl + dr), dtype=torch.bfloat16,
+                                        device=dev),
+               block_tables=torch.zeros((1, 1), dtype=torch.int32,
+                                        device=dev),
+               offsets=torch.zeros((1,), dtype=torch.int32, device=dev),
+               d_latent=dl, scale=scale)
+    (pages,), tables = attn.slot_pages(randn(MLA_ROWS, MLA_MAX_LEN, dl + dr))
+    lengths = torch.randint(1, MLA_MAX_LEN + 1, (MLA_ROWS,), generator=gen,
+                            device=dev).to(torch.int32)
+    lengths[::7] = 0
+    lengths[1] = MLA_MAX_LEN
+    dec = dict(q_lat=randn(MLA_ROWS, Hq, dl), q_rope=randn(MLA_ROWS, Hq, dr),
+               latent_pages=pages, block_tables=tables, lengths=lengths,
+               d_latent=dl, scale=scale)
+    toks = int(lengths.sum())
+    return [
+        ("mla_paged_prefill_offset0", ops.mla_prefill, pre,
+         mla_cost(pre, 0, C * (C + 1) // 2)),
+        ("mla_paged_decode_slots", ops.mla_decode, dec,
+         mla_cost(dec, toks, toks), None, mla_decode_plan(dec)),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -818,7 +910,8 @@ def phase_dense_kernels(torch, ops, card):
 
 def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
                 shared_tail, phase="serve", pool=None,
-                expect=("cow_share_hits", "segment_chunks")):
+                expect=("cow_share_hits", "segment_chunks"), params=None,
+                instrument=None):
     """Serve ``cfg`` on the engine: 6 requests of a shared system prefix
     (``system_blocks`` manager blocks) plus ``shared_tail`` tokens each,
     the first alone, then five; then a segment pair A = [S0 S1 S2 | tail]
@@ -826,12 +919,15 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     count is zeroed just before the traffic and read just after; each
     kernel of ``path`` must have launched, and each engine counter in
     ``expect`` must be above 0.  ``pool``: the (slots, table pages, pool
-    pages) the kernel phase assumed for this engine."""
+    pages) the kernel phase assumed for this engine.  ``params``: a
+    weight tree to serve (else the engine's seeded init); ``instrument``:
+    called with the engine before the traffic, returns a function whose
+    dict joins the phase's line."""
     from repro_torch.serving import SamplingParams, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, ecfg, device="cuda")
+    eng = ServingEngine(cfg, ecfg, device="cuda", params=params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     shape = ((eng.kv.n_slots, eng.kv.pages_per_slot, eng.kv.n_pages)
@@ -864,6 +960,7 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     seg_b = x0 + s1 + s2 + toks(40)
     waves = [shared[:1], shared[1:], [seg_a], [seg_b]]
 
+    report = instrument(eng) if instrument is not None else dict
     for fn in kernel_fns.values():
         fn.launches = 0
     reqs, decode_s, decode_tokens, decode_steps, steps = [], 0.0, 0, 0, 0
@@ -914,7 +1011,7 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
            "inject_hits": st["inject_hits"],
            "segment_chunks": st["segment_chunks"],
            "segment_share_hits": st["segment_share_hits"],
-           "kernel_backend": st["kernel_backend"]}
+           "kernel_backend": st["kernel_backend"], **report()}
     emit(out)
     bad = [r.request_id for r in reqs if len(r.generated) != 16]
     if bad:
@@ -931,11 +1028,18 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     return eng.params, launches
 
 
-def phase_parity(torch, params, card):
+def phase_parity(torch, params, card, cfg=None, phase="parity"):
+    """One decode step, one prefill chunk and one segment chunk of the
+    full-width model (llama3.2-1b, or ``cfg``) with the CUDA kernels,
+    with the plain versions and with one-token mask-error versions, on
+    the same weights and pool.  An MoE model's routing is pinned to the
+    kernels' run (``PinnedRouting``), so the comparison sees the
+    attention kernels: a one-step difference in bf16 flips top-k choices
+    at near ties, and the flipped tokens' FFN outputs differ by O(1)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
-    cfg = get_config("llama3.2-1b")
+    cfg = cfg or get_config("llama3.2-1b")
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(99)
     L, Hkv, hd, page, P, B, N = cfg.n_layers, cfg.n_kv_heads, cfg.hd, 64, 8, \
@@ -982,16 +1086,22 @@ def phase_parity(torch, params, card):
             out[name + "_k"], out[name + "_v"] = kv["k"], kv["v"]
         return out
 
-    runs = {"cuda": run("cuda"), "torch": run("torch")}
-    with one_token_mask_errors(torch):
-        runs["mutant"] = run("torch")
-    parity_report(runs, PARITY_RTOL, card, "parity")
+    with PinnedRouting(torch) as pin:
+        runs = {"cuda": run("cuda")}
+        pin.replay()
+        runs["torch"] = run("torch")
+        pin.replay()
+        with one_token_mask_errors(torch):
+            runs["mutant"] = run("torch")
+    parity_report(runs, PARITY_RTOL, card, phase, pin.report())
 
 
-def parity_report(runs, rtol, card, phase):
+def parity_report(runs, rtol, card, phase, extra=None, parity_only=()):
     """Hold the kernels' run to the plain versions' within ``rtol`` of
     each tensor's largest magnitude, and check that the mask-error run
-    lands outside it."""
+    lands outside it (for every tensor but those in ``parity_only``,
+    which a mask error reaches only diluted, and which the other tensors
+    of the same entry point catch)."""
     res = {}
     for key, plain in runs["torch"].items():
         def gap(other):
@@ -1001,15 +1111,201 @@ def parity_report(runs, rtol, card, phase):
         res[key] = {"max_abs_diff": gap("cuda"), "max_abs": scale,
                     "tol": rtol * scale,
                     "mutant_max_abs_diff": gap("mutant")}
-    emit({"phase": phase, "card": card, "rtol": rtol, **res})
+    emit({"phase": phase, "card": card, "rtol": rtol, **(extra or {}),
+          **res})
     bad = {k: v for k, v in res.items() if not v["max_abs_diff"] <= v["tol"]}
     if bad:
         raise AssertionError(f"kernels vs plain versions differ: {bad}")
     blind = {k: v for k, v in res.items()
-             if not v["mutant_max_abs_diff"] > v["tol"]}
+             if k not in parity_only
+             and not v["mutant_max_abs_diff"] > v["tol"]}
     if blind:
         raise AssertionError(f"parity limit misses a one-token mask "
                              f"error: {blind}")
+
+
+class PinnedRouting:
+    """Within the context, every ``moe.route`` call of the first run is
+    logged (its top-k experts, capacity positions and kept mask); after
+    ``replay()`` each later run takes the logged decisions call by call,
+    with its own router probabilities renormalised over the logged
+    experts, and the tokens whose own set of kept experts differs are
+    counted.  A dense model makes no route call."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.route = torch, moe, moe.route
+        self.log, self.at, self.differ = [], None, []
+
+    def __enter__(self):
+        def pinned(p, xg, cfg):
+            out = self.route(p, xg, cfg)
+            if self.at is None:
+                self.log.append(out[2:])
+                return out
+            probs, _, top_i, _, keep = out
+            ri, rp, rk = self.log[self.at]
+            self.at += 1
+            self.differ[-1].append((self.kept(ri, rk, probs.shape[-1])
+                                    != self.kept(top_i, keep,
+                                                 probs.shape[-1]))
+                                   .any(-1).sum())
+            tp = probs.gather(-1, ri)
+            return probs, tp / tp.sum(-1, keepdim=True), ri, rp, rk
+        self.moe.route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def kept(self, top_i, keep, e):
+        """[G,t,E]: the experts that process each token."""
+        experts = self.torch.arange(e, device=top_i.device)
+        return ((top_i[..., None] == experts) & keep[..., None]).any(-2)
+
+    def replay(self):
+        """Start a run that replays the first run's decisions."""
+        self.at = 0
+        self.differ.append([])
+
+    def report(self) -> dict:
+        tokens = sum(int(ri.numel() // ri.shape[-1]) for ri, _, _ in
+                     self.log)
+        return {"routing_calls": len(self.log), "routed_tokens": tokens,
+                "tokens_whose_own_kept_experts_differed_by_replay":
+                [int(sum(d)) for d in self.differ if d]}
+
+
+def moe_drops(torch):
+    """``phase_serve`` instrument: keep every decode step's routing (the
+    kept masks of ``moe.route``, by reference: no device work, no sync)
+    beside the step's active rows (length > 0; the rest carry token 0);
+    the report is the share of the active rows' (expert, slot)
+    assignments that capacity dropped."""
+    from repro_torch.models import moe
+    route, seen, active = moe.route, [], [None]
+
+    def spy(p, xg, cfg):
+        out = route(p, xg, cfg)
+        if active[0] is not None:
+            seen.append((out[4][0], active[0]))
+        return out
+
+    def install(eng):
+        decode = eng.model.decode_step_paged
+
+        def decode_step_paged(params, state, tokens, **kw):
+            active[0] = state["lengths"] > 0
+            try:
+                return decode(params, state, tokens, **kw)
+            finally:
+                active[0] = None
+        eng.model.decode_step_paged = decode_step_paged
+        moe.route = spy
+
+        def report():
+            moe.route = route
+            keep = torch.stack([k for k, _ in seen])          # [R, B, k]
+            act = torch.stack([a for _, a in seen])[..., None]
+            assigned = int((act.expand_as(keep)).sum())
+            dropped = int((~keep & act).sum())
+            return {"moe_decode_routings": len(seen),
+                    "active_assignments": assigned,
+                    "active_assignments_dropped": dropped,
+                    "active_drop_share": dropped / assigned}
+        return report
+    return install
+
+
+def phase_moe_parity(torch, params, cfg, card, rows):
+    """``phase_parity`` on granite-moe-3b-a800m at full width (kernels 1-3
+    at G = 3, hd 64, routing pinned), then layer 0's MoE FFN at the
+    moe_serve decode batch (``rows`` tokens, the second half one repeated
+    input, as inactive rows all carry token 0) in float32 on the card and
+    on the CPU from the same inputs: the routing must be identical and
+    the outputs within the parity limit; and the bf16 layer timed beside
+    its bound (all 40 experts' weights read once)."""
+    from repro_torch.models import moe
+
+    phase_parity(torch, params, card, cfg, phase="moe_parity")
+    lp = {k: v[0] for k, v in params["layers"]["ffn"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    h = torch.randn((rows, 1, cfg.d_model), generator=gen, device="cuda")
+    h[rows // 2:] = h[rows // 2]
+    p32 = {k: v.float() for k, v in lp.items()}
+    pcpu = {k: v.cpu() for k, v in p32.items()}
+    out, aux = moe.moe_ffn(p32, h, cfg)
+    ref, ref_aux = moe.moe_ffn(pcpu, h.cpu(), cfg)
+    card_route = moe.route(p32, h.reshape(1, rows, -1), cfg)[2:]
+    cpu_route = moe.route(pcpu, h.cpu().reshape(1, rows, -1), cfg)[2:]
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card_route, cpu_route))
+    err = float((out.cpu() - ref).abs().max())
+    tol = PARITY_RTOL * float(ref.abs().max())
+    hb = h.bfloat16()
+    # a call queues ~50 small kernels: a short window keeps the queue
+    # below its depth while the device sleeps
+    t = time_ms(torch, lambda: moe.moe_ffn(lp, hb, cfg), iters=4)
+    weights = sum(v.numel() * v.element_size() for v in lp.values())
+    cap = moe.capacity(rows, cfg)
+    flops = 3 * 2 * cfg.n_experts * cap * cfg.d_model * cfg.moe_ff
+    nbytes = weights + 2 * h.numel() * hb.element_size()
+    bound_ms, bound_by = bound(nbytes, flops)
+    keep = cpu_route[2]
+    emit({"phase": "moe_layer", "card": card, "rows": rows,
+          "capacity": cap, "routing_identical": same,
+          "assignments_dropped": int((~keep).sum()),
+          "max_abs_err_f32": err, "tol": tol,
+          "aux_card": float(aux), "aux_cpu": float(ref_aux),
+          "bf16_ms": t["ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+          "weight_bytes": weights, "flops": flops})
+    if not same:
+        raise AssertionError("moe_layer: routing on the card differs from "
+                             "the CPU's")
+    if not err <= tol:
+        raise AssertionError(f"moe_layer: card vs CPU {err} > {tol}")
+
+
+def phase_mla_dense_parity(torch, params, cfg, card):
+    """One monolithic prefill of a 1100-token prompt (kernel 5 at offset
+    0) and one dense decode step over 8 latent slots of 2048 tokens seen
+    as pages (kernel 4) of the 8-layer DeepSeek-V3 model with the
+    kernels, the plain versions and one-token mask-error versions; every
+    slot past a row's new token holds 8x larger latents."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(95)
+    L, D, B, S = cfg.n_layers, cfg.d_latent + cfg.d_rope, 8, MLA_MAX_LEN
+    ptoks = torch.randint(0, cfg.vocab_size, (1, MLA_PROMPT), generator=gen,
+                          device="cuda").to(torch.int32)
+    lengths = torch.randint(64, S - 1, (B,), generator=gen,
+                            device="cuda").to(torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                           device="cuda").to(torch.int32)
+    lat = torch.randn((L, B, S, D), generator=gen, device="cuda")
+    lat[:, torch.arange(S, device="cuda")[None, :]
+        > lengths.long()[:, None]] *= STALE_SCALE
+    lat = lat.bfloat16()
+    rows, at = torch.arange(B, device="cuda"), lengths.long()
+
+    def run(be):
+        logits, st = model.prefill(params, {"tokens": ptoks}, backend=be)
+        out = {"prefill_logits": logits, "prefill_latent": st["latent"]}
+        logits, new = model.decode_step(
+            params, {"latent": lat.clone(), "lengths": lengths}, tokens,
+            backend=be)
+        out.update(decode_logits=logits,
+                   decode_new_latent=new["latent"][:, rows, at])
+        return out
+
+    runs = {"cuda": run("cuda"), "torch": run("torch")}
+    with one_token_mask_errors(torch):
+        runs["mutant"] = run("torch")
+    # the last position's logits see a chunk key one ahead only through
+    # the other positions' later-layer latents, averaged over 1100 keys;
+    # the prefill's latents of every position and layer catch it
+    parity_report(runs, MLA_PARITY_RTOL, card, "mla_dense_parity",
+                  parity_only=("prefill_logits",))
 
 
 def stale_slots(torch, pool, tables, first_stale):
@@ -1221,10 +1517,12 @@ def one_token_mask_errors(torch):
     kernel's masking could make: decode attends one pool token past the
     row's length, prefill the pool token at the offset (the slot the
     chunk's first token will fill), segment prefill does not exclude the
-    slots the chunk will fill; the same three for the MLA versions; the
-    flash prefill admits key i + 1 for query i, and the int8 decode
-    attends one pool token past the row's length.  The parity limit must
-    see each of them."""
+    slots the chunk will fill; the same three for the MLA versions (the
+    MLA chunk prefill of a whole prompt at offset 0, which reads no pool
+    token, admits chunk key i + 1 for query i instead); the flash prefill
+    admits key i + 1 for query i, and the int8 decode attends one pool
+    token past the row's length.  The parity limit must see each of
+    them."""
     from repro_torch.kernels import ref
     names = ("paged_decode_attention", "paged_prefill_attention",
              "paged_prefill_segments", "mla_paged_decode",
@@ -1266,6 +1564,11 @@ def one_token_mask_errors(torch):
 
     def mla_prefill_at_offset(q_lat, q_rope, lat_chunk, latent_pages,
                               block_tables, offsets, d_latent, scale=None):
+        if not bool((offsets > 0).any()):
+            b, c = q_lat.shape[:2]
+            mask = ref.causal_mask(c, c, 1, q_lat.device).expand(b, c, c)
+            return ref._mla_attend(q_lat, q_rope, lat_chunk.float(), mask,
+                                   d_latent, scale)
         return saved["mla_paged_prefill"](
             q_lat, q_rope, lat_chunk, latent_pages, block_tables,
             offsets + 1, d_latent, scale)
@@ -1780,6 +2083,9 @@ MLA_PATH = ("mla_paged_decode", "mla_paged_prefill", "mla_paged_prefill_seg")
 # the dense and monolithic paths: flash prefill for a prompt with no
 # prefix hit, the paged decode kernel over slots or pages
 DENSE_PATH = ("flash_prefill", "paged_decode")
+# MLA on them: the MLA chunk prefill kernel at offset 0, the MLA decode
+# kernel over latent slots (or pages)
+MLA_DENSE_PATH = ("mla_paged_prefill", "mla_paged_decode")
 
 
 def main() -> int:
@@ -1810,6 +2116,7 @@ def main() -> int:
                                                    paged_prefill_segments)
     from repro_torch.models.model import build_model
     from repro_torch.serving import EngineConfig
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
     kernel_fns = {"paged_decode": paged_decode_attention,
                   "paged_prefill": paged_prefill_attention,
                   "paged_prefill_seg": paged_prefill_segments,
@@ -1831,37 +2138,65 @@ def main() -> int:
     rows.update(phase_dense_kernels(torch, ops, smi))
 
     # each path is driven with every count zeroed just before it; a
-    # kernel's launches are those of its own path
-    params, counts = phase_serve(torch, kernel_fns, GQA_PATH, smi,
-                                 get_config("llama3.2-1b"), EngineConfig(),
-                                 system_blocks=2, shared_tail=128)
-    launches = {name: counts[name] for name in GQA_PATH}
+    # kernel's launches are those of its own path (``by_path``: every
+    # path's counts)
+    by_path = {}
+    params, by_path["serve"] = phase_serve(
+        torch, kernel_fns, GQA_PATH, smi, get_config("llama3.2-1b"),
+        EngineConfig(), system_blocks=2, shared_tail=128)
+    launches = {name: by_path["serve"][name] for name in GQA_PATH}
     phase_parity(torch, params, smi)
     del params
     torch.cuda.empty_cache()
-    params, counts = phase_serve(
+    granite = get_config("granite-moe-3b-a800m")
+    params, by_path["moe_serve"] = phase_serve(
+        torch, kernel_fns, GQA_PATH, smi, granite, EngineConfig(),
+        system_blocks=2, shared_tail=128, phase="moe_serve",
+        instrument=moe_drops(torch))
+    phase_moe_parity(torch, params, granite, smi,
+                     rows=Scheduler(granite, SchedulerConfig(
+                         kv_budget_bytes=EngineConfig().kv_budget_bytes,
+                         max_len=EngineConfig().max_len)).n_slots)
+    del params
+    torch.cuda.empty_cache()
+    params, by_path["mla_serve"] = phase_serve(
         torch, kernel_fns, MLA_PATH, smi, mla_cfg,
         EngineConfig(max_len=MLA_MAX_LEN), system_blocks=1, shared_tail=588,
         phase="mla_serve",
         pool=(MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES))
-    launches.update({name: counts[name] for name in MLA_PATH})
+    launches.update({name: by_path["mla_serve"][name] for name in MLA_PATH})
     phase_mla_parity(torch, params, mla_cfg, smi)
+    # MLA on the dense slots and with monolithic prefill, same weights
+    _, by_path["mla_dense_serve"] = phase_serve(
+        torch, kernel_fns, MLA_DENSE_PATH, smi, mla_cfg,
+        EngineConfig(paged=False, max_len=MLA_MAX_LEN), system_blocks=1,
+        shared_tail=588, phase="mla_dense_serve", params=params,
+        expect=("inject_hits", "monolithic_prefills"))
+    _, by_path["mla_monolithic_serve"] = phase_serve(
+        torch, kernel_fns, MLA_DENSE_PATH, smi, mla_cfg,
+        EngineConfig(chunked_prefill=False, fused_step=False,
+                     max_len=MLA_MAX_LEN), system_blocks=1, shared_tail=588,
+        phase="mla_monolithic_serve", params=params,
+        expect=("cow_share_hits", "monolithic_prefills"))
+    phase_mla_dense_parity(torch, params, mla_cfg, smi)
     del params
     torch.cuda.empty_cache()
 
     llama = get_config("llama3.2-1b")
-    params, counts = phase_serve(torch, kernel_fns, DENSE_PATH, smi, llama,
-                                 EngineConfig(paged=False), system_blocks=2,
-                                 shared_tail=128, phase="dense_serve",
-                                 expect=("inject_hits",
-                                         "monolithic_prefills"))
-    launches["flash_prefill"] = counts["flash_prefill"]
-    phase_serve(torch, kernel_fns, DENSE_PATH, smi, llama,
-                EngineConfig(chunked_prefill=False, fused_step=False),
-                system_blocks=2, shared_tail=128, phase="monolithic_serve",
-                expect=("cow_share_hits", "monolithic_prefills"))
-    counts = phase_int8_decode(torch, kernel_fns, params, smi, llama)
-    launches["paged_decode_int8"] = counts["paged_decode_int8"]
+    params, by_path["dense_serve"] = phase_serve(
+        torch, kernel_fns, DENSE_PATH, smi, llama, EngineConfig(paged=False),
+        system_blocks=2, shared_tail=128, phase="dense_serve",
+        expect=("inject_hits", "monolithic_prefills"))
+    launches["flash_prefill"] = by_path["dense_serve"]["flash_prefill"]
+    _, by_path["monolithic_serve"] = phase_serve(
+        torch, kernel_fns, DENSE_PATH, smi, llama,
+        EngineConfig(chunked_prefill=False, fused_step=False),
+        system_blocks=2, shared_tail=128, phase="monolithic_serve",
+        expect=("cow_share_hits", "monolithic_prefills"))
+    by_path["int8_decode"] = phase_int8_decode(torch, kernel_fns, params,
+                                               smi, llama)
+    launches["paged_decode_int8"] = \
+        by_path["int8_decode"]["paged_decode_int8"]
     phase_dense_parity(torch, params, llama, smi)
     del params
     torch.cuda.empty_cache()
@@ -1881,6 +2216,10 @@ def main() -> int:
         summary.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "body": row["body"],
                         "launches": launches[name],
+                        "launches_by_path": {
+                            path: counts[name]
+                            for path, counts in by_path.items()
+                            if counts[name]},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

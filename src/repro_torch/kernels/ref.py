@@ -55,8 +55,9 @@ def _with_chunk(prior: torch.Tensor) -> torch.Tensor:
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
-    """q [B,C,Hq,hd]; k/v [B,T,Hkv,hd]; mask [B,C,T] bool
-    -> [B,C,Hq,hd] in q's dtype (float32 softmax and accumulation)."""
+    """q [B,C,Hq,hd]; k [B,T,Hkv,hd]; v [B,T,Hkv,dv]; mask [B,C,T] bool
+    -> [B,C,Hq,dv] in q's dtype (float32 softmax and accumulation; the
+    scale is ``1/sqrt(hd)``, q's width)."""
     b, c, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -68,7 +69,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bchgt,bthd->bchgd", p, v.float())
     o = o / l.clamp_min(1e-30)
-    return o.reshape(b, c, hq, hd).to(q.dtype)
+    return o.reshape(b, c, hq, v.shape[-1]).to(q.dtype)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):

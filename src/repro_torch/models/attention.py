@@ -9,6 +9,16 @@ layout heads, and carries the dense layout's attention:
 queries start at position 0), ``decode_attention`` over a slot cache
 [B,S,Hkv,hd] seen as pages (the paged decode kernels, bf16 or int8 with
 ``quantize_kv`` scales) and the in-place ``cache_write``.
+
+MLA runs in the absorbed form (``mla_absorbed``): ``W_uk`` folded into
+the query, the MLA kernels attend in latent space, then ``W_uv`` and the
+output projection, at the softmax scale ``1/sqrt(hd + dr)``.  Its dense
+layout: ``mla_attention_prefill`` (a whole prompt from position 0
+through the MLA chunk prefill kernel at offset 0) and
+``mla_attention_decode`` (the MLA decode kernel over the latent slot
+cache [B,S,dl+dr] seen as pages).  The JAX package's
+``mla_attention_prefill`` runs the non-absorbed form instead; both
+compute the same function.
 """
 from __future__ import annotations
 
@@ -201,3 +211,85 @@ def mla_project(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The MLA softmax scale of every path: ``1/sqrt(hd + dr)``, the
+    query width of the non-absorbed form."""
+    return 1.0 / math.sqrt(cfg.hd + cfg.d_rope)
+
+
+def mla_absorbed(p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, attend):
+    """One absorbed-MLA attention sublayer: project, fold W_uk into the
+    query, ``attend(q_lat, q_rope, latent) -> ctx`` runs a kernel in
+    latent space, then W_uv and the output projection.  Returns (out
+    [B,S,D], latent [B,S,dl+dr])."""
+    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
+    q_lat = torch.einsum("...hk,lhk->...hl", q_nope, p["w_uk"]).contiguous()
+    ctx = attend(q_lat, q_rope.contiguous(), latent)
+    out = torch.einsum("...hl,lhk->...hk", ctx, p["w_uv"])
+    return out_proj(out, p["wo"]), latent
+
+
+def mla_attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                          backend: Optional[str] = None):
+    """Causal MLA over whole prompts x [B,S,D] from position 0; returns
+    (out [B,S,D], latent [B,S,dl+dr]).  The MLA chunk prefill kernel
+    (``ops.mla_prefill``) at offset 0 with the whole prompt as the
+    chunk: it reads no pool token, so the pool is one empty slot."""
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :]
+    empty = x.new_zeros((1, 1, cfg.d_latent + cfg.d_rope))
+    tables = torch.zeros((b, 1), dtype=torch.int32, device=x.device)
+    offsets = torch.zeros((b,), dtype=torch.int32, device=x.device)
+    return mla_absorbed(
+        p, x, positions, cfg,
+        lambda q_lat, q_rope, latent: ops.mla_prefill(
+            q_lat, q_rope, latent, empty,
+            tables, offsets, d_latent=cfg.d_latent, scale=mla_scale(cfg),
+            backend=backend))
+
+
+def mla_attention_suffix(p: Dict, x: torch.Tensor, prefix: torch.Tensor,
+                         q_offset: int, cfg: ModelConfig):
+    """A prompt suffix x [B,S,D] at positions q_offset + i after its
+    cached prefix latent [B,q_offset,dl+dr], in the non-absorbed form of
+    the JAX package's ``prefill_suffix``: keys and values expanded per
+    head from [prefix ; suffix] latents, the shared RoPE key folded into
+    every head, plain attention (``ref._attend``, Q/K 192 wide over V
+    128 at DeepSeek-V3 width) on both devices.  Returns (out [B,S,D],
+    the suffix latent [B,S,dl+dr])."""
+    dl, dr = cfg.d_latent, cfg.d_rope
+    positions = q_offset + torch.arange(x.shape[1], device=x.device)[None, :]
+    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
+    full = torch.cat([prefix.to(latent.dtype), latent], dim=1)
+    c_kv, k_rope = full[..., :dl], full[..., dl:]
+    k = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
+    v = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k, k_rope[:, :, None, :].expand(k.shape[:3] + (dr,))],
+                  dim=-1)
+    sq, sk = q.shape[1], k.shape[1]
+    mask = ref.causal_mask(sq, sk, q_offset, x.device)
+    o = ref._attend(q, k, v, mask.expand(q.shape[0], sq, sk))
+    return out_proj(o, p["wo"]), latent
+
+
+def mla_attention_decode(p: Dict, x: torch.Tensor,
+                         latent_cache: torch.Tensor, lengths: torch.Tensor,
+                         cfg: ModelConfig, backend: Optional[str] = None):
+    """Absorbed-form decode of x [B,1,D] over the latent slot cache
+    [B,S,dl+dr]: the new token's latent is written at ``lengths - 1``
+    (in place), then the MLA decode kernel (``ops.mla_decode``) reads
+    each row's ``lengths`` tokens through the cache seen as pages
+    (``slot_pages``).  Returns (out [B,1,D], latent_cache)."""
+    (pages,), tables = slot_pages(latent_cache)
+
+    def attend(q_lat, q_rope, latent):
+        cache_write(latent_cache, latent, lengths - 1)
+        return ops.mla_decode(q_lat[:, 0], q_rope[:, 0], pages, tables,
+                              lengths, d_latent=cfg.d_latent,
+                              scale=mla_scale(cfg), backend=backend)[:, None]
+    out, _ = mla_absorbed(p, x, (lengths - 1)[:, None], cfg, attend)
+    return out, latent_cache

@@ -4,7 +4,8 @@
 seed, so a test that holds the port to the JAX package hands the JAX
 ``init_params`` tree over as numpy arrays (``np.asarray`` of each leaf)
 and converts it here, one copy per leaf.  The layouts are identical, so
-nothing is transposed.  A bf16 leaf arrives with numpy dtype name
+nothing is transposed: an MoE layer's ``router`` [D,E] and expert
+``w_gate`` / ``w_up`` [E,D,F] and ``w_down`` [E,F,D] cross as they are.  A bf16 leaf arrives with numpy dtype name
 ``bfloat16``; its bits are reinterpreted through ``uint16`` without
 importing the package that defines that dtype.  Tensors land on the
 CUDA card unless ``device`` names another (``device="cpu"``).

@@ -1,5 +1,5 @@
-"""Decoder-only model (GQA / MHA / MQA or MLA, dense FFN) over the paged
-KV pool or the dense slot cache.
+"""Decoder-only model (GQA / MHA / MQA or MLA attention, dense or MoE
+FFN) over the paged KV pool or the dense slot cache.
 
 The serving entry points of the JAX package's ``DecoderModel``, as
 plain functions of (params, state, ...).  Over the paged pool:
@@ -10,18 +10,23 @@ plain functions of (params, state, ...).  Over the paged pool:
 
 Over the dense slot layout (``init_decode_state``: "k"/"v"
 [L,B,S,Hkv,hd] plus "lengths" [B]; with ``kv_dtype="int8"`` int8 values
-and bf16 scales "k_scale"/"v_scale" [L,B,S,Hkv,1]), for the monolithic
-A/B paths of the engine:
+and bf16 scales "k_scale"/"v_scale" [L,B,S,Hkv,1]; MLA "latent"
+[L,B,S,dl+dr]), for the monolithic A/B paths of the engine:
 
     prefill(params, {"tokens"})                       -> (logits [B,V], state)
     prefill_suffix(params, {"tokens"}, prefix_kv, q_offset)
-                                                      -> (logits, (k, v) [L,B,S,Hkv,hd])
+                                                      -> (logits, (k, v) [L,B,S,Hkv,hd]
+                                                          or MLA (latent,))
     decode_step(params, state, tokens)                -> (logits [B,V], state)
 
 ``prefill`` runs the flash prefill kernel (``attention.causal_attention``
 from position 0); ``decode_step`` the paged decode kernels over the
 slot cache seen as pages (``attention.decode_attention``), int8 caches
-through the int8 kernel.
+through the int8 kernel.  An MLA model's ``prefill`` runs the MLA chunk
+prefill kernel over the whole prompt at offset 0, its ``decode_step``
+the MLA decode kernel over the latent slots seen as pages, and its
+``prefill_suffix`` plain attention in the non-absorbed form, as the
+JAX package does (``attention.mla_attention_*``).
 
 MLA models (DeepSeek-style latent attention) keep one pool
 ``latent_pages`` [L,N,page,dl+dr] instead of ``k_pages``/``v_pages`` and
@@ -29,20 +34,24 @@ return ``{"latent"}`` [L,1,C,dl+dr] from the chunk prefill entry points.
 They run in the absorbed form: ``W_uk`` is folded into the query, the
 MLA kernels attend in latent space and return a [.., Hq, dl] context,
 and ``W_uv`` plus the output projection follow, with the engine's
-softmax scale ``1/sqrt(hd + dr)``.  Their dense-layout entry points (the
-JAX package's ``mla_attention_prefill`` / ``mla_attention_decode``) are
-not ported and raise.
+softmax scale ``1/sqrt(hd + dr)``.
+
+With ``n_experts > 0`` every entry point's FFN is the MoE FFN
+(``models/moe.py``), whose capacity-bounded routing makes one token's
+output depend on the other tokens of its batch; the engine feeds
+padding and inactive rows token 0, as the JAX engine does.
 
 Params keep the JAX package's layer-stacked layout (``layers/attn/wq``
 [L,D,Hq,hd], ``wo`` [L,Hq,hd,D], ...), so a JAX ``init_params`` tree
 converts leaf for leaf (``models/convert.py``); the per-layer
 ``lax.scan`` is a Python loop.  Attention runs in the kernels
-(``kernels/ops.py``); the projections, FFN and logits are
-``torch.matmul``, as the JAX package left them to XLA.
+(``kernels/ops.py``); the projections, FFN (the MoE experts too) and
+logits are ``torch.matmul`` / ``torch.bmm``, as the JAX package left
+them to XLA.
 
 The decode steps write the new token's KV into the pool or the slot
 cache IN PLACE instead of returning new arrays: the returned state
-holds the same cache tensors.  Other families (MoE, hybrid, RWKV, VLM,
+holds the same cache tensors.  Other families (hybrid, RWKV, VLM,
 enc-dec) are not ported yet: ``build_model`` raises.
 """
 from __future__ import annotations
@@ -52,9 +61,10 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.config import FAMILY_DECODER, MLA, ModelConfig
+from repro_torch.config import FAMILY_DECODER, FAMILY_MOE, MLA, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.common import (PSpec, materialize, resolve_device,
                                        rms_norm, stack_specs, swiglu)
 
@@ -93,15 +103,16 @@ class DecoderModel:
         self.cfg = cfg
         self.kv_dtype = kv_dtype      # the dense slot cache's values
         self.mla = cfg.attention_variant == MLA
-        # the engine's absorbed-MLA softmax scale (matches dense MLA)
-        self.mla_scale = 1.0 / math.sqrt(cfg.hd + cfg.d_rope)
+        self.mla_scale = attn.mla_scale(cfg)
         self.specs = self.param_specs()
 
     # -- params -------------------------------------------------------------
     def _layer_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         a = attn.mla_pspecs(cfg) if self.mla else attn.attn_pspecs(cfg)
-        return {"attn": a, "ffn": _dense_ffn_pspecs(cfg),
+        ffn = (moe.moe_pspecs(cfg) if cfg.n_experts > 0
+               else _dense_ffn_pspecs(cfg))
+        return {"attn": a, "ffn": ffn,
                 "ln1": _ln_spec(cfg.d_model), "ln2": _ln_spec(cfg.d_model)}
 
     def param_specs(self) -> Params:
@@ -124,25 +135,25 @@ class DecoderModel:
         gen = torch.Generator(device=device).manual_seed(seed)
         return materialize(self.specs, gen, dtype=dtype, device=device)
 
-    def _dense_only(self, what: str) -> None:
-        if self.mla:
-            raise NotImplementedError(
-                f"{self.cfg.name}: {what} of MLA models (the JAX package's "
-                f"mla_attention_prefill / mla_attention_decode) is not "
-                f"ported; MLA serves from the paged pool with chunked "
-                f"prefill")
-
     # -- the dense slot layout ----------------------------------------------
     def decode_state_specs(self, batch: int, max_len: int) -> Dict[str, PSpec]:
-        self._dense_only("the dense slot layout")
+        """The JAX package's: an MLA model keeps one bf16 latent slot
+        cache whatever ``kv_dtype`` says."""
         cfg = self.cfg
         L, hkv, hd = cfg.n_layers, max(cfg.n_kv_heads, 1), cfg.hd
+        out = {"lengths": PSpec((batch,), ("batch",), init="zeros",
+                                dtype="int32")}
+        if self.mla:
+            out["latent"] = PSpec((L, batch, max_len,
+                                   cfg.d_latent + cfg.d_rope),
+                                  ("layers", "batch", "kv_seq", None),
+                                  init="zeros")
+            return out
         axes = ("layers", "batch", "kv_seq", None, None)
         kv = PSpec((L, batch, max_len, hkv, hd), axes, init="zeros",
                    dtype="int8" if self.kv_dtype == "int8" else None)
-        out = {"lengths": PSpec((batch,), ("batch",), init="zeros",
-                                dtype="int32"),
-               "k": kv, "v": kv}
+        out["k"] = kv
+        out["v"] = kv
         if self.kv_dtype == "int8":
             sc = PSpec((L, batch, max_len, hkv, 1), axes, init="zeros")
             out["k_scale"] = sc
@@ -175,32 +186,32 @@ class DecoderModel:
         return attn.out_proj(o, lp["attn"]["wo"])
 
     def _ffn_residual(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+        """x + FFN(ln2(x)): the SwiGLU FFN, or the MoE FFN (its aux loss
+        is dropped, as the JAX serving paths drop it)."""
         h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
         f = lp["ffn"]
+        if self.cfg.n_experts > 0:
+            return x + moe.moe_ffn(f, h, self.cfg)[0]
         return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
-
-    def _mla_attention(self, lp: Params, h: torch.Tensor,
-                       positions: torch.Tensor, attend):
-        """One absorbed-MLA attention sublayer: project, fold W_uk into
-        the query, ``attend(q_lat, q_rope, latent) -> ctx`` runs the
-        kernel in latent space, then W_uv and the output projection.
-        Returns (out [B,S,D], latent [B,S,dl+dr])."""
-        a = lp["attn"]
-        q_nope, q_rope, latent = attn.mla_project(a, h, positions, self.cfg)
-        q_lat = torch.einsum("...hk,lhk->...hl", q_nope,
-                             a["w_uk"]).contiguous()
-        ctx = attend(q_lat, q_rope.contiguous(), latent)
-        out = torch.einsum("...hl,lhk->...hk", ctx, a["w_uv"])
-        return attn.out_proj(out, a["wo"]), latent
 
     # -- monolithic prefill and dense decode -----------------------------------
     def _self_block_full(self, lp, x, positions, backend=None, prefix=None,
                          q_offset: int = 0):
         """One layer over a whole prompt (or a suffix at ``q_offset``
-        after the cached ``prefix`` (k, v) [B,P,Hkv,hd]); returns (x, k,
-        v) with the layer's own K/V."""
+        after the cached ``prefix`` (k, v) [B,P,Hkv,hd], MLA (latent,));
+        returns (x, per-layer cache): the layer's own (k, v) or MLA
+        (latent,)."""
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if self.mla:
+            if prefix is None:
+                o, latent = attn.mla_attention_prefill(lp["attn"], h, cfg,
+                                                       backend=backend)
+            else:
+                o, latent = attn.mla_attention_suffix(lp["attn"], h,
+                                                      prefix[0], q_offset,
+                                                      cfg)
+            return self._ffn_residual(lp, x + o), (latent,)
         q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg)
         kf, vf = k, v
         if prefix is not None:
@@ -209,60 +220,62 @@ class DecoderModel:
         o = attn.causal_attention(q, kf, vf, q_offset=q_offset,
                                   backend=backend)
         x = x + self._attn_out(lp, o)
-        return self._ffn_residual(lp, x), k, v
+        return self._ffn_residual(lp, x), (k, v)
 
     def _forward_layers(self, params, tokens, positions, backend=None,
                         prefix_kv=None, q_offset: int = 0):
-        """Every layer, then the final norm; returns (x, k, v) with the
-        K/V stacked [L,B,S,Hkv,hd]."""
+        """Every layer, then the final norm; returns (x, cache) with the
+        per-layer caches stacked: (k, v) [L,B,S,Hkv,hd] or MLA (latent,)
+        [L,B,S,dl+dr]."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        ks, vs = [], []
+        per_layer = []
         for i in range(cfg.n_layers):
             prefix = (None if prefix_kv is None
-                      else (prefix_kv[0][i], prefix_kv[1][i]))
-            x, k, v = self._self_block_full(layer_params(params, i), x,
-                                            positions, backend, prefix,
-                                            q_offset)
-            ks.append(k)
-            vs.append(v)
+                      else tuple(c[i] for c in prefix_kv))
+            x, kv = self._self_block_full(layer_params(params, i), x,
+                                          positions, backend, prefix,
+                                          q_offset)
+            per_layer.append(kv)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-        return x, torch.stack(ks), torch.stack(vs)
+        return x, tuple(torch.stack(c) for c in zip(*per_layer))
 
     def prefill(self, params, batch, backend=None):
         """Monolithic prefill of ``batch["tokens"]`` [B,S] from position
-        0 through the flash prefill kernel.  Returns (logits of the last
-        position [B,V], {"k"/"v" [L,B,S,Hkv,hd], "lengths" [B] = S})."""
-        self._dense_only("the monolithic prefill")
+        0 through the flash prefill kernel (MLA: the MLA chunk prefill
+        kernel at offset 0).  Returns (logits of the last position [B,V],
+        {"k"/"v" [L,B,S,Hkv,hd] or "latent" [L,B,S,dl+dr], "lengths" [B]
+        = S})."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :]
-        x, k, v = self._forward_layers(params, tokens, positions, backend)
+        x, cache = self._forward_layers(params, tokens, positions, backend)
         lengths = torch.full((b,), s, dtype=torch.int32,
                              device=tokens.device)
+        keys = ("latent",) if self.mla else ("k", "v")
         return self._logits(params, x[:, -1]), {"lengths": lengths,
-                                                "k": k, "v": v}
+                                                **dict(zip(keys, cache))}
 
     def prefill_suffix(self, params, batch, prefix_kv, q_offset: int,
                        backend=None):
         """Prefix-cache-aware prefill: the suffix ``batch["tokens"]``
         [B,S] at positions q_offset + i attends [cached prefix ; its own
-        causal keys].  ``prefix_kv`` = (k, v) [L,B,q_offset,Hkv,hd].
-        Returns (logits [B,V], (k, v) of the suffix [L,B,S,Hkv,hd])."""
-        self._dense_only("the monolithic prefill")
+        causal keys].  ``prefix_kv`` = (k, v) [L,B,q_offset,Hkv,hd] (MLA:
+        (latent,) [L,B,q_offset,dl+dr]).  Returns (logits [B,V], the
+        suffix's cache in the same form)."""
         tokens = batch["tokens"]
         positions = q_offset + torch.arange(tokens.shape[1],
                                             device=tokens.device)[None, :]
-        x, k, v = self._forward_layers(params, tokens, positions, backend,
-                                       prefix_kv, q_offset)
-        return self._logits(params, x[:, -1]), (k, v)
+        x, cache = self._forward_layers(params, tokens, positions, backend,
+                                        prefix_kv, q_offset)
+        return self._logits(params, x[:, -1]), cache
 
     def decode_step(self, params, state, tokens, backend=None):
         """One batched decode step over the dense slot cache: each row's
         new K/V (int8 values and scales for an int8 cache) is written at
         its length (in place), then the row attends its length + 1
-        tokens.  Returns (logits [B,V], state with lengths + 1)."""
-        self._dense_only("the dense decode step")
+        tokens (MLA: the new latent, through the MLA decode kernel).
+        Returns (logits [B,V], state with lengths + 1)."""
         cfg = self.cfg
         int8 = self.kv_dtype == "int8"
         x = self._embed(params, tokens)[:, None, :]
@@ -272,6 +285,12 @@ class DecoderModel:
         for i in range(cfg.n_layers):
             lp = layer_params(params, i)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if self.mla:
+                o, _ = attn.mla_attention_decode(lp["attn"], h,
+                                                 state["latent"][i], new_len,
+                                                 cfg, backend=backend)
+                x = self._ffn_residual(lp, x + o)
+                continue
             q, k_new, v_new = attn.project_qkv(lp["attn"], h, positions, cfg)
             k_c, v_c = state["k"][i], state["v"][i]
             scales = (state["k_scale"][i], state["v_scale"][i]) if int8 \
@@ -322,7 +341,8 @@ class DecoderModel:
                         q_lat[:, 0], q_rope[:, 0], latp, bt, new_len,
                         d_latent=cfg.d_latent, scale=self.mla_scale,
                         backend=backend)[:, None]
-                o, _ = self._mla_attention(lp, h, positions, attend)
+                o, _ = attn.mla_absorbed(lp["attn"], h, positions, cfg,
+                                         attend)
             else:
                 kp, vp = state["k_pages"][i], state["v_pages"][i]
                 q, k_new, v_new = attn.project_qkv(lp["attn"], h, positions,
@@ -350,8 +370,8 @@ class DecoderModel:
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             if self.mla:
                 latp = state["latent_pages"][i]
-                o, latent = self._mla_attention(
-                    lp, h, positions,
+                o, latent = attn.mla_absorbed(
+                    lp["attn"], h, positions, cfg,
                     lambda ql, qr, lat, latp=latp: mla(ql, qr, lat, latp))
                 per_layer.append((latent,))
             else:
@@ -408,12 +428,11 @@ class DecoderModel:
 
 
 def build_model(cfg: ModelConfig, kv_dtype: str = "bfloat16") -> DecoderModel:
-    """The dense decoder (GQA/MHA/MQA or MLA attention) with a bf16 or
-    int8 dense slot cache; other families, MoE included, are not
-    ported."""
-    if cfg.family != FAMILY_DECODER or cfg.n_experts > 0:
+    """The decoder-only model (GQA/MHA/MQA or MLA attention, dense or MoE
+    FFN) with a bf16 or int8 dense slot cache; the hybrid, RWKV, enc-dec
+    and VLM families are not ported."""
+    if cfg.family not in (FAMILY_DECODER, FAMILY_MOE):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} / variant "
-            f"{cfg.attention_variant!r} is not ported to PyTorch yet "
-            f"(dense GQA/MHA/MQA/MLA decoders only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported to PyTorch "
+            f"yet (decoder-only GQA/MHA/MQA/MLA models, dense or MoE)")
     return DecoderModel(cfg, kv_dtype=kv_dtype)

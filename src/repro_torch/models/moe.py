@@ -1,0 +1,133 @@
+"""Mixture-of-Experts FFN with top-k routing (granite-moe archs).
+
+The port of the JAX package's ``models/moe.py``: GShard-style
+capacity-bounded dispatch, decision for decision.  Tokens are cut into
+``_n_groups`` groups of about ``GROUP`` tokens; each group routes on its
+own.  The router product is rounded to the activation dtype, then a
+float32 softmax; padded layout experts (``internal_pad_experts``) get
+``-1e9``; the top-k probabilities are renormalised.  The k slots take
+capacity SEQUENTIALLY: every token's slot-0 choice is placed (in token
+order) before any token's slot-1 choice, so a token's output depends on
+every other token of its group, padding and inactive batch rows
+included.  An assignment whose position in its expert reaches
+``capacity`` is dropped.
+
+Where the JAX package builds dense one-hot ``[G,t,E,C]`` dispatch and
+combine tensors and contracts them, this computes the same kept
+(token, expert, slot) set with integer positions, scatters the kept
+tokens into an ``[E, G*C, D]`` expert batch, runs the experts as three
+batched products (``torch.bmm``: every expert every call, as the GShard
+einsums do) and gathers each token's kept outputs back, weighted by its
+renormalised probability rounded to the activation dtype and summed in
+float32 (the products of the combine einsum, rounded once).  Top-k ties
+break to the lower expert index, as ``jax.lax.top_k`` does: a stable
+descending sort, since ``torch.topk`` does not promise an order.
+Nothing here reads a device value on the host (no boolean-mask
+indexing, no ``one_hot`` bounds check), so a decode step queues its MoE
+layers without waiting for the card.
+
+No Pallas kernel computes the MoE FFN in the JAX package (XLA runs its
+einsums), so the products stay ``torch.bmm`` here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.common import PSpec
+
+GROUP = 256          # tokens per dispatch group
+
+
+def moe_pspecs(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d, e, f = cfg.d_model, cfg.layout_n_experts, cfg.moe_ff
+    return {
+        "router": PSpec((d, e), ("embed", None)),
+        "w_gate": PSpec((e, d, f), ("experts", "embed", "mlp")),
+        "w_up": PSpec((e, d, f), ("experts", "embed", "mlp")),
+        "w_down": PSpec((e, f, d), ("experts", "mlp", "embed"),
+                        scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1))),
+    }
+
+
+def _n_groups(t: int, dp: int = 1) -> int:
+    """Group count: a multiple of the dp degree (so groups shard evenly)
+    with ~GROUP tokens per group."""
+    if t % dp != 0:
+        dp = 1
+    per_shard = t // dp
+    g = dp * max(1, per_shard // GROUP)
+    while t % g != 0:
+        g -= 1
+    return max(1, g)
+
+
+def capacity(group: int, cfg: ModelConfig) -> int:
+    """Assignments one expert takes from one group."""
+    return max(4, int(math.ceil(group * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+def route(p: Dict, xg: torch.Tensor, cfg: ModelConfig):
+    """xg [G,t,D] -> (probs [G,t,E] float32, top_p [G,t,k] renormalised,
+    top_i [G,t,k], pos [G,t,k] each assignment's position in its
+    expert's capacity, keep [G,t,k] bool)."""
+    ng, group, _ = xg.shape
+    e, k = cfg.layout_n_experts, cfg.top_k
+    cap = capacity(group, cfg)
+    logits = torch.matmul(xg, p["router"]).float()
+    if e != cfg.n_experts:
+        # padded experts (expert-parallel layout): never routable
+        logits[..., cfg.n_experts:] += -1e9
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[..., :k], top_i[..., :k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    # the JAX k-loop's positions, all slots at once: slot j of a token
+    # lands at (kept assignments of slots < j in its expert, which is
+    # min(capacity, their total)) + (earlier tokens choosing the expert
+    # in slot j)
+    oh = (top_i[..., None] == torch.arange(e, device=xg.device)).long()
+    n = oh.sum(dim=1)                                 # [G,k,E]
+    before = (torch.cumsum(n, dim=1) - n).clamp_max(cap)
+    at = before[:, None] + torch.cumsum(oh, dim=1) - oh   # [G,t,k,E]
+    pos = at.gather(-1, top_i[..., None])[..., 0]
+    return probs, top_p, top_i, pos, pos < cap
+
+
+def moe_ffn(p: Dict, x: torch.Tensor,
+            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,D] -> (out [B,S,D], aux loss)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.layout_n_experts, cfg.top_k
+    ng = _n_groups(t)
+    group = t // ng
+    cap = capacity(group, cfg)
+    xg = x.reshape(ng, group, d)
+    probs, top_p, top_i, pos, keep = route(p, xg, cfg)
+
+    # kept assignment (g, t, j) -> row e*G*C + g*C + pos of the expert
+    # batch; dropped ones write a spare last row
+    g_idx = torch.arange(ng, device=x.device)[:, None, None]
+    rows = (top_i * ng + g_idx) * cap + pos.clamp_max(cap - 1)
+    n = e * ng * cap
+    xin = x.new_zeros((n + 1, d))
+    xin.index_copy_(0, torch.where(keep, rows, n).reshape(-1),
+                    xg[:, :, None, :].expand(ng, group, k, d).reshape(-1, d))
+    xin = xin[:n].view(e, ng * cap, d)
+    h = F.silu(torch.bmm(xin, p["w_gate"]).float()).to(x.dtype)
+    h = h * torch.bmm(xin, p["w_up"])
+    y = torch.bmm(h, p["w_down"]).view(n, d)
+    w = (top_p * keep).to(x.dtype).float()            # [G,t,k]
+    out = (w[..., None] * y[rows].float()).sum(dim=2).to(x.dtype)
+    # load-balance auxiliary loss (Switch eq. 4)
+    frac_tokens = (top_i[..., None] == torch.arange(e, device=x.device)
+                   ).float().sum(dim=2).mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = e * torch.sum(frac_tokens * frac_probs) / k
+    return out.reshape(b, s, d), aux

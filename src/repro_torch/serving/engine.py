@@ -42,8 +42,8 @@ paths are ported too:
   * ``fused_step=False`` decodes, then samples each request on its own
     (``sampler.sample``, one device->host copy per request).
 
-Segment reuse needs chunked prefill.  MLA models serve only the paged,
-chunked path (their dense-layout model entry points are not ported).
+Segment reuse needs chunked prefill.  MLA and MoE models serve every
+path (MLA's dense slots hold its latent).
 
 The hooks of the cluster and the front-end are the JAX engine's:
 ``bind_fleet_store`` binds tier 4 to a fleet-shared store, which
@@ -132,12 +132,6 @@ class ServingEngine:
         self.chunked = engine_cfg.chunked_prefill and self.paged
         self.seg_enabled = engine_cfg.segment_reuse and self.chunked
         self.fused = engine_cfg.fused_step
-        if self.model.mla and not self.chunked:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA serving with paged=False or "
-                f"chunked_prefill=False is not ported to PyTorch (the JAX "
-                f"package's mla_attention_prefill / mla_attention_decode); "
-                f"MLA serves from the paged pool with chunked prefill")
         self.params = params if params is not None else \
             self.model.init_params(engine_cfg.seed, device=self.device)
         self.scheduler = Scheduler(cfg, SchedulerConfig(
@@ -382,11 +376,12 @@ class ServingEngine:
                                            backend=self.kernel_backend)
             self.kv.write_prefill(slot, state1, padded_len)
         else:
-            _, (k, v) = self.model.prefill_suffix(
+            _, cache = self.model.prefill_suffix(
                 self.params, batch, self.kv.prefix_kv(slot, prefix_len),
                 prefix_len, backend=self.kernel_backend)
-            self.kv.write_range(slot, {"k": k, "v": v}, prefix_len,
-                                padded_len)
+            self.kv.write_range(
+                slot, {src: c for (_, src), c in zip(self.kv.kinds, cache)},
+                prefix_len, padded_len)
         self.monolithic_prefills += 1
         # the true length: pad positions lie past it, masked by length
         self.kv.set_length(slot, len(effective))

@@ -17,7 +17,8 @@ write.
 
 ``SlotKVCache``: the model's contiguous dense state
 (``DecoderModel.init_decode_state``: [L, n_slots, max_len, Hkv, hd] per
-K and V plus per-slot lengths), one row per decode slot.
+K and V, or for MLA one latent cache [L, n_slots, max_len, dl+dr], plus
+per-slot lengths), one row per decode slot.
 
 Both speak the same engine-facing API (``_KVCacheBase``): acquire /
 release / free_slots / set_length, write_prefill / write_range /
@@ -141,7 +142,9 @@ class SlotKVCache(_KVCacheBase):
         self.max_len = max_len
         self.state = model.init_decode_state(n_slots, max_len,
                                              device=self.device)
-        self.kinds = (("k", "k"), ("v", "v"))
+        # (state key, prefill-state key) pairs, in payload order
+        self.kinds = ((("latent", "latent"),) if cfg.attention_variant == MLA
+                      else (("k", "k"), ("v", "v")))
         self.slots = [SlotInfo() for _ in range(n_slots)]
 
     def release(self, slot: int) -> None:
@@ -166,14 +169,15 @@ class SlotKVCache(_KVCacheBase):
 
     def extract_block(self, slot: int, start: int,
                       n_tokens: int) -> np.ndarray:
-        """Slot KV -> block payload [2, L, n_tokens, Hkv, hd], numpy."""
+        """Slot KV -> block payload [2, L, n_tokens, Hkv, hd] (MLA [1, L,
+        n_tokens, dl+dr]), numpy."""
         return payload_from_tensor(torch.stack(
             [self.state[key][:, slot, start:start + n_tokens]
              for key, _ in self.kinds]))
 
     def prefix_kv(self, slot: int, length: int):
-        """The cached prefix (k, v) [L, 1, length, Hkv, hd] for the
-        suffix prefill."""
+        """The cached prefix (k, v) [L, 1, length, Hkv, hd] (MLA
+        (latent,) [L, 1, length, dl+dr]) for the suffix prefill."""
         return tuple(self.state[key][:, slot:slot + 1, :length]
                      for key, _ in self.kinds)
 

@@ -13,7 +13,9 @@ the JAX package on the same numpy inputs and the same params (the JAX
   ``fused_step=False`` — generate the JAX engine's greedy tokens on the
   same bf16 params (the JAX dense cache takes only bf16 K/V) and the
   port's own default path's tokens, with the same prefill / prefix-hit
-  counters; a dense-layout preemption round-trips its payload;
+  counters; a dense-layout preemption round-trips its payload; reduced
+  DeepSeek-V3 (MLA) on the same three paths, on scaled weights;
+* plain attention with Q/K wider than V (the MLA suffix);
 * the port's device rule: with no card, entry points raise unless given
   ``device="cpu"``.
 """
@@ -29,6 +31,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.config import reduce_config  # noqa: E402
 from repro.configs import get_config  # noqa: E402
+from repro.configs.paper_models import \
+    DEEPSEEK_V3 as J_DEEPSEEK_V3  # noqa: E402
 from repro.core.tiers import PAPER_TIER_SPECS as J_TIERS  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
@@ -51,6 +55,8 @@ from repro_torch.serving import engine as t_engine  # noqa: E402
 from repro_torch.serving.kvcache import (PagedKVCache,  # noqa: E402
                                         SlotKVCache)
 from repro_torch.serving import sampler  # noqa: E402
+
+import test_torch_moe as moe_tests  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # the JAX engine prices block recompute at the TPU v5e bf16 peak
@@ -86,6 +92,19 @@ def test_causal_attention_matches_jax(sq, sk, q_offset):
     out = attn.causal_attention(_t(q), _t(k), _t(v), q_offset=q_offset)
     _close(out, jattn.causal_attention(jnp.asarray(q), jnp.asarray(k),
                                        jnp.asarray(v), q_offset=q_offset))
+
+
+def test_causal_attention_unequal_widths_matches_jax():
+    """Plain attention after a cached prefix with Q/K wider than V (the
+    MLA suffix: 16 + 8 over 16 here, 192 over 128 at DeepSeek-V3
+    width): the output takes V's width, the scale Q's."""
+    rng = np.random.default_rng(9)
+    q, k, v = (_rand(rng, (2, 12, 4, 24)), _rand(rng, (2, 30, 4, 24)),
+               _rand(rng, (2, 30, 4, 16)))
+    out = attn.causal_attention(_t(q), _t(k), _t(v), q_offset=18)
+    assert out.shape == (2, 12, 4, 16)
+    _close(out, jattn.causal_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), q_offset=18))
 
 
 def test_cache_write_matches_jax():
@@ -255,21 +274,48 @@ def test_decode_step_matches_jax(models, kv_dtype):
 
 
 def test_mla_dense_paths_raise():
-    """MLA's dense layout and monolithic prefill are not ported: the
-    model entry points and the engine flags that need them raise."""
+    """MLA's dense layout and monolithic prefill are ported (they raised
+    before): the model gives a latent slot state and a prefill, and the
+    engine flags that need them select their paths."""
     cfg = t_reduce(T_DEEPSEEK_V3)
     m = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        m.init_decode_state(2, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        m.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    for flag in ("paged", "chunked_prefill"):
-        with pytest.raises(NotImplementedError, match="MLA"):
-            TEngine(cfg, TConfig(**{flag: False}), device="cpu")
-    eng = TEngine(cfg, TConfig(fused_step=False, max_len=128,
-                               kv_budget_bytes=4e6), device="cpu")
-    assert eng.paged and eng.chunked and not eng.fused
-    eng.shutdown()
+    state = m.init_decode_state(2, 32, device="cpu")
+    assert set(state) == {"latent", "lengths"}
+    assert state["latent"].shape == (cfg.n_layers, 2, 32,
+                                      cfg.d_latent + cfg.d_rope)
+    params = m.init_params(0, device="cpu", dtype=torch.float32)
+    logits, st = m.prefill(params, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.int32)})
+    assert logits.shape == (1, cfg.vocab_size)
+    assert st["latent"].shape == (cfg.n_layers, 1, 4,
+                                  cfg.d_latent + cfg.d_rope)
+    for flags, paged, chunked in ((dict(paged=False), False, False),
+                                  (dict(chunked_prefill=False), True, False),
+                                  (dict(fused_step=False), True, True)):
+        eng = TEngine(cfg, TConfig(max_len=128, kv_budget_bytes=4e6,
+                                   **flags), device="cpu")
+        assert (eng.paged, eng.chunked) == (paged, chunked)
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("flag", ["dense", "monolithic", "unfused"])
+def test_mla_ab_path_matches_jax_engine(monkeypatch, flag):
+    """Reduced DeepSeek-V3 on each A/B path: greedy tokens and counters
+    equal the JAX engine's (``test_torch_moe.assert_engines_agree``: on
+    layer weights scaled x8, bf16 on the dense slots, where the two may
+    part only at a near tie)."""
+    jcfg = dataclasses.replace(reduce_config(J_DEEPSEEK_V3),
+                               kv_block_tokens=16)
+    tcfg = dataclasses.replace(t_reduce(T_DEEPSEEK_V3), kv_block_tokens=16)
+    waves = moe_tests.engine_waves()
+    jax_run, port_run = moe_tests.serve_pair(
+        monkeypatch, jcfg, tcfg, moe_tests.FLAGS[flag], waves,
+        **moe_tests.ENGINE_KW)
+    moe_tests.assert_engines_agree(waves, jax_run, port_run,
+                                   bf16=flag == "dense")
+    st = port_run[1]
+    assert st["cow_share_hits"] + st["inject_hits"] > 0
+    assert (st["monolithic_prefills"] > 0) == (flag != "unfused")
 
 
 def test_sample_matches_jax_on_deterministic_rows():

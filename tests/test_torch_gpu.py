@@ -1,7 +1,10 @@
 """The port's CUDA kernels (GQA paged decode / prefill / segment
 prefill, their absorbed-MLA counterparts, causal flash prefill and int8
 paged decode) against their plain PyTorch versions on the card, and the
-bf16 decode kernels' split walks against themselves (bit for bit).
+bf16 decode kernels' split walks against themselves (bit for bit); the
+MLA kernels on the dense layout's routes (a whole prompt at offset 0,
+latent slots seen as pages); the MoE FFN's routing on the card against
+the CPU's; engines on the card against the CPU engine.
 Needs a CUDA device and the CUDA toolkit (the kernels build at first
 use); elsewhere every test skips.  Run on the card with
 
@@ -750,6 +753,133 @@ def test_ab_engine_on_card_matches_cpu_engine(cuda, flags):
         eng.shutdown()
         outs[dev] = [r.generated for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("granite-moe-3b-a800m", {}),
+    ("granite-moe-3b-a800m", dict(paged=False)),
+    ("deepseek-v3", dict(paged=False)),
+    ("deepseek-v3", dict(chunked_prefill=False, fused_step=False))])
+def test_moe_and_mla_dense_engine_on_card_matches_cpu_engine(cuda, arch,
+                                                             flags):
+    """Reduced granite-moe (MoE routing on the card) and reduced
+    DeepSeek-V3 on the dense slots and monolithic prefill (the MLA
+    kernels over slot pages and at offset 0) generate the CPU engine's
+    greedy tokens, float32 weights."""
+    import dataclasses
+
+    from repro_torch.config import reduce_config
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_models import DEEPSEEK_V3
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import EngineConfig, SamplingParams, \
+        ServingEngine
+    base = DEEPSEEK_V3 if arch == "deepseek-v3" else get_config(arch)
+    cfg = dataclasses.replace(reduce_config(base), kv_block_tokens=16)
+    params = build_model(cfg).init_params(0, device="cpu",
+                                          dtype=torch.float32)
+    rng = np.random.default_rng(10)
+    prefix = [int(t) for t in rng.integers(0, 250, size=32)]
+    prompts = [prefix + [int(t) for t in rng.integers(0, 250, size=n)]
+               for n in (21, 13, 40)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, EngineConfig(max_len=128, page_tokens=16,
+                                              kv_budget_bytes=4e6, **flags),
+                            params=_to(params, dev), device=dev)
+        reqs = [eng.submit(prompts[0], params=SamplingParams(
+            max_new_tokens=5))]
+        eng.run()
+        reqs += [eng.submit(t, params=SamplingParams(max_new_tokens=5))
+                 for t in prompts[1:]]
+        eng.run()
+        eng.shutdown()
+        outs[dev] = [r.generated for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_mla_prefill_kernel_at_offset_0_whole_prompt(cuda):
+    """DeepSeek-V3 width, bf16: a whole ragged prompt of 416 tokens as
+    the chunk at offset 0 over a one-slot pool (the monolithic prefill's
+    call, ``attention.mla_attention_prefill``) against the plain
+    version; one launch."""
+    hq, dl, dr, s = 128, 512, 64, 416
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+    args = (rn(1, s, hq, dl), rn(1, s, hq, dr), rn(1, s, dl + dr),
+            torch.zeros((1, 1, dl + dr), dtype=torch.bfloat16,
+                        device="cuda"),
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+            torch.zeros((1,), dtype=torch.int32, device="cuda"))
+    scale = 1.0 / (128 + dr) ** 0.5
+    before = cuda.mla_paged_prefill.launches
+    out = cuda.mla_prefill(*args, d_latent=dl, scale=scale)
+    torch.cuda.synchronize()
+    assert cuda.mla_paged_prefill.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    plain = cuda.mla_prefill(*args, d_latent=dl, scale=scale,
+                             backend="torch")
+    assert _err(out, plain) <= BF16_TOL
+
+
+def test_mla_decode_kernel_over_latent_slot_pages(cuda):
+    """DeepSeek-V3 width, bf16: 8 latent slots of 2048 tokens seen as
+    64-token pages (``attention.slot_pages``), ragged lengths, every
+    slot past a row's length 8x larger (what a one-token mask error
+    would read): the kernel equals the plain version."""
+    from repro_torch.models import attention as attn
+    b, s, hq, dl, dr = 8, 2048, 128, 512, 64
+    g = torch.Generator(device="cuda").manual_seed(14)
+    cache = torch.randn((b, s, dl + dr), generator=g, device="cuda")
+    lengths = torch.tensor([1, 31, 257, 700, 1024, 1500, 2047, 2048],
+                           dtype=torch.int32, device="cuda")
+    stale = torch.arange(s, device="cuda")[None] >= lengths.long()[:, None]
+    cache[stale] *= 8.0
+    cache = cache.bfloat16()
+    (pages,), tables = attn.slot_pages(cache)
+    assert pages.shape == (b * s // 64, 64, dl + dr)
+    args = (torch.randn((b, hq, dl), generator=g, device="cuda").bfloat16(),
+            torch.randn((b, hq, dr), generator=g, device="cuda").bfloat16(),
+            pages, tables, lengths)
+    scale = 1.0 / (128 + dr) ** 0.5
+    before = cuda.mla_paged_decode.launches
+    out = cuda.mla_decode(*args, d_latent=dl, scale=scale)
+    torch.cuda.synchronize()
+    assert cuda.mla_paged_decode.launches == before + 1
+    plain = cuda.mla_decode(*args, d_latent=dl, scale=scale, backend="torch")
+    assert _err(out, plain) <= BF16_TOL
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda):
+    """Reduced granite-moe width, float32: a router biased so that
+    capacity drops assignments; the routing on the card (top-k experts,
+    positions, kept set) equals the CPU's exactly and the outputs agree
+    within 1e-4."""
+    from repro_torch.config import reduce_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = reduce_config(get_config("granite-moe-3b-a800m"))
+    d, e, f = cfg.d_model, cfg.layout_n_experts, cfg.moe_ff
+    g = torch.Generator().manual_seed(15)
+    p = {"router": torch.randn((d, e), generator=g) * 0.3,
+         "w_gate": torch.randn((e, d, f), generator=g) * 0.1,
+         "w_up": torch.randn((e, d, f), generator=g) * 0.1,
+         "w_down": torch.randn((e, f, d), generator=g) * 0.1}
+    u = torch.full((d,), d ** -0.5)
+    p["router"] += torch.outer(u, torch.tensor([4.0, 3.0, 0.0, 0.0]))
+    x = torch.randn((4, 16, d), generator=g) * 0.2 + u
+    pc = {k: v.cuda() for k, v in p.items()}
+    routes = [moe.route(pp, xx.reshape(1, -1, d), cfg)[2:]
+              for pp, xx in ((p, x), (pc, x.cuda()))]
+    for cpu, card in zip(*routes):
+        assert torch.equal(cpu, card.cpu())
+    assert not bool(routes[0][2].all())           # some assignment dropped
+    out, aux = moe.moe_ffn(pc, x.cuda(), cfg)
+    ref, ref_aux = moe.moe_ffn(p, x, cfg)
+    assert _err(out.cpu(), ref) <= F32_TOL
+    assert abs(float(aux) - float(ref_aux)) <= F32_TOL
 
 
 def _to(tree, dev):

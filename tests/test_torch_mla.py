@@ -9,7 +9,13 @@ reduced DeepSeek-V3 (2 layers, D 64, 4 heads, dl 32, dr 8):
   against the JAX ``DecoderModel`` on the same converted float32 params;
 * the port's ``ServingEngine`` against the JAX engine: greedy tokens
   identical and equal chunk / CoW / segment counters;
-* the MLA tier payload [1, L, n, dl+dr], bf16 carried as uint16 bits.
+* the MLA tier payload [1, L, n, dl+dr], bf16 carried as uint16 bits;
+* the dense layout: ``attention.mla_attention_prefill`` (the chunk
+  prefill op at offset 0, absorbed) and ``mla_attention_decode`` (the
+  decode op over the latent slots seen as pages) against the JAX
+  package's, and the model's ``prefill`` / ``prefill_suffix`` /
+  ``decode_step`` against the JAX ``DecoderModel``, float32, 1e-4; the
+  latent slot cache's payloads.
 """
 import dataclasses
 
@@ -26,6 +32,7 @@ from repro.configs.paper_models import DEEPSEEK_V3  # noqa: E402
 from repro.core.tiers import PAPER_TIER_SPECS as J_TIERS  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
 from repro.serving import EngineConfig as JConfig  # noqa: E402
 from repro.serving import SamplingParams as JSampling  # noqa: E402
@@ -34,13 +41,15 @@ from repro_torch.config import reduce_config as t_reduce  # noqa: E402
 from repro_torch.configs.paper_models import \
     DEEPSEEK_V3 as T_DEEPSEEK_V3  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving import EngineConfig as TConfig  # noqa: E402
 from repro_torch.serving import SamplingParams as TSampling  # noqa: E402
 from repro_torch.serving import ServingEngine as TEngine  # noqa: E402
 from repro_torch.serving import engine as t_engine  # noqa: E402
-from repro_torch.serving.kvcache import PagedKVCache  # noqa: E402
+from repro_torch.serving.kvcache import (PagedKVCache,  # noqa: E402
+                                        SlotKVCache)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 DL, DR = 32, 8
@@ -287,11 +296,127 @@ def test_mla_prefill_chunk_seg_matches_jax(models):
 
 
 def test_build_model_takes_dense_mla_only():
+    """MLA with a dense FFN, and MLA with an MoE FFN (as the JAX
+    ``DecoderModel`` builds it: ``n_experts > 0`` picks the MoE specs)."""
     cfg = t_reduce(T_DEEPSEEK_V3)
     assert build_model(cfg).mla
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, n_experts=4, top_k=2,
+    m = build_model(dataclasses.replace(cfg, n_experts=4, top_k=2,
                                         expert_d_ff=32))
+    assert m.mla
+    assert m.specs["layers"]["ffn"]["w_gate"].shape == (cfg.n_layers, 4,
+                                                         cfg.d_model, 32)
+    jm = jax_build(dataclasses.replace(reduce_config(DEEPSEEK_V3),
+                                       n_experts=4, top_k=2, expert_d_ff=32))
+    assert jm.specs["layers"]["ffn"]["w_gate"].shape == \
+        m.specs["layers"]["ffn"]["w_gate"].shape
+
+
+# ---------------------------------------------------------------------------
+# the dense layout: monolithic prefill, suffix after a cached prefix and
+# decode over the latent slot cache
+# ---------------------------------------------------------------------------
+def _layer(tree, i=0):
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def test_mla_attention_prefill_matches_jax(models):
+    """The absorbed form through the MLA chunk prefill op at offset 0
+    against the JAX package's non-absorbed causal MLA, over two ragged
+    prompts of 37 tokens."""
+    jm, jp, tm, tp = models
+    cfg = tm.cfg
+    x = _rand(np.random.default_rng(12), (2, 37, cfg.d_model))
+    jo, jlat = jattn.mla_attention_prefill(_layer(jp["layers"]["attn"]),
+                                           jnp.asarray(x),
+                                           jnp.arange(37)[None], jm.cfg)
+    to, tlat = attn.mla_attention_prefill(_layer(tp["layers"]["attn"]),
+                                          _t(x), cfg)
+    _close(to, jo)
+    _close(tlat, jlat)
+
+
+def test_mla_attention_decode_matches_jax(models):
+    """Absorbed decode over the latent slot cache seen as pages (the
+    MLA decode op) against the JAX ``mla_attention_decode``: a fresh
+    row, a mid row and a row at the last slot; the new latent is
+    written in place."""
+    jm, jp, tm, tp = models
+    cfg = tm.cfg
+    rng = np.random.default_rng(13)
+    x = _rand(rng, (3, 1, cfg.d_model))
+    cache = _rand(rng, (3, 48, DL + DR))
+    lengths = np.asarray([1, 18, 48], np.int32)
+    jo, jc = jattn.mla_attention_decode(_layer(jp["layers"]["attn"], 1),
+                                        jnp.asarray(x), jnp.asarray(cache),
+                                        jnp.asarray(lengths), jm.cfg)
+    tc = _t(cache)
+    to, tc2 = attn.mla_attention_decode(_layer(tp["layers"]["attn"], 1),
+                                        _t(x), tc, _t(lengths), cfg)
+    assert tc2 is tc
+    _close(to, jo)
+    _close(tc, jc)
+
+
+def test_mla_dense_entry_points_match_jax(models):
+    """``prefill`` (logits and latents of two 40-token prompts),
+    ``prefill_suffix`` after a 24-token cached prefix (its plain
+    attention over Q/K wider than V) and one ``decode_step`` over the
+    prefill's latents, all against the JAX ``DecoderModel``."""
+    jm, jp, tm, tp = models
+    toks = np.random.default_rng(14).integers(0, 256, (2, 40)).astype(
+        np.int32)
+    jl, js = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
+    tl, ts = tm.prefill(tp, {"tokens": _t(toks)})
+    assert set(ts) == set(js) == {"latent", "lengths"}
+    _close(tl, jl)
+    _close(ts["latent"], js["latent"])
+    pre = 24
+    jl2, (jlat,) = jm.prefill_suffix(
+        jp, {"tokens": jnp.asarray(toks[:, pre:])},
+        (js["latent"][:, :, :pre],), pre)
+    tl2, (tlat,) = tm.prefill_suffix(tp, {"tokens": _t(toks[:, pre:])},
+                                     (ts["latent"][:, :, :pre],), pre)
+    _close(tl2, jl2)
+    _close(tl2, tl)
+    _close(tlat, jlat)
+    # decode the next token over a 48-slot cache holding the prompts
+    lat = np.zeros((tm.cfg.n_layers, 2, 48, DL + DR), np.float32)
+    lat[:, :, :40] = np.asarray(js["latent"])
+    state = {"latent": lat, "lengths": np.full((2,), 40, np.int32)}
+    nxt = np.asarray([5, 77], np.int32)
+    jl3, jnew = jm.decode_step(jp, {k: jnp.asarray(v)
+                                    for k, v in state.items()},
+                               jnp.asarray(nxt))
+    tstate = {k: _t(v) for k, v in state.items()}
+    tl3, tnew = tm.decode_step(tp, tstate, _t(nxt))
+    _close(tl3, jl3)
+    assert tnew["latent"] is tstate["latent"]
+    _close(tnew["latent"], jnew["latent"])
+    assert torch.equal(tnew["lengths"], torch.full((2,), 41,
+                                                   dtype=torch.int32))
+
+
+def test_mla_slot_cache_payloads():
+    """The dense latent slots hand out [1, L, n, dl+dr] payloads (bf16
+    as uint16 bits), the prefix for a suffix prefill is (latent,), and a
+    payload injects back unchanged."""
+    cfg = t_reduce(T_DEEPSEEK_V3)
+    kv = SlotKVCache(build_model(cfg), 2, 64, device="cpu")
+    assert set(kv.state) == {"latent", "lengths"}
+    rng = np.random.default_rng(15)
+    lat = torch.from_numpy(_rand(rng, (cfg.n_layers, 1, 40, DL + DR)))
+    kv.acquire(0, 40)
+    kv.write_prefill(0, {"latent": lat}, 40)
+    pl = kv.extract_block(0, 8, 24)
+    assert pl.shape == (1, cfg.n_layers, 24, DL + DR)
+    assert pl.dtype == np.uint16
+    (pre,) = kv.prefix_kv(0, 16)
+    assert pre.shape == (cfg.n_layers, 1, 16, DL + DR)
+    assert torch.equal(pre, lat[:, :, :16].to(torch.bfloat16))
+    kv.acquire(1, 0)
+    kv.inject_block(1, pl, 16)
+    assert np.array_equal(kv.extract_block(1, 16, 24), pl)
 
 
 # ---------------------------------------------------------------------------

@@ -163,6 +163,13 @@ def test_prefill_chunk_seg_matches_jax(models):
 
 
 def test_build_model_rejects_unported_families():
-    for name in ("granite-moe-1b-a400m", "rwkv6-1.6b", "zamba2-1.2b"):
+    """The hybrid, RWKV, enc-dec and VLM families are not ported; the
+    MoE decoders are (``tests/test_torch_moe.py``)."""
+    for name in ("rwkv6-1.6b", "zamba2-1.2b", "whisper-tiny",
+                 "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError):
             build_model(t_reduce(t_get(name)))
+    for name in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
+        m = build_model(t_get(name))
+        assert set(m.specs["layers"]["ffn"]) == {"router", "w_gate", "w_up",
+                                                 "w_down"}
