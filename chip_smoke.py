@@ -82,7 +82,12 @@ check raises and the script exits non-zero with no result line:
            pages and over the int8_decode path's 4 slots at its eighth
            step (``paged_decode_int8_path``, also timed with a float32
            query on the CUDA-core body, ``cuda_core_ms``), each against
-           its plain version and timed as above;
+           its plain version and timed as above; then flash prefill at
+           the cross-attention families' self layers (llama-3.2-vision:
+           32 / 8 heads, hd 128, S 512 and the ragged 100; whisper-tiny:
+           6 / 6 heads, hd 64, G 1, S 128) beside the same library call,
+           and the paged decode over the vlm_generate and encdec_generate
+           phases' slots at their middle step (``*_vlm``, ``*_whisper``);
   dense_serve  the serve traffic on EngineConfig(paged=False): the dense
            slot cache, monolithic prefill (flash prefill for a prompt
            with no prefix hit) and decode through the paged decode
@@ -96,6 +101,22 @@ check raises and the script exits non-zero with no result line:
            full-width model with the kernels, the plain versions and
            one-token mask-error versions (slots past each row's length
            hold 8x larger K/V);
+  vlm_generate  llama-3.2-vision-11b at full width and depth (40 self
+           layers, 8 gated cross blocks, seeded bf16 weights with every
+           cross gate at 0.5): four prompts (512 / 384 / 448 / 100
+           tokens), each with 1601 seeded patch embeddings, prefilled
+           alone (flash prefill) into one 4 x 1024 slot state, then 32
+           greedy decode steps (paged decode over the slots seen as
+           pages); the state's bytes must equal
+           ``sizing.decode_state_bytes`` and zeroing a row's patches must
+           move its logits;
+  vlm_parity  one 416-token prefill and one decode step of that model
+           with the kernels, the plain versions and one-token mask-error
+           versions (logits, K/V and the patches' keys and values);
+  encdec_generate, encdec_parity  the same two for whisper-tiny at full
+           width: eight decoder prompts (4 to 128 tokens) with 1500
+           seeded frame embeddings each, 448-token slots, 64 steps; a
+           100-token prefill and 8 rows in the parity phase;
   replay   the live-engine trace replay (``traces/serving_replay.py``)
            of the reduced llama3.2-1b at 32-token blocks and pages, four
            cells (lmsys and agentic whole-prefix, sharegpt and lmsys with
@@ -862,27 +883,72 @@ def int8_decode_cost(a):
     return nbytes, 4 * toks * Hq * hd
 
 
-def phase_dense_kernels(torch, ops, card):
+def flash_case(torch, gen, ops, name, S, Hq, Hkv, hd):
+    """Causal flash prefill of one bf16 prompt of S tokens, beside
+    F.scaled_dot_product_attention (causal, GQA) as the library
+    yardstick."""
     import torch.nn.functional as F
+    a = {"q": torch.randn((1, S, Hq, hd), generator=gen, device="cuda"),
+         "k": torch.randn((1, S, Hkv, hd), generator=gen, device="cuda"),
+         "v": torch.randn((1, S, Hkv, hd), generator=gen, device="cuda")}
+    a = {key: t.to(torch.bfloat16) for key, t in a.items()}
+    # the library's [B, H, S, hd] layout of the same values
+    qh, kh, vh = (a[key].transpose(1, 2).contiguous()
+                  for key in ("q", "k", "v"))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
+    return (name, ops.flash_causal, a, flash_cost(a), sdpa)
+
+
+def slot_decode_case(torch, gen, ops, attn, name, S, Hq, Hkv, hd, lengths):
+    """The paged decode kernel over bf16 slot caches [B, S, Hkv, hd] seen
+    as pages (``attention.slot_pages``), one row a length, as the dense
+    layout's ``decode_attention`` calls it."""
+    B = len(lengths)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    (kp, vp), tables = attn.slot_pages(k, v)
+    a = dict(q=torch.randn((B, Hq, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16),
+             k_pages=kp, v_pages=vp, block_tables=tables,
+             lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    # one block per (row, KV head) walks the row; nothing to combine
+    return (name, ops.paged_decode, a, decode_cost(a), None,
+            {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0})
+
+
+def cross_cases(torch, gen, ops, attn):
+    """Kernels 7 and 1 at the cross-attention families' self-attention
+    shapes: flash prefill at llama-3.2-vision's 32 q / 8 kv heads, hd 128
+    (its longest smoke prompt, 512, and the ragged 100) and at
+    whisper-tiny's 6 / 6 heads, hd 64, G 1 (its longest prompt, 128);
+    the paged decode over the ``vlm_generate`` phase's 4 slots of 1024
+    tokens and the ``encdec_generate`` phase's 8 slots of 448 at their
+    middle decode step."""
+    vlm, whisper = (32, 8, 128), (6, 6, 64)
+    return [
+        flash_case(torch, gen, ops, "flash_prefill_vlm", 512, *vlm),
+        flash_case(torch, gen, ops, "flash_prefill_vlm_ragged", 100, *vlm),
+        flash_case(torch, gen, ops, "flash_prefill_whisper", 128, *whisper),
+        slot_decode_case(torch, gen, ops, attn, "paged_decode_vlm",
+                         VLM_MAX_LEN, *vlm,
+                         [n + VLM_STEPS // 2 for n in VLM_PROMPTS]),
+        slot_decode_case(torch, gen, ops, attn, "paged_decode_whisper",
+                         ENCDEC_MAX_LEN, *whisper,
+                         [n + ENCDEC_STEPS // 2 for n in ENCDEC_PROMPTS]),
+    ]
+
+
+def phase_dense_kernels(torch, ops, card):
     from repro_torch.models import attention as attn
     gen = torch.Generator(device="cuda").manual_seed(5678)
-    Hq, Hkv, hd = 32, 8, 64
-    cases = []
     # S = 384: the serve traffic's first prompt padded to 32; 416 ends in
     # a ragged 32-row tile of the kernel's 64-row tiles
-    for name, S in (("flash_prefill", 384), ("flash_prefill_ragged", 416)):
-        a = {"q": torch.randn((1, S, Hq, hd), generator=gen, device="cuda"),
-             "k": torch.randn((1, S, Hkv, hd), generator=gen, device="cuda"),
-             "v": torch.randn((1, S, Hkv, hd), generator=gen, device="cuda")}
-        a = {key: t.to(torch.bfloat16) for key, t in a.items()}
-        # the library's [B, H, S, hd] layout of the same values
-        qh, kh, vh = (a[key].transpose(1, 2).contiguous()
-                      for key in ("q", "k", "v"))
-
-        def sdpa(qh=qh, kh=kh, vh=vh):
-            return F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
-        cases.append((name, ops.flash_causal, a, flash_cost(a), sdpa))
+    cases = [flash_case(torch, gen, ops, name, S, 32, 8, 64)
+             for name, S in (("flash_prefill", 384),
+                             ("flash_prefill_ragged", 416))]
     dec = make_int8_decode_inputs(torch, gen, attn)
     # the int8_decode path's own shape: its 4 slots at the eighth of its
     # 16 decode steps (prompts of 384 / 256 / 448 / 100 tokens, + 8)
@@ -895,6 +961,7 @@ def phase_dense_kernels(torch, ops, card):
                 * a["k_pages"].shape[2], "partial_bytes": 0}
         cases.append((name, ops.paged_decode_int8, a, int8_decode_cost(a),
                       None, plan))
+    cases += cross_cases(torch, gen, ops, attn)
     rows = check_and_time(torch, cases, card, "kernels")
     # for the record: the same call with a float32 query, which runs the
     # CUDA-core body
@@ -1509,6 +1576,214 @@ def phase_dense_parity(torch, params, cfg, card):
     with one_token_mask_errors(torch):
         runs["mutant"] = run("torch")
     parity_report(runs, PARITY_RTOL, card, "dense_parity")
+
+
+# ---------------------------------------------------------------------------
+# the cross-attention families: the VLM and the encoder-decoder
+# ---------------------------------------------------------------------------
+# llama-3.2-vision-11b at full width and depth: four prompts, each with
+# its image's 1601 patch embeddings, 32 greedy steps over 1024-token slots
+VLM_PROMPTS, VLM_MAX_LEN, VLM_STEPS = (512, 384, 448, 100), 1024, 32
+# the seeded init sets every cross gate to 0, and tanh(0) = 0 would
+# switch the cross blocks off
+VLM_GATE = 0.5
+# whisper-tiny at full width: eight decoder prompts, each with its 1500
+# audio frames, 64 greedy steps over Whisper's 448-token target length
+ENCDEC_PROMPTS = (4, 4, 16, 16, 64, 64, 128, 128)
+ENCDEC_MAX_LEN, ENCDEC_STEPS = 448, 64
+# the parity phases' prompts: 416 ends in a ragged 32-row tile of the
+# flash kernel's 64-row tiles, 100 in a ragged 36-row one
+VLM_PARITY_PROMPT, ENCDEC_PARITY_PROMPT = 416, 100
+
+
+def cross_params(torch, cfg):
+    """Seeded bf16 weights on the card; a VLM's cross gates at
+    VLM_GATE."""
+    from repro_torch.models.model import build_model
+    params = build_model(cfg).init_params(0, device="cuda")
+    if "cross" in params:
+        params["cross"]["gate"].fill_(VLM_GATE)
+    return params
+
+
+def cross_batch(torch, gen, cfg, n, batch=1):
+    """Seeded prompt tokens [batch, n] and the memory beside them:
+    patches [batch, n_patches, D] or frames [batch, enc_len, D], bf16
+    N(0, 1) (the frontends are stubs)."""
+    key = "patches" if cfg.n_patches else "frames"
+    mem = torch.randn((batch, cfg.n_patches or cfg.enc_len, cfg.d_model),
+                      generator=gen, device="cuda").to(torch.bfloat16)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, n),
+                                    generator=gen, device="cuda")
+            .to(torch.int32), key: mem}
+
+
+def phase_cross_generate(torch, kernel_fns, card, cfg, params, prompts,
+                         max_len, steps, phase):
+    """Greedy generation of a cross-attention model: each prompt is
+    prefilled alone with its memory (the flash prefill kernel in every
+    self layer) and its k / v / xk / xv copied into row b of
+    ``init_decode_state(len(prompts), max_len)``, then ``steps`` greedy
+    decode steps (the paged decode kernel over the slots seen as pages).
+    Every count is zeroed just before and read just after.  Checks:
+    finite logits, lengths prompt + steps, both kernels launched, the
+    state's bytes equal to ``sizing.decode_state_bytes`` exactly, and
+    the shortest row's first logits moved by zeroing its memory."""
+    from repro_torch.core import sizing
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batches = [cross_batch(torch, gen, cfg, n) for n in prompts]
+    key = "patches" if cfg.n_patches else "frames"
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the weights and whatever earlier phases still hold
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = model.init_decode_state(len(prompts), max_len, device="cuda")
+    first = []
+    for b, batch in enumerate(batches):
+        logits, st1 = model.prefill(params, batch)
+        n = batch["tokens"].shape[1]
+        for k in ("k", "v"):
+            state[k][:, b, :n] = st1[k][:, 0]
+        for k in ("xk", "xv"):
+            state[k][:, b] = st1[k][:, 0]
+        state["lengths"][b] = n
+        first.append(logits)
+    del st1
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = torch.cat(first)
+    finite = [bool(torch.isfinite(first).all())]
+    tok = first.argmax(dim=-1).to(torch.int32)
+    step_s = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        logits, state = model.decode_step(params, state, tok)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        finite.append(bool(torch.isfinite(logits).all()))
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(t.nbytes for k, t in state.items() if k != "lengths")
+    sizing_bytes = sizing.decode_state_bytes(cfg, max_len, len(prompts))
+    # the cross path is live: the shortest row with its memory zeroed
+    b = min(range(len(prompts)), key=prompts.__getitem__)
+    zeroed = dict(batches[b], **{key: torch.zeros_like(batches[b][key])})
+    moved = float((model.prefill(params, zeroed)[0] - first[b:b + 1])
+                  .float().abs().max())
+    lengths = state["lengths"].tolist()
+    want = [n + steps for n in prompts]
+    emit({"phase": phase, "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "memory": {key: cfg.n_patches or cfg.enc_len},
+          "params_gb": sum(t.nbytes for t in _leaves(params)) / 1e9,
+          "rows": len(prompts), "prompt_lens": list(prompts),
+          "max_len": max_len, "decode_steps": steps, "prefill_s": prefill_s,
+          "decode_step_ms_median": 1e3 * sorted(step_s)[steps // 2],
+          "decode_step_ms_mean": 1e3 * sum(step_s) / steps,
+          "decode_tok_per_s": len(prompts) * steps / sum(step_s),
+          "peak_mem_gb": peak / 1e9, "held_at_start_gb": held / 1e9,
+          "launches": launches, "state_bytes": state_bytes, "sizing_bytes": sizing_bytes,
+          "zeroed_memory_row": b, "zeroed_memory_logit_moved": moved})
+    if not all(finite):
+        raise AssertionError(f"{phase}: non-finite logits")
+    if lengths != want:
+        raise AssertionError(f"{phase}: lengths {lengths} != {want}")
+    for name in DENSE_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{phase} path")
+    if state_bytes != sizing_bytes:
+        raise AssertionError(f"{phase}: state {state_bytes} bytes, sizing "
+                             f"says {sizing_bytes}")
+    if not moved > 0:
+        raise AssertionError(f"{phase}: zeroing row {b}'s {key} left its "
+                             f"logits unchanged")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_cross_parity(torch, params, cfg, card, prompt, rows, max_len,
+                       phase):
+    """One monolithic prefill of ``prompt`` tokens with its memory and
+    one decode step over ``rows`` slots of ``max_len`` (random K/V and
+    memory keys and values, slots past each row's new token 8x larger)
+    with the kernels, with their plain versions, and with plain versions
+    that each get one mask wrong by one token, on the same weights.
+
+    The first self layer's prefill attention output is compared too
+    (``prefill_attention_layer0``): both runs give that layer the same
+    q, k and v, so its gap is the kernel's own rounding, while a
+    one-ahead mask error moves its early queries by O(1).  The seeded
+    weights' attention adds little to the residual stream (whisper's
+    sinusoids dominate it), so that mask error reaches the prompt's K/V
+    and last logits only diluted (on whisper at full width 0.25x the
+    limit), and the memory's keys and values (projections and plain
+    full attention) not at all: those are held to the limit and exempt
+    from the mask check (``parity_only``)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    batch = cross_batch(torch, gen, cfg, prompt)
+    specs = model.decode_state_specs(rows, max_len)
+    lengths = torch.randint(1, max_len - 1, (rows,), generator=gen,
+                            device="cuda").to(torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (rows,), generator=gen,
+                           device="cuda").to(torch.int32)
+    stale = (torch.arange(max_len, device="cuda")[None, :]
+             > lengths.long()[:, None])                       # [B, S]
+    state = {"lengths": lengths}
+    for k in ("k", "v", "xk", "xv"):
+        x = torch.randn(specs[k].shape, generator=gen, device="cuda")
+        if k in ("k", "v"):
+            x[:, stale] *= STALE_SCALE
+        state[k] = x.to(torch.bfloat16)
+    at = torch.arange(rows, device="cuda"), lengths.long()
+
+    def run(be):
+        outs = []           # the self layers' attention outputs, in order
+        causal = attn.causal_attention
+
+        def recorded(*a, **kw):
+            outs.append(causal(*a, **kw))
+            return outs[-1]
+        attn.causal_attention = recorded
+        try:
+            logits, st = model.prefill(params, batch, backend=be)
+        finally:
+            attn.causal_attention = causal
+        out = {"prefill_logits": logits, "prefill_attention_layer0": outs[0],
+               **{"prefill_" + k: st[k] for k in ("k", "v", "xk", "xv")}}
+        logits, new = model.decode_step(
+            params, {k: t.clone() for k, t in state.items()}, tokens,
+            backend=be)
+        out.update(decode_logits=logits, decode_new_k=new["k"][:, at[0],
+                                                                at[1]],
+                   decode_new_v=new["v"][:, at[0], at[1]])
+        return out
+
+    runs = {"cuda": run("cuda"), "torch": run("torch")}
+    with one_token_mask_errors(torch):
+        runs["mutant"] = run("torch")
+    parity_report(runs, PARITY_RTOL, card, phase,
+                  {"model": cfg.name, "prompt": prompt, "rows": rows},
+                  parity_only=("prefill_logits", "prefill_k", "prefill_v",
+                               "prefill_xk", "prefill_xv"))
 
 
 @contextlib.contextmanager
@@ -2200,6 +2475,22 @@ def main() -> int:
     phase_dense_parity(torch, params, llama, smi)
     del params
     torch.cuda.empty_cache()
+
+    # the cross-attention families on the dense slot state
+    for name, prompts, max_len, steps, prompt, phase in (
+            ("llama-3.2-vision-11b", VLM_PROMPTS, VLM_MAX_LEN, VLM_STEPS,
+             VLM_PARITY_PROMPT, "vlm"),
+            ("whisper-tiny", ENCDEC_PROMPTS, ENCDEC_MAX_LEN, ENCDEC_STEPS,
+             ENCDEC_PARITY_PROMPT, "encdec")):
+        cfg = get_config(name)
+        params = cross_params(torch, cfg)
+        by_path[phase + "_generate"] = phase_cross_generate(
+            torch, kernel_fns, smi, cfg, params, prompts, max_len, steps,
+            phase + "_generate")
+        phase_cross_parity(torch, params, cfg, smi, prompt, len(prompts),
+                           max_len, phase + "_parity")
+        del params
+        torch.cuda.empty_cache()
 
     phase_replay(torch, kernel_fns, smi)
     full = replay_full_config()

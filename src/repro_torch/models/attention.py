@@ -5,6 +5,9 @@ The attention itself runs in the kernels (``kernels/ops.py``); this
 module declares the weights, projects q/k/v (or, for MLA, the query
 heads and the cached latent ``[c_kv ; k_rope]``) with RoPE, masks padded
 layout heads, and carries the dense layout's attention:
+``full_attention`` (bidirectional: an encoder, and cross-attention to
+image patches or encoder output; plain PyTorch, as the JAX package
+keeps it),
 ``causal_attention`` (monolithic prefill: the flash kernel when the
 queries start at position 0), ``decode_attention`` over a slot cache
 [B,S,Hkv,hd] seen as pages (the paged decode kernels, bf16 or int8 with
@@ -45,7 +48,9 @@ def head_mask(cfg: ModelConfig, dtype=torch.bfloat16,
     return ((idx % gp) < g).to(dtype)[:, None]
 
 
-def attn_pspecs(cfg: ModelConfig) -> Dict[str, PSpec]:
+def attn_pspecs(cfg: ModelConfig, *, cross: bool = False) -> Dict[str, PSpec]:
+    """A self-attention block's weights; a cross-attention block
+    (``cross=True``) has no q/k/v bias."""
     d, hq, hkv, hd = (cfg.d_model, cfg.layout_q_heads,
                       max(cfg.n_kv_heads, 1), cfg.hd)
     scale = 0.02
@@ -56,7 +61,7 @@ def attn_pspecs(cfg: ModelConfig) -> Dict[str, PSpec]:
         "wo": PSpec((hq, hd, d), ("heads", None, "embed"),
                     scale=scale / math.sqrt(2 * max(cfg.n_layers, 1))),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         out.update(
             bq=PSpec((hq, hd), ("heads", None), init="zeros"),
             bk=PSpec((hkv, hd), ("kv_heads", None), init="zeros"),
@@ -108,6 +113,43 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 v.contiguous(), backend=backend)
     mask = ref.causal_mask(sq, sk, q_offset, q.device)
     return ref._attend(q, k, v, mask.expand(q.shape[0], sq, sk))
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional attention (an encoder, and cross-attention to a memory)
+# ---------------------------------------------------------------------------
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Sq,Hq,hd]; k/v [B,Sk,Hkv,hd]; kv_mask [B,Sk] bool (the keys
+    to attend) -> [B,Sq,Hq,hd] in v's dtype.
+
+    Plain PyTorch on both devices, as the JAX package computes it in
+    ``jnp`` outside any kernel: grouped scores in the inputs' dtype,
+    then float32 scaled by ``1/sqrt(hd)``, masked keys at -1e30, a
+    float32 softmax, and the probabilities cast to v's dtype for the
+    product with V."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(hd)
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, None, :], ref.NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(b, sq, hq, -1)
+
+
+def cross_kv(p: Dict, mem: torch.Tensor):
+    """A cross-attention block's keys and values over a memory mem
+    [B,P,D] (projected image patches, or the encoder's output): k/v
+    [B,P,Hkv,hd], no bias and no RoPE."""
+    return _proj(mem, p["wk"]), _proj(mem, p["wv"])
+
+
+def cross_attention(p: Dict, h: torch.Tensor, xk: torch.Tensor,
+                    xv: torch.Tensor) -> torch.Tensor:
+    """Queries of h [B,S,D] over the memory's xk/xv [B,P,Hkv,hd]
+    (``full_attention``), through the output projection: [B,S,D]."""
+    return out_proj(full_attention(_proj(h, p["wq"]), xk, xv), p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -124,3 +124,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (the enc-dec family: no RoPE)
+# ---------------------------------------------------------------------------
+def sinusoid_at(positions: torch.Tensor, dim: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sinusoidal embedding at integer positions [...] -> [..., dim]:
+    ``[sin(p / 10000^(2i/dim)) ; cos(...)]`` over i < dim/2, computed in
+    float32, then cast to ``dtype`` (the activations')."""
+    i = torch.arange(dim // 2, dtype=torch.float32, device=positions.device)
+    angle = positions[..., None].float() / torch.pow(10000.0, 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)

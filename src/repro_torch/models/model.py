@@ -1,5 +1,8 @@
 """Decoder-only model (GQA / MHA / MQA or MLA attention, dense or MoE
-FFN) over the paged KV pool or the dense slot cache.
+FFN) over the paged KV pool or the dense slot cache, and the two
+cross-attention families on the dense slot cache: the VLM
+(``VLMModel``, llama-3.2-vision) and the Whisper-style encoder-decoder
+(``EncDecModel``).
 
 The serving entry points of the JAX package's ``DecoderModel``, as
 plain functions of (params, state, ...).  Over the paged pool:
@@ -51,8 +54,18 @@ them to XLA.
 
 The decode steps write the new token's KV into the pool or the slot
 cache IN PLACE instead of returning new arrays: the returned state
-holds the same cache tensors.  Other families (hybrid, RWKV, VLM,
-enc-dec) are not ported yet: ``build_model`` raises.
+holds the same cache tensors.
+
+The cross-attention families have the dense layout's ``prefill`` and
+``decode_step`` only (no paged or chunked entry point, as in the JAX
+package, whose engine serves neither).  Their image patches or audio
+frames are precomputed embeddings (``batch["patches"]`` [B,P,D],
+``batch["frames"]`` [B,enc_len,D]): the frontends are stubs in the JAX
+package too.  The state gains the memory's keys and values, "xk"/"xv"
+[n_cross or L, B, P or enc_len, Hkv, hd]; cross-attention
+(``attention.full_attention``) is plain PyTorch, self-attention runs
+the flash prefill and paged decode kernels.  The hybrid and RWKV
+families are not ported yet: ``build_model`` raises.
 """
 from __future__ import annotations
 
@@ -61,12 +74,14 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.config import FAMILY_DECODER, FAMILY_MOE, MLA, ModelConfig
+from repro_torch.config import (FAMILY_DECODER, FAMILY_ENCDEC, FAMILY_MOE,
+                                FAMILY_VLM, MLA, ModelConfig)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models.common import (PSpec, materialize, resolve_device,
-                                       rms_norm, stack_specs, swiglu)
+                                       rms_norm, sinusoid_at, stack_specs,
+                                       swiglu)
 
 Params = Any
 KV_DTYPES = ("bfloat16", "int8")
@@ -86,25 +101,75 @@ def _dense_ffn_pspecs(cfg: ModelConfig) -> Dict[str, PSpec]:
     }
 
 
-def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked ``[L, ...]`` tree (views)."""
+def layer_params(params: Params, i: int, stack: str = "layers") -> Params:
+    """Layer ``i``'s slice of the stacked ``[L, ...]`` tree
+    ``params[stack]`` (views)."""
     def take(tree):
         if isinstance(tree, dict):
             return {k: take(v) for k, v in tree.items()}
         return tree[i]
-    return take(params["layers"])
+    return take(params[stack])
 
 
-class DecoderModel:
+class Model:
+    """What every family shares: the param-spec tree and its seeded
+    weights, the zeroed dense slot state, the embedding lookup and the
+    logits.  Only the decoder-only family has the paged entry points."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.specs = self.param_specs()
+
+    def param_specs(self) -> Params:
+        raise NotImplementedError
+
+    def decode_state_specs(self, batch: int, max_len: int) -> Dict[str, PSpec]:
+        raise NotImplementedError
+
+    def supports_paged_decode(self) -> bool:
+        """Whether ``decode_step_paged`` serves this model."""
+        return False
+
+    def supports_chunked_prefill(self) -> bool:
+        """Whether ``prefill_chunk`` / ``prefill_chunk_seg`` serve it."""
+        return self.supports_paged_decode()
+
+    def init_params(self, seed: int, device=None,
+                    dtype: torch.dtype = torch.bfloat16) -> Params:
+        """Seeded weights on the CUDA card unless ``device`` names
+        another (``device="cpu"``)."""
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return materialize(self.specs, gen, dtype=dtype, device=device)
+
+    def init_decode_state(self, batch: int, max_len: int,
+                          device=None) -> Dict[str, torch.Tensor]:
+        """Zeroed slot state (bf16 unless a spec names its dtype) on the
+        CUDA card unless ``device`` names another."""
+        device = resolve_device(device)
+        return {key: torch.zeros(p.shape, device=device,
+                                 dtype=getattr(torch, p.dtype or "bfloat16"))
+                for key, p in self.decode_state_specs(batch,
+                                                      max_len).items()}
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens.long()]
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return torch.matmul(x, params["embed"].t())
+        return torch.matmul(x, params["head"])
+
+
+class DecoderModel(Model):
     def __init__(self, cfg: ModelConfig, kv_dtype: str = "bfloat16"):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r}: expected one of "
                              f"{KV_DTYPES}")
-        self.cfg = cfg
         self.kv_dtype = kv_dtype      # the dense slot cache's values
         self.mla = cfg.attention_variant == MLA
         self.mla_scale = attn.mla_scale(cfg)
-        self.specs = self.param_specs()
+        super().__init__(cfg)
 
     # -- params -------------------------------------------------------------
     def _layer_specs(self) -> Dict[str, Any]:
@@ -127,13 +192,9 @@ class DecoderModel:
                                 ("embed", "vocab"))
         return out
 
-    def init_params(self, seed: int, device=None,
-                    dtype: torch.dtype = torch.bfloat16) -> Params:
-        """Seeded weights on the CUDA card unless ``device`` names
-        another (``device="cpu"``)."""
-        device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return materialize(self.specs, gen, dtype=dtype, device=device)
+    def supports_paged_decode(self) -> bool:
+        """The JAX rule: the paged pool serves bf16 caches."""
+        return self.kv_dtype != "int8"
 
     # -- the dense slot layout ----------------------------------------------
     def decode_state_specs(self, batch: int, max_len: int) -> Dict[str, PSpec]:
@@ -160,25 +221,7 @@ class DecoderModel:
             out["v_scale"] = sc
         return out
 
-    def init_decode_state(self, batch: int, max_len: int,
-                          device=None) -> Dict[str, torch.Tensor]:
-        """Zeroed slot state (bf16 unless a spec names its dtype) on the
-        CUDA card unless ``device`` names another."""
-        device = resolve_device(device)
-        return {key: torch.zeros(p.shape, device=device,
-                                 dtype=getattr(torch, p.dtype or "bfloat16"))
-                for key, p in self.decode_state_specs(batch,
-                                                      max_len).items()}
-
     # -- helpers --------------------------------------------------------------
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
-
-    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            return torch.matmul(x, params["embed"].t())
-        return torch.matmul(x, params["head"])
-
     def _attn_out(self, lp: Params, o: torch.Tensor) -> torch.Tensor:
         mask = attn.head_mask(self.cfg, o.dtype, o.device)
         if mask is not None:
@@ -270,42 +313,52 @@ class DecoderModel:
                                         prefix_kv, q_offset)
         return self._logits(params, x[:, -1]), cache
 
-    def decode_step(self, params, state, tokens, backend=None):
-        """One batched decode step over the dense slot cache: each row's
-        new K/V (int8 values and scales for an int8 cache) is written at
-        its length (in place), then the row attends its length + 1
-        tokens (MLA: the new latent, through the MLA decode kernel).
-        Returns (logits [B,V], state with lengths + 1)."""
+    def _self_block_decode(self, lp, x, state, i: int, backend=None):
+        """Layer ``i`` of a dense decode step on x [B,1,D]: the row's new
+        K/V (int8 values and scales for an int8 cache; MLA its latent)
+        is written at its length (in place), then the row attends its
+        length + 1 tokens through the paged decode kernel (int8, MLA
+        decode) over the slots seen as pages, then the FFN."""
         cfg = self.cfg
-        int8 = self.kv_dtype == "int8"
-        x = self._embed(params, tokens)[:, None, :]
         lengths = state["lengths"]
         new_len = lengths + 1
-        positions = lengths[:, None]
-        for i in range(cfg.n_layers):
-            lp = layer_params(params, i)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            if self.mla:
-                o, _ = attn.mla_attention_decode(lp["attn"], h,
-                                                 state["latent"][i], new_len,
-                                                 cfg, backend=backend)
-                x = self._ffn_residual(lp, x + o)
-                continue
-            q, k_new, v_new = attn.project_qkv(lp["attn"], h, positions, cfg)
-            k_c, v_c = state["k"][i], state["v"][i]
-            scales = (state["k_scale"][i], state["v_scale"][i]) if int8 \
-                else (None, None)
-            for cache, sc, new in zip((k_c, v_c), scales, (k_new, v_new)):
-                if int8:
-                    new, new_sc = attn.quantize_kv(new)
-                    attn.cache_write(sc, new_sc, lengths)
-                attn.cache_write(cache, new, lengths)
-            o = attn.decode_attention(q, k_c, v_c, new_len, *scales,
-                                      backend=backend)
-            x = x + self._attn_out(lp, o)
-            x = self._ffn_residual(lp, x)
-        x = rms_norm(x[:, 0], params["ln_f"], cfg.norm_eps)
-        return self._logits(params, x), {**state, "lengths": new_len}
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if self.mla:
+            o, _ = attn.mla_attention_decode(lp["attn"], h,
+                                             state["latent"][i], new_len,
+                                             cfg, backend=backend)
+            return self._ffn_residual(lp, x + o)
+        int8 = self.kv_dtype == "int8"
+        q, k_new, v_new = attn.project_qkv(lp["attn"], h, lengths[:, None],
+                                           cfg)
+        k_c, v_c = state["k"][i], state["v"][i]
+        scales = (state["k_scale"][i], state["v_scale"][i]) if int8 \
+            else (None, None)
+        for cache, sc, new in zip((k_c, v_c), scales, (k_new, v_new)):
+            if int8:
+                new, new_sc = attn.quantize_kv(new)
+                attn.cache_write(sc, new_sc, lengths)
+            attn.cache_write(cache, new, lengths)
+        o = attn.decode_attention(q, k_c, v_c, new_len, *scales,
+                                  backend=backend)
+        return self._ffn_residual(lp, x + self._attn_out(lp, o))
+
+    def _decode_out(self, params, x, state):
+        """The final norm and logits of a decode step: (logits [B,V],
+        state with lengths + 1)."""
+        x = rms_norm(x[:, 0], params["ln_f"], self.cfg.norm_eps)
+        return self._logits(params, x), {**state,
+                                         "lengths": state["lengths"] + 1}
+
+    def decode_step(self, params, state, tokens, backend=None):
+        """One batched decode step over the dense slot cache
+        (``_self_block_decode`` in every layer).  Returns (logits [B,V],
+        state with lengths + 1)."""
+        x = self._embed(params, tokens)[:, None, :]
+        for i in range(self.cfg.n_layers):
+            x = self._self_block_decode(layer_params(params, i), x, state, i,
+                                        backend)
+        return self._decode_out(params, x, state)
 
     # -- paged decode (block-table KV pool; serving fast path) ---------------
     def decode_step_paged(self, params, state, tokens, backend=None):
@@ -427,12 +480,258 @@ class DecoderModel:
                 backend=backend))
 
 
-def build_model(cfg: ModelConfig, kv_dtype: str = "bfloat16") -> DecoderModel:
-    """The decoder-only model (GQA/MHA/MQA or MLA attention, dense or MoE
-    FFN) with a bf16 or int8 dense slot cache; the hybrid, RWKV, enc-dec
-    and VLM families are not ported."""
-    if cfg.family not in (FAMILY_DECODER, FAMILY_MOE):
+class VLMModel(DecoderModel):
+    """The llama-3.2-vision decoder: the GQA decoder's self layers, and a
+    gated cross-attention block over the projected image patches before
+    each group of ``n_layers // n_cross`` self layers, as the JAX
+    package's ``DecoderModel`` runs its VLM branch (its groups, not the
+    layer ids of ``cfg.cross_attn_layer_ids()``, place the blocks).
+    ``prefill`` and ``decode_step`` on the dense slot state only."""
+
+    def __init__(self, cfg: ModelConfig, kv_dtype: str = "bfloat16"):
+        self.n_cross = len(cfg.cross_attn_layer_ids())
+        if (kv_dtype != "bfloat16" or cfg.attention_variant == MLA
+                or self.n_cross == 0 or cfg.n_layers % self.n_cross):
+            raise ValueError(
+                f"{cfg.name}: the VLM takes GQA self layers, a bf16 slot "
+                f"cache and n_layers ({cfg.n_layers}) a multiple of its "
+                f"{self.n_cross} cross-attention blocks")
+        self.per = cfg.n_layers // self.n_cross
+        super().__init__(cfg, kv_dtype)
+
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        out = super().param_specs()
+        cross = {"attn": attn.attn_pspecs(cfg, cross=True),
+                 "ln": _ln_spec(cfg.d_model),
+                 "gate": PSpec((1,), (None,), init="zeros")}
+        out["cross"] = stack_specs(cross, self.n_cross)
+        out["patch_proj"] = PSpec((cfg.d_model, cfg.d_model),
+                                  ("embed", "embed_out"))
+        return out
+
+    def supports_paged_decode(self) -> bool:
+        return False
+
+    def _unsupported(self, *args, **kwargs):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to PyTorch "
-            f"yet (decoder-only GQA/MHA/MQA/MLA models, dense or MoE)")
-    return DecoderModel(cfg, kv_dtype=kv_dtype)
+            f"{self.cfg.name}: the VLM has only the dense layout's prefill "
+            f"and decode_step")
+
+    decode_step_paged = prefill_chunk = prefill_chunk_seg = \
+        prefill_suffix = _unsupported
+
+    def decode_state_specs(self, batch: int, max_len: int) -> Dict[str, PSpec]:
+        """The GQA slot state plus every cross block's keys and values of
+        the row's patches, "xk"/"xv" [n_cross, B, n_patches, Hkv, hd]."""
+        cfg = self.cfg
+        out = super().decode_state_specs(batch, max_len)
+        xkv = PSpec((self.n_cross, batch, cfg.n_patches,
+                     max(cfg.n_kv_heads, 1), cfg.hd),
+                    ("layers", "batch", None, "kv_heads", None), init="zeros")
+        out["xk"] = xkv
+        out["xv"] = xkv
+        return out
+
+    def _cross_block(self, cp, x, xk, xv):
+        """x + tanh(gate) * cross-attention of ln(x) over xk/xv (the gate
+        in float32, cast to x's dtype)."""
+        h = rms_norm(x, cp["ln"], self.cfg.norm_eps)
+        o = attn.cross_attention(cp["attn"], h, xk, xv)
+        return x + torch.tanh(cp["gate"].float()).to(x.dtype) * o
+
+    def _group(self, g: int) -> range:
+        return range(g * self.per, (g + 1) * self.per)
+
+    def prefill(self, params, batch, backend=None):
+        """Monolithic prefill of ``batch["tokens"]`` [B,S] with
+        ``batch["patches"]`` [B,n_patches,D], from position 0.  The
+        patches are projected once (``patch_proj``); each group's cross
+        block attends its own keys and values of them, the self layers
+        run the flash prefill kernel.  Returns (logits of the last
+        position [B,V], {"k"/"v" [L,B,S,Hkv,hd], "xk"/"xv"
+        [n_cross,B,n_patches,Hkv,hd], "lengths" [B] = S})."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        mem = torch.matmul(batch["patches"], params["patch_proj"])
+        x = self._embed(params, tokens)
+        kv, xkv = [], []
+        for g in range(self.n_cross):
+            cp = layer_params(params, g, "cross")
+            xkv.append(attn.cross_kv(cp["attn"], mem))
+            x = self._cross_block(cp, x, *xkv[-1])
+            for i in self._group(g):
+                x, c = self._self_block_full(layer_params(params, i), x,
+                                             positions, backend)
+                kv.append(c)
+        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+        (k, v), (xk, xv) = (tuple(torch.stack(c) for c in zip(*e))
+                            for e in (kv, xkv))
+        lengths = torch.full((b,), s, dtype=torch.int32,
+                             device=tokens.device)
+        return self._logits(params, x[:, -1]), {
+            "lengths": lengths, "k": k, "v": v, "xk": xk, "xv": xv}
+
+    def decode_step(self, params, state, tokens, backend=None):
+        """One batched decode step over the dense slot state: each group's
+        cross block over the cached "xk"/"xv", then its self layers
+        (``_self_block_decode``: the paged decode kernel over the slots
+        seen as pages).  Returns (logits [B,V], state with lengths + 1)."""
+        x = self._embed(params, tokens)[:, None, :]
+        for g in range(self.n_cross):
+            x = self._cross_block(layer_params(params, g, "cross"), x,
+                                  state["xk"][g], state["xv"][g])
+            for i in self._group(g):
+                x = self._self_block_decode(layer_params(params, i), x,
+                                            state, i, backend)
+        return self._decode_out(params, x, state)
+
+
+class EncDecModel(Model):
+    """The Whisper-style encoder-decoder: a bidirectional encoder over
+    precomputed frame embeddings and a causal decoder whose layers
+    cross-attend the encoder's output; sinusoidal positions, no RoPE,
+    tied embeddings.  The decoder's self-attention runs the flash
+    prefill kernel in ``prefill`` and the paged decode kernel over the
+    slots seen as pages in ``decode_step``; the encoder and the
+    cross-attention run ``attention.full_attention``."""
+
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        d = cfg.d_model
+        enc_layer = {"attn": attn.attn_pspecs(cfg),
+                     "ffn": _dense_ffn_pspecs(cfg),
+                     "ln1": _ln_spec(d), "ln2": _ln_spec(d)}
+        dec_layer = {"attn": attn.attn_pspecs(cfg),
+                     "xattn": attn.attn_pspecs(cfg, cross=True),
+                     "ffn": _dense_ffn_pspecs(cfg),
+                     "ln1": _ln_spec(d), "ln2": _ln_spec(d),
+                     "ln3": _ln_spec(d)}
+        return {
+            "embed": PSpec((cfg.vocab_size, d), ("vocab", "embed")),
+            "enc_layers": stack_specs(enc_layer, cfg.n_enc_layers),
+            "dec_layers": stack_specs(dec_layer, cfg.n_layers),
+            "ln_enc": _ln_spec(d),
+            "ln_dec": _ln_spec(d),
+        }
+
+    def decode_state_specs(self, batch: int, max_len: int) -> Dict[str, PSpec]:
+        """Each decoder layer's self K/V slots "k"/"v" [L,B,max_len,Hkv,hd]
+        and its keys and values of the encoder output "xk"/"xv"
+        [L,B,enc_len,Hkv,hd]."""
+        cfg = self.cfg
+        L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+        kv = PSpec((L, batch, max_len, hkv, hd),
+                   ("layers", "batch", "kv_seq", None, None), init="zeros")
+        xkv = PSpec((L, batch, cfg.enc_len, hkv, hd),
+                    ("layers", "batch", None, "kv_heads", None), init="zeros")
+        return {"k": kv, "v": kv, "xk": xkv, "xv": xkv,
+                "lengths": PSpec((batch,), ("batch",), init="zeros",
+                                 dtype="int32")}
+
+    def _ffn_residual(self, lp, x, ln: str):
+        h = rms_norm(x, lp[ln], self.cfg.norm_eps)
+        f = lp["ffn"]
+        return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+
+    def encode(self, params, frames):
+        """frames [B,enc_len,D] (precomputed: the conv frontend is a stub)
+        plus sinusoidal positions, through the bidirectional encoder
+        layers and the final norm -> [B,enc_len,D]."""
+        cfg = self.cfg
+        s = frames.shape[1]
+        x = frames + sinusoid_at(torch.arange(s, device=frames.device),
+                                 cfg.d_model, frames.dtype)[None]
+        for i in range(cfg.n_enc_layers):
+            lp = layer_params(params, i, "enc_layers")
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn.project_qkv(lp["attn"], h, None, cfg, rope=False)
+            x = x + attn.out_proj(attn.full_attention(q, k, v),
+                                  lp["attn"]["wo"])
+            x = self._ffn_residual(lp, x, "ln2")
+        return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+    def _embed_dec(self, params, tokens, positions):
+        x = self._embed(params, tokens)
+        return x + sinusoid_at(positions, self.cfg.d_model, x.dtype)
+
+    def _cross(self, lp, x, xk, xv):
+        h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
+        return x + attn.cross_attention(lp["xattn"], h, xk, xv)
+
+    def prefill(self, params, batch, backend=None):
+        """Encode ``batch["frames"]`` [B,enc_len,D], then the decoder over
+        ``batch["tokens"]`` [B,S] from position 0: causal self-attention
+        through the flash prefill kernel, cross-attention over each
+        layer's keys and values of the encoder output.  Returns (logits
+        of the last position [B,V], {"k"/"v" [L,B,S,Hkv,hd], "xk"/"xv"
+        [L,B,enc_len,Hkv,hd], "lengths" [B] = S})."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        x = self._embed_dec(params, tokens, positions)
+        caches = []
+        for i in range(cfg.n_layers):
+            lp = layer_params(params, i, "dec_layers")
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn.project_qkv(lp["attn"], h, None, cfg, rope=False)
+            o = attn.causal_attention(q, k, v, backend=backend)
+            x = x + attn.out_proj(o, lp["attn"]["wo"])
+            xk, xv = attn.cross_kv(lp["xattn"], enc_out)
+            x = self._ffn_residual(lp, self._cross(lp, x, xk, xv), "ln3")
+            caches.append((k, v, xk, xv))
+        x = rms_norm(x, params["ln_dec"], cfg.norm_eps)
+        k, v, xk, xv = (torch.stack(c) for c in zip(*caches))
+        lengths = torch.full((b,), s, dtype=torch.int32,
+                             device=tokens.device)
+        return self._logits(params, x[:, -1]), {
+            "k": k, "v": v, "xk": xk, "xv": xv, "lengths": lengths}
+
+    def decode_step(self, params, state, tokens, backend=None):
+        """One batched decoder step over the dense slot state at sinusoidal
+        positions ``lengths``: each row's new K/V written at its length
+        (in place), self-attention over length + 1 tokens through the
+        paged decode kernel over the slots seen as pages, cross-attention
+        over the cached "xk"/"xv".  Returns (logits [B,V], state with
+        lengths + 1)."""
+        cfg = self.cfg
+        lengths = state["lengths"]
+        x = self._embed_dec(params, tokens[:, None], lengths[:, None])
+        for i in range(cfg.n_layers):
+            lp = layer_params(params, i, "dec_layers")
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k_new, v_new = attn.project_qkv(lp["attn"], h, None, cfg,
+                                               rope=False)
+            k_c, v_c = state["k"][i], state["v"][i]
+            attn.cache_write(k_c, k_new, lengths)
+            attn.cache_write(v_c, v_new, lengths)
+            o = attn.decode_attention(q, k_c, v_c, lengths + 1,
+                                      backend=backend)
+            x = x + attn.out_proj(o, lp["attn"]["wo"])
+            x = self._cross(lp, x, state["xk"][i], state["xv"][i])
+            x = self._ffn_residual(lp, x, "ln3")
+        x = rms_norm(x[:, 0], params["ln_dec"], cfg.norm_eps)
+        return self._logits(params, x), {**state, "lengths": lengths + 1}
+
+
+def build_model(cfg: ModelConfig, kv_dtype: str = "bfloat16") -> Model:
+    """The decoder-only model (GQA/MHA/MQA or MLA attention, dense or MoE
+    FFN) with a bf16 or int8 dense slot cache, the VLM or the
+    encoder-decoder (bf16 slots); the hybrid and RWKV families are not
+    ported."""
+    if cfg.family in (FAMILY_DECODER, FAMILY_MOE):
+        return DecoderModel(cfg, kv_dtype=kv_dtype)
+    if cfg.family == FAMILY_VLM:
+        return VLMModel(cfg, kv_dtype=kv_dtype)
+    if cfg.family == FAMILY_ENCDEC:
+        if kv_dtype != "bfloat16":
+            raise ValueError(f"{cfg.name}: the encoder-decoder keeps a bf16 "
+                             f"slot cache")
+        return EncDecModel(cfg)
+    raise NotImplementedError(
+        f"{cfg.name}: family {cfg.family!r} is not ported to PyTorch yet "
+        f"(decoder-only GQA/MHA/MQA/MLA models, dense or MoE, the VLM and "
+        f"the encoder-decoder)")

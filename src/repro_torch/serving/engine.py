@@ -63,7 +63,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import FAMILY_DECODER, FAMILY_MOE, ModelConfig
 from repro_torch.core import sizing
 from repro_torch.core.cache_manager import PredictiveCacheManager
 from repro_torch.core.tiers import (PAPER_TIER_SPECS, AsyncTierTransferWorker,
@@ -122,6 +122,12 @@ class ServingEngine:
                  engine_cfg: Optional[EngineConfig] = None,
                  params=None, device=None):
         engine_cfg = EngineConfig() if engine_cfg is None else engine_cfg
+        if cfg.family not in (FAMILY_DECODER, FAMILY_MOE):
+            # the VLM and the encoder-decoder need their patches / frames
+            # beside each prompt; they have model-level entry points only
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves decoder-only models, not "
+                f"the {cfg.family!r} family")
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)

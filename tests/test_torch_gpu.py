@@ -73,9 +73,11 @@ EDGE_LENGTHS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300, 511, 512]
 
 
 @pytest.mark.parametrize("hq,hkv,hd,page", [(32, 8, 64, 64), (32, 8, 64, 16),
-                                            (8, 1, 128, 64)])
+                                            (8, 1, 128, 64), (6, 6, 64, 64),
+                                            (32, 8, 128, 64)])
 def test_paged_decode_kernel_long_rows(cuda, hq, hkv, hd, page):
-    """llama3.2-1b width (and MQA at hd 128), bf16 on the bandwidth
+    """llama3.2-1b width (and MQA at hd 128, whisper-tiny's MHA at G 1,
+    llama-3.2-vision's 32 / 8 heads at hd 128), bf16 on the bandwidth
     body: 64 rows over 512-token tables with lengths at the tile edges,
     clamped table entries inside the length, one launch a call, and two
     calls equal bit for bit."""
@@ -305,13 +307,18 @@ def test_engine_on_card_matches_cpu_engine(cuda):
 # prompt lengths (416 ends in a ragged 32-row tile), GQA / MHA / MQA at
 # small widths, a single token, and hd 256 (the 32-row tiles); then the
 # tensor-core tiles' edges at hd 64 and 128: a partial 16-row fragment
-# (17, 63), one row past a 64-key tile (65, 129)
+# (17, 63), one row past a 64-key tile (65, 129); then the cross-attention
+# families' self layers: llama-3.2-vision (32 / 8 heads, hd 128) and
+# whisper-tiny (6 / 6, hd 64, G 1) from one token to their smoke prompts
 FLASH_SHAPES = [(1, 416, 32, 8, 64), (1, 384, 32, 8, 64),
                 (2, 160, 8, 2, 64), (1, 100, 4, 4, 32), (1, 70, 8, 1, 128),
                 (3, 1, 4, 2, 16), (1, 40, 2, 1, 256),
                 (1, 17, 4, 2, 64), (1, 17, 4, 2, 128), (2, 63, 4, 1, 64),
                 (2, 63, 4, 1, 128), (1, 65, 8, 2, 64), (1, 65, 8, 2, 128),
-                (1, 129, 4, 4, 64), (1, 129, 4, 4, 128)]
+                (1, 129, 4, 4, 64), (1, 129, 4, 4, 128),
+                (1, 1, 32, 8, 128), (1, 4, 32, 8, 128), (1, 100, 32, 8, 128),
+                (1, 512, 32, 8, 128), (1, 1, 6, 6, 64), (1, 4, 6, 6, 64),
+                (2, 77, 6, 6, 64), (1, 128, 6, 6, 64)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
@@ -639,7 +646,7 @@ def test_tensor_core_dispatch(cuda):
     gqa = build.entry("paged_decode", "paged_decode_tensor_core",
                       [ctypes.c_int] * 5)
     for hq, hkv, hd in [(32, 8, 64), (8, 2, 64), (4, 4, 32), (8, 1, 128),
-                        (16, 1, 16)]:
+                        (16, 1, 16), (32, 8, 128), (6, 6, 64)]:
         assert gqa(hq, hkv, hd, 1, 1) == 1
         assert gqa(hq, hkv, hd, 0, 1) == 0
         assert gqa(hq, hkv, hd, 0, 0) == 0
@@ -886,3 +893,47 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_cross_attention_model_on_card_matches_cpu(cuda, arch):
+    """Reduced VLM and encoder-decoder, float32 weights with the cross
+    gates at 0.7: a prefill of two rows and three greedy decode steps on
+    the card (kernels 7 and 1) equal the CPU's (plain versions) within
+    1e-4, with both kernels launched."""
+    from repro_torch.config import reduce_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    m = build_model(reduce_config(get_config(arch)))
+    cfg = m.cfg
+    params = m.init_params(3, device="cpu", dtype=torch.float32)
+    if "cross" in params:
+        params["cross"]["gate"].fill_(0.7)
+    g = torch.Generator().manual_seed(4)
+    key = "patches" if cfg.n_patches else "frames"
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 21), generator=g,
+                                     dtype=torch.int32),
+             key: torch.randn((2, cfg.n_patches or cfg.enc_len, cfg.d_model),
+                              generator=g)}
+    flash = cuda.flash_prefill.launches
+    dec = cuda.paged_decode_attention.launches
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p, b = _to(params, dev), _to(batch, dev)
+        lg, st = m.prefill(p, b)
+        state = m.init_decode_state(2, 64, device=dev)
+        state = {k: v.float() if v.is_floating_point() else v
+                 for k, v in state.items()}
+        for k in ("k", "v"):
+            state[k][:, :, :21] = st[k]
+        state["xk"], state["xv"] = st["xk"], st["xv"]
+        state["lengths"] = st["lengths"]
+        out = [lg]
+        for _ in range(3):
+            lg, state = m.decode_step(p, state, lg.argmax(-1).to(torch.int32))
+            out.append(lg)
+        logits[dev] = torch.stack(out)
+    torch.cuda.synchronize()
+    assert _err(logits["cuda"].cpu(), logits["cpu"]) <= F32_TOL
+    assert cuda.flash_prefill.launches > flash
+    assert cuda.paged_decode_attention.launches > dec

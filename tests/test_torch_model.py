@@ -163,12 +163,18 @@ def test_prefill_chunk_seg_matches_jax(models):
 
 
 def test_build_model_rejects_unported_families():
-    """The hybrid, RWKV, enc-dec and VLM families are not ported; the
-    MoE decoders are (``tests/test_torch_moe.py``)."""
-    for name in ("rwkv6-1.6b", "zamba2-1.2b", "whisper-tiny",
-                 "llama-3.2-vision-11b"):
+    """The hybrid and RWKV families are not ported; the MoE decoders
+    (``tests/test_torch_moe.py``), the VLM and the encoder-decoder
+    (``tests/test_torch_crossattn.py``) are."""
+    for name in ("rwkv6-1.6b", "zamba2-1.2b"):
         with pytest.raises(NotImplementedError):
             build_model(t_reduce(t_get(name)))
+    m = build_model(t_get("llama-3.2-vision-11b"))
+    assert (m.n_cross, m.per) == (8, 5)
+    assert set(m.specs["cross"]) == {"attn", "ln", "gate"}
+    m = build_model(t_get("whisper-tiny"))
+    assert set(m.specs) == {"embed", "enc_layers", "dec_layers", "ln_enc",
+                            "ln_dec"}
     for name in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
         m = build_model(t_get(name))
         assert set(m.specs["layers"]["ffn"]) == {"router", "w_gate", "w_up",
