@@ -88,6 +88,9 @@ check raises and the script exits non-zero with no result line:
            6 / 6 heads, hd 64, G 1, S 128) beside the same library call,
            and the paged decode over the vlm_generate and encdec_generate
            phases' slots at their middle step (``*_vlm``, ``*_whisper``);
+           flash prefill at zamba2-1.2b's shared attention (32 / 32
+           heads, hd 64, G 1, S 512) and the paged decode over the
+           hybrid_generate phase's 4 slots of 1024 (``*_zamba2``);
   dense_serve  the serve traffic on EngineConfig(paged=False): the dense
            slot cache, monolithic prefill (flash prefill for a prompt
            with no prefix hit) and decode through the paged decode
@@ -117,6 +120,27 @@ check raises and the script exits non-zero with no result line:
            width: eight decoder prompts (4 to 128 tokens) with 1500
            seeded frame embeddings each, 448-token slots, 64 steps; a
            100-token prefill and 8 rows in the parity phase;
+  hybrid_generate  zamba2-1.2b at full width and depth (38 Mamba2
+           layers, one shared attention block applied 6 times, seeded
+           bf16 weights): four prompts (512 / 384 / 200 / 100 tokens)
+           prefilled alone into rows of one 4 x 1024 state (K/V slots and
+           every Mamba leaf), then 32 greedy steps; flash prefill 24
+           launches and paged decode 192, exactly; the state's bytes are
+           the port's specs' (the JAX spec's), short of
+           ``sizing.decode_state_bytes`` by exactly the conv tap it
+           counts and the state does not keep;
+  hybrid_parity  one 416-token prefill and one decode step over 4 random
+           slot rows (8x stale slots, random Mamba state) with the
+           kernels, the plain versions and one-token mask-error versions;
+  hybrid_checks  decode against teacher forcing at full width in float32
+           (the bar of tests/test_model_consistency.py; the bf16 gap
+           printed beside it, not held) and layer 0's ``mamba_block`` in
+           float32 on the card against the CPU;
+  rwkv_generate, rwkv_checks  the same for rwkv6-1.6b at full width (24
+           layers; no kernel: the state equals the sizing formula's
+           bytes, no kernel may launch; ``time_mix`` for the mixer);
+  every generate phase first checks that earlier phases hold less than
+           0.2 GB on the card beside its weights (``held_at_start_gb``);
   replay   the live-engine trace replay (``traces/serving_replay.py``)
            of the reduced llama3.2-1b at 32-token blocks and pages, four
            cells (lmsys and agentic whole-prefix, sharegpt and lmsys with
@@ -921,13 +945,15 @@ def slot_decode_case(torch, gen, ops, attn, name, S, Hq, Hkv, hd, lengths):
 
 def cross_cases(torch, gen, ops, attn):
     """Kernels 7 and 1 at the cross-attention families' self-attention
-    shapes: flash prefill at llama-3.2-vision's 32 q / 8 kv heads, hd 128
-    (its longest smoke prompt, 512, and the ragged 100) and at
-    whisper-tiny's 6 / 6 heads, hd 64, G 1 (its longest prompt, 128);
-    the paged decode over the ``vlm_generate`` phase's 4 slots of 1024
-    tokens and the ``encdec_generate`` phase's 8 slots of 448 at their
+    shapes and zamba2's shared attention: flash prefill at
+    llama-3.2-vision's 32 q / 8 kv heads, hd 128 (its longest smoke
+    prompt, 512, and the ragged 100), at whisper-tiny's 6 / 6 heads, hd
+    64, G 1 (its longest prompt, 128) and at zamba2-1.2b's 32 / 32 heads,
+    hd 64, G 1 (512); the paged decode over the ``vlm_generate`` phase's
+    4 slots of 1024 tokens, the ``encdec_generate`` phase's 8 slots of
+    448 and the ``hybrid_generate`` phase's 4 slots of 1024 at their
     middle decode step."""
-    vlm, whisper = (32, 8, 128), (6, 6, 64)
+    vlm, whisper, zamba = (32, 8, 128), (6, 6, 64), (32, 32, 64)
     return [
         flash_case(torch, gen, ops, "flash_prefill_vlm", 512, *vlm),
         flash_case(torch, gen, ops, "flash_prefill_vlm_ragged", 100, *vlm),
@@ -938,6 +964,11 @@ def cross_cases(torch, gen, ops, attn):
         slot_decode_case(torch, gen, ops, attn, "paged_decode_whisper",
                          ENCDEC_MAX_LEN, *whisper,
                          [n + ENCDEC_STEPS // 2 for n in ENCDEC_PROMPTS]),
+        flash_case(torch, gen, ops, "flash_prefill_zamba2", 512, *zamba),
+        slot_decode_case(torch, gen, ops, attn, "paged_decode_zamba2",
+                         RECURRENT_MAX_LEN, *zamba,
+                         [n + RECURRENT_STEPS // 2
+                          for n in RECURRENT_PROMPTS]),
     ]
 
 
@@ -1638,10 +1669,8 @@ def phase_cross_generate(torch, kernel_fns, card, cfg, params, prompts,
     key = "patches" if cfg.n_patches else "frames"
     for fn in kernel_fns.values():
         fn.launches = 0
-    torch.cuda.synchronize()
+    held = check_held(torch, params, phase)
     torch.cuda.reset_peak_memory_stats()
-    # the weights and whatever earlier phases still hold
-    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = model.init_decode_state(len(prompts), max_len, device="cuda")
     first = []
@@ -1682,14 +1711,15 @@ def phase_cross_generate(torch, kernel_fns, card, cfg, params, prompts,
     emit({"phase": phase, "card": card, "model": cfg.name,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "memory": {key: cfg.n_patches or cfg.enc_len},
-          "params_gb": sum(t.nbytes for t in _leaves(params)) / 1e9,
+          "params_gb": tree_bytes(params) / 1e9,
           "rows": len(prompts), "prompt_lens": list(prompts),
           "max_len": max_len, "decode_steps": steps, "prefill_s": prefill_s,
           "decode_step_ms_median": 1e3 * sorted(step_s)[steps // 2],
           "decode_step_ms_mean": 1e3 * sum(step_s) / steps,
           "decode_tok_per_s": len(prompts) * steps / sum(step_s),
-          "peak_mem_gb": peak / 1e9, "held_at_start_gb": held / 1e9,
-          "launches": launches, "state_bytes": state_bytes, "sizing_bytes": sizing_bytes,
+          "peak_mem_gb": peak / 1e9, "held_at_start_gb": held,
+          "launches": launches, "state_bytes": state_bytes,
+          "sizing_bytes": sizing_bytes,
           "zeroed_memory_row": b, "zeroed_memory_logit_moved": moved})
     if not all(finite):
         raise AssertionError(f"{phase}: non-finite logits")
@@ -1708,12 +1738,41 @@ def phase_cross_generate(torch, kernel_fns, card, cfg, params, prompts,
     return launches
 
 
-def _leaves(tree):
+# what an earlier phase may still hold on the card when a generate phase
+# starts, its own weights taken off
+HELD_LIMIT_GB = 0.2
+
+
+def tree_leaves(tree, path=()):
+    """(path, tensor) of every leaf of a nested dict."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (k,))
     else:
-        yield tree
+        yield path, tree
+
+
+def tree_apply(fn, tree):
+    """The same nested dict with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_apply(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.nbytes for _, t in tree_leaves(tree))
+
+
+def check_held(torch, params, phase) -> float:
+    """The bytes on the card beside ``params`` at a phase's start: what
+    earlier phases still hold.  Raises past HELD_LIMIT_GB."""
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - tree_bytes(params)) / 1e9
+    if not held < HELD_LIMIT_GB:
+        raise AssertionError(f"{phase}: {held:.3f} GB held at the start "
+                             f"beside the phase's weights (limit "
+                             f"{HELD_LIMIT_GB} GB)")
+    return held
 
 
 def phase_cross_parity(torch, params, cfg, card, prompt, rows, max_len,
@@ -1880,6 +1939,323 @@ def one_token_mask_errors(torch):
     finally:
         for n, fn in saved.items():
             setattr(ref, n, fn)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: the Mamba2 hybrid and RWKV6
+# ---------------------------------------------------------------------------
+# zamba2-1.2b and rwkv6-1.6b at full width and depth: four prompts (200
+# and 100 ragged for SSD's 64-token chunk, 200 for WKV's 16-token chunk
+# and past the length where the JAX package's one-chunk fallback
+# overflows), 32 greedy steps over 1024-token slots
+RECURRENT_PROMPTS, RECURRENT_MAX_LEN, RECURRENT_STEPS = \
+    (512, 384, 200, 100), 1024, 32
+# the hybrid parity phase's prompt: 416 ends in a ragged 32-row tile of
+# the flash kernel's 64-row tiles and a 32-token SSD remainder chunk
+HYBRID_PARITY_PROMPT = 416
+# teacher forcing at full width: prefill(t[:k]) then j decode steps
+# against prefill(t[:k + j]) (k ragged for both chunk sizes), at the bar
+# of tests/test_model_consistency.py
+TEACHER_K, TEACHER_J = 100, 8
+TEACHER_RTOL, TEACHER_ATOL = 0.05, 0.15
+# a mixer in float32 on the card against the CPU: within this share of
+# the output's largest magnitude
+MIXER_RTOL = 1e-4
+
+
+def spec_bytes(torch, specs) -> int:
+    """Bytes of every leaf of a state spec tree but "lengths"."""
+    return sum(math.prod(p.shape) * torch.empty(
+        (), dtype=getattr(torch, p.dtype or "bfloat16")).element_size()
+        for path, p in tree_leaves(specs) if path != ("lengths",))
+
+
+def copy_row(state, row_state, b, n):
+    """Row 0 of a one-prompt prefill state into row b of a batch state:
+    K/V slots [:n], every recurrent leaf whole."""
+    for path, leaf in tree_leaves(row_state):
+        if path == ("lengths",):
+            continue
+        dst = state
+        for k in path:
+            dst = dst[k]
+        if path in (("k",), ("v",)):
+            dst[:, b, :n] = leaf[:, 0]
+        else:
+            dst[:, b] = leaf[:, 0]
+    state["lengths"][b] = n
+
+
+def step_profile(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device
+    activities it queued (kernels, copies, fills) and their summed
+    device time; None where the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return {"device_activities": None, "device_busy_ms": None}
+    return {"device_activities": len(dev),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in dev) / 1e3}
+
+
+def phase_recurrent_generate(torch, kernel_fns, card, cfg, params, prompts,
+                             max_len, steps, phase):
+    """Greedy generation of a recurrent model: each prompt is prefilled
+    alone and its state (the hybrid's K/V slots and every Mamba leaf;
+    RWKV's wkv and token-shift state) copied into row b of
+    ``init_decode_state(len(prompts), max_len)``, then ``steps`` greedy
+    decode steps.  Every count is zeroed just before and read just
+    after.  Checks: finite logits, lengths prompt + steps, the state's
+    bytes, and the kernels: the hybrid's shared block launches the flash
+    prefill kernel once per application and prompt and the paged decode
+    kernel once per application and step; RWKV launches none.  The state
+    is the port's own ``decode_state_specs`` (the JAX spec's shapes); for
+    RWKV it equals ``sizing.decode_state_bytes``, for the hybrid it is
+    smaller by exactly the conv tap the formula counts and the state
+    does not keep (K against K-1)."""
+    from repro_torch.core import sizing
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    prompt_toks = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                                 device="cuda").to(torch.int32)
+                   for n in prompts]
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    held = check_held(torch, params, phase)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = model.init_decode_state(len(prompts), max_len, device="cuda")
+    first = []
+    for b, toks in enumerate(prompt_toks):
+        logits, st1 = model.prefill(params, {"tokens": toks})
+        copy_row(state, st1, b, toks.shape[1])
+        first.append(logits)
+    del st1
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = torch.cat(first)
+    finite = [bool(torch.isfinite(first).all())]
+    tok = first.argmax(dim=-1).to(torch.int32)
+    step_s, out = [], {}
+
+    def step():
+        out["logits"], out["state"] = model.decode_step(params, state, tok)
+    for i in range(steps):
+        t = time.perf_counter()
+        if i == steps // 2:     # the middle step under the profiler
+            prof = step_profile(torch, step)
+        else:
+            step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        logits, state = out["logits"], out["state"]
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        finite.append(bool(torch.isfinite(logits).all()))
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(t.nbytes for path, t in tree_leaves(state)
+                      if path != ("lengths",))
+    own_bytes = spec_bytes(torch, model.decode_state_specs(len(prompts),
+                                                           max_len))
+    sizing_bytes = int(sizing.decode_state_bytes(cfg, max_len,
+                                                 len(prompts)))
+    hybrid = bool(cfg.attn_layer_ids())
+    # the conv tap the formula counts and the state does not keep
+    tap_gap = (cfg.n_layers * len(prompts)
+               * (cfg.d_inner + 2 * cfg.ssm_state) * 2 if hybrid else 0)
+    n_apps = len(cfg.attn_layer_ids())
+    want_launches = {"flash_prefill": n_apps * len(prompts),
+                     "paged_decode": n_apps * steps}
+    lengths = state["lengths"].tolist()
+    want = [n + steps for n in prompts]
+    emit({"phase": phase, "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "shared_attention_applications": n_apps,
+          "params_gb": tree_bytes(params) / 1e9,
+          "rows": len(prompts), "prompt_lens": list(prompts),
+          "max_len": max_len, "decode_steps": steps, "prefill_s": prefill_s,
+          # host clock over the steps but the profiled one
+          "decode_step_ms_median": 1e3 * sorted(step_s)[len(step_s) // 2],
+          "decode_step_ms_mean": 1e3 * sum(step_s) / len(step_s),
+          "decode_tok_per_s": len(prompts) * len(step_s) / sum(step_s),
+          "profiled_step": {"step": steps // 2, **prof},
+          "peak_mem_gb": peak / 1e9, "held_at_start_gb": held,
+          "launches": launches, "state_bytes": state_bytes,
+          "spec_bytes": own_bytes, "sizing_bytes": sizing_bytes,
+          "sizing_gap_bytes": sizing_bytes - state_bytes})
+    if not all(finite):
+        raise AssertionError(f"{phase}: non-finite logits")
+    if lengths != want:
+        raise AssertionError(f"{phase}: lengths {lengths} != {want}")
+    for name, n in launches.items():
+        if n != want_launches.get(name, 0) * hybrid:
+            raise AssertionError(f"{phase}: kernel {name} launched {n} "
+                                 f"times")
+    if state_bytes != own_bytes or sizing_bytes - state_bytes != tap_gap:
+        raise AssertionError(f"{phase}: state {state_bytes} bytes, specs "
+                             f"{own_bytes}, sizing {sizing_bytes} (gap "
+                             f"expected {tap_gap})")
+    return launches
+
+
+def phase_hybrid_parity(torch, params, cfg, card, prompt, rows, max_len,
+                        phase="hybrid_parity"):
+    """One monolithic prefill of ``prompt`` tokens and one decode step
+    over ``rows`` slots of ``max_len`` (random K/V, slots past each
+    row's new token 8x larger, random Mamba state) with the kernels,
+    with their plain versions, and with plain versions that each get one
+    mask wrong by one token, on the same weights.  Held to the limit: the
+    logits, the first shared application's prefill attention output
+    (both runs give it the same q, k and v), every application's K/V,
+    the decode's new K/V, and the Mamba state after the prompt and after
+    the step.  A one-ahead prompt mask error reaches the last position's
+    logits and the Mamba state only diluted through the residual stream
+    (the last query has no key ahead of it; on the card 0.46x and 0.43x
+    the limit), so those are exempt from the mask check
+    (``parity_only``); the first application's output, the later
+    applications' K/V and the decode's tensors see it (on the card
+    7.9x-16x)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                           device="cuda").to(torch.int32)
+    specs = model.decode_state_specs(rows, max_len)
+    lengths = torch.randint(1, max_len - 1, (rows,), generator=gen,
+                            device="cuda").to(torch.int32)
+    dtokens = torch.randint(0, cfg.vocab_size, (rows,), generator=gen,
+                            device="cuda").to(torch.int32)
+    stale = (torch.arange(max_len, device="cuda")[None, :]
+             > lengths.long()[:, None])                       # [B, S]
+    state = {"lengths": lengths,
+             "mamba": {k: torch.randn(p.shape, generator=gen,
+                                      device="cuda").to(torch.bfloat16)
+                       for k, p in specs["mamba"].items()}}
+    for k in ("k", "v"):
+        x = torch.randn(specs[k].shape, generator=gen, device="cuda")
+        x[:, stale] *= STALE_SCALE
+        state[k] = x.to(torch.bfloat16)
+    at = torch.arange(rows, device="cuda"), lengths.long()
+
+    def run(be):
+        outs = []           # the shared applications' attention outputs
+        causal = attn.causal_attention
+
+        def recorded(*a, **kw):
+            outs.append(causal(*a, **kw))
+            return outs[-1]
+        attn.causal_attention = recorded
+        try:
+            logits, st = model.prefill(params, {"tokens": tokens},
+                                       backend=be)
+        finally:
+            attn.causal_attention = causal
+        out = {"prefill_logits": logits, "prefill_attention_app0": outs[0],
+               "prefill_k": st["k"], "prefill_v": st["v"],
+               **{"prefill_mamba_" + k: t for k, t in st["mamba"].items()}}
+        fresh = {"lengths": lengths,
+                 **{k: state[k].clone() for k in ("k", "v")},
+                 "mamba": {k: t.clone() for k, t in state["mamba"].items()}}
+        logits, new = model.decode_step(params, fresh, dtokens, backend=be)
+        out.update(decode_logits=logits,
+                   decode_new_k=new["k"][:, at[0], at[1]],
+                   decode_new_v=new["v"][:, at[0], at[1]],
+                   decode_mamba_ssm=new["mamba"]["ssm"])
+        return out
+
+    runs = {"cuda": run("cuda"), "torch": run("torch")}
+    with one_token_mask_errors(torch):
+        runs["mutant"] = run("torch")
+    parity_report(runs, PARITY_RTOL, card, phase,
+                  {"model": cfg.name, "prompt": prompt, "rows": rows},
+                  parity_only=("prefill_logits",)
+                  + tuple(k for k in runs["torch"] if "_mamba_" in k))
+
+
+def teacher_gap(torch, model, params, toks):
+    """prefill(toks[:, :k]) then TEACHER_J decode steps of the next
+    tokens, against prefill(toks) (k = TEACHER_K): (largest gap, largest
+    reference magnitude, within the bar)."""
+    ref, _ = model.prefill(params, {"tokens": toks})
+    lg, state = model.prefill(params, {"tokens": toks[:, :TEACHER_K]})
+    # the hybrid's K/V slots, grown to hold j more tokens in whole
+    # 64-token pages
+    grow = TEACHER_J + (-(TEACHER_K + TEACHER_J)) % 64
+    for k in ("k", "v"):
+        if k in state:
+            x = state[k]
+            state[k] = torch.cat([x, x.new_zeros(
+                x.shape[:2] + (grow,) + x.shape[3:])], dim=2)
+    for j in range(TEACHER_J):
+        lg, state = model.decode_step(params, state,
+                                      toks[:, TEACHER_K + j].contiguous())
+    a, b = lg.float(), ref.float()
+    ok = bool(((a - b).abs() <= TEACHER_ATOL + TEACHER_RTOL * b.abs()).all())
+    return float((a - b).abs().max()), float(b.abs().max()), ok
+
+
+def mixer_layer0(params, cfg):
+    """Layer 0's sequence mixer of the model (``mamba_block`` or
+    ``time_mix``) and its params, float32 on the CPU."""
+    from repro_torch.models import rwkv, ssm
+    lp = tree_apply(lambda t: t[0].float().cpu(), params["layers"])
+    if "mamba" in lp:
+        return "mamba_block", lp["mamba"], \
+            lambda p, x: ssm.mamba_block(p, x, cfg)
+    return "time_mix", lp, lambda p, x: rwkv.time_mix(p, x, cfg)
+
+
+def phase_recurrent_checks(torch, card, cfg, params, phase):
+    """At full width: the port's decode against teacher forcing in
+    float32 (held to the bar of tests/test_model_consistency.py) with
+    the bf16 gap beside it (a finding, not held), and layer 0's mixer in
+    float32 on the card against the CPU on the same input (held to
+    MIXER_RTOL of the output's largest magnitude)."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    toks = torch.randint(0, cfg.vocab_size, (1, TEACHER_K + TEACHER_J),
+                         generator=gen, device="cuda").to(torch.int32)
+    res = {"phase": phase, "card": card, "model": cfg.name,
+           "teacher_k": TEACHER_K, "teacher_j": TEACHER_J,
+           "rtol": TEACHER_RTOL, "atol": TEACHER_ATOL}
+    res["bf16_gap"], res["bf16_max_abs"], res["bf16_within_bar"] = \
+        teacher_gap(torch, model, params, toks)
+    f32 = tree_apply(lambda t: t.float(), params)
+    res["f32_gap"], res["f32_max_abs"], ok = teacher_gap(torch, model, f32,
+                                                         toks)
+    del f32
+    torch.cuda.empty_cache()
+    name, lp, mixer = mixer_layer0(params, cfg)
+    x = torch.randn((1, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(43))
+    want = mixer(lp, x)
+    got = mixer({k: v.cuda() for k, v in lp.items()}, x.cuda()).cpu()
+    scale = float(want.abs().max())
+    res.update(mixer=name, mixer_max_abs_diff=float((got - want).abs()
+                                                    .max()),
+               mixer_max_abs=scale, mixer_tol=MIXER_RTOL * scale)
+    emit(res)
+    if not ok:
+        raise AssertionError(f"{phase}: float32 decode misses teacher "
+                             f"forcing: {res}")
+    if not res["mixer_max_abs_diff"] <= res["mixer_tol"]:
+        raise AssertionError(f"{phase}: layer 0's {name} on the card "
+                             f"differs from the CPU's: {res}")
 
 
 # ---------------------------------------------------------------------------
@@ -2442,17 +2818,18 @@ def main() -> int:
     launches.update({name: by_path["mla_serve"][name] for name in MLA_PATH})
     phase_mla_parity(torch, params, mla_cfg, smi)
     # MLA on the dense slots and with monolithic prefill, same weights
-    _, by_path["mla_dense_serve"] = phase_serve(
+    # (the returned tree is that one: binding it would outlive `del`)
+    by_path["mla_dense_serve"] = phase_serve(
         torch, kernel_fns, MLA_DENSE_PATH, smi, mla_cfg,
         EngineConfig(paged=False, max_len=MLA_MAX_LEN), system_blocks=1,
         shared_tail=588, phase="mla_dense_serve", params=params,
-        expect=("inject_hits", "monolithic_prefills"))
-    _, by_path["mla_monolithic_serve"] = phase_serve(
+        expect=("inject_hits", "monolithic_prefills"))[1]
+    by_path["mla_monolithic_serve"] = phase_serve(
         torch, kernel_fns, MLA_DENSE_PATH, smi, mla_cfg,
         EngineConfig(chunked_prefill=False, fused_step=False,
                      max_len=MLA_MAX_LEN), system_blocks=1, shared_tail=588,
         phase="mla_monolithic_serve", params=params,
-        expect=("cow_share_hits", "monolithic_prefills"))
+        expect=("cow_share_hits", "monolithic_prefills"))[1]
     phase_mla_dense_parity(torch, params, mla_cfg, smi)
     del params
     torch.cuda.empty_cache()
@@ -2463,11 +2840,12 @@ def main() -> int:
         system_blocks=2, shared_tail=128, phase="dense_serve",
         expect=("inject_hits", "monolithic_prefills"))
     launches["flash_prefill"] = by_path["dense_serve"]["flash_prefill"]
-    _, by_path["monolithic_serve"] = phase_serve(
+    by_path["monolithic_serve"] = phase_serve(
         torch, kernel_fns, DENSE_PATH, smi, llama,
         EngineConfig(chunked_prefill=False, fused_step=False),
         system_blocks=2, shared_tail=128, phase="monolithic_serve",
-        expect=("cow_share_hits", "monolithic_prefills"))
+        expect=("cow_share_hits", "monolithic_prefills"),
+        params=params)[1]
     by_path["int8_decode"] = phase_int8_decode(torch, kernel_fns, params,
                                                smi, llama)
     launches["paged_decode_int8"] = \
@@ -2489,6 +2867,21 @@ def main() -> int:
             phase + "_generate")
         phase_cross_parity(torch, params, cfg, smi, prompt, len(prompts),
                            max_len, phase + "_parity")
+        del params
+        torch.cuda.empty_cache()
+
+    # the recurrent families on their dense per-row state
+    for name, phase in (("zamba2-1.2b", "hybrid"), ("rwkv6-1.6b", "rwkv")):
+        cfg = get_config(name)
+        params = build_model(cfg).init_params(0, device="cuda")
+        by_path[phase + "_generate"] = phase_recurrent_generate(
+            torch, kernel_fns, smi, cfg, params, RECURRENT_PROMPTS,
+            RECURRENT_MAX_LEN, RECURRENT_STEPS, phase + "_generate")
+        if phase == "hybrid":
+            phase_hybrid_parity(torch, params, cfg, smi,
+                                HYBRID_PARITY_PROMPT, len(RECURRENT_PROMPTS),
+                                RECURRENT_MAX_LEN)
+        phase_recurrent_checks(torch, smi, cfg, params, phase + "_checks")
         del params
         torch.cuda.empty_cache()
 

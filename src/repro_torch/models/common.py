@@ -96,6 +96,24 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(dt) * gamma
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """float32 mean and population variance, cast back to x's dtype
+    before ``* gamma + beta`` (the JAX package's rounding order)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * gamma + beta
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it (no
+    threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """silu in float32, cast to x's dtype, then times the up projection."""
@@ -103,6 +121,28 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = torch.matmul(x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
     return torch.matmul(h, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Chunked scans (the recurrent mixers' prefill)
+# ---------------------------------------------------------------------------
+def chunked_scan(step: Callable, tensors, chunk: int, state):
+    """Run ``step(chunks, state) -> (y, state)`` over tensors [B,S,...]
+    cut into S // chunk full chunks, then one remainder chunk of
+    S mod chunk tokens, each group passed as [B, n_chunks, c, ...] with
+    the state that enters it.  Returns (y [B,S,...], the final state)."""
+    b, s = tensors[0].shape[:2]
+    chunk = min(chunk, s)
+    full = (s // chunk) * chunk
+    ys = []
+    for lo, hi, c in ((0, full, chunk), (full, s, s - full)):
+        if hi == lo:
+            continue
+        y, state = step([t[:, lo:hi].reshape((b, (hi - lo) // c, c)
+                                             + t.shape[2:])
+                         for t in tensors], state)
+        ys.append(y.reshape((b, hi - lo) + y.shape[3:]))
+    return (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), state
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Decoder-only model (GQA / MHA / MQA or MLA attention, dense or MoE
-FFN) over the paged KV pool or the dense slot cache, and the two
+FFN) over the paged KV pool or the dense slot cache; the two
 cross-attention families on the dense slot cache: the VLM
 (``VLMModel``, llama-3.2-vision) and the Whisper-style encoder-decoder
-(``EncDecModel``).
+(``EncDecModel``); and the two recurrent families on a dense per-row
+state: the Mamba2 hybrid (``HybridModel``, zamba2) and RWKV6
+(``RWKVModel``).
 
 The serving entry points of the JAX package's ``DecoderModel``, as
 plain functions of (params, state, ...).  Over the paged pool:
@@ -64,8 +66,18 @@ frames are precomputed embeddings (``batch["patches"]`` [B,P,D],
 package too.  The state gains the memory's keys and values, "xk"/"xv"
 [n_cross or L, B, P or enc_len, Hkv, hd]; cross-attention
 (``attention.full_attention``) is plain PyTorch, self-attention runs
-the flash prefill and paged decode kernels.  The hybrid and RWKV
-families are not ported yet: ``build_model`` raises.
+the flash prefill and paged decode kernels.
+
+The hybrid and RWKV families likewise have ``prefill`` and
+``decode_step`` only.  Their state is a tree (``init_decode_state``
+maps the spec tree): the hybrid's "mamba" {ssm, conv_x, conv_B, conv_C}
+[L,B,...] beside its shared block's "k"/"v" [n_apps,B,S,Hkv,hd]; RWKV's
+"wkv" [L,B,H,hd,hd] and "tm_x"/"cm_x" [L,B,D].  A decode step
+overwrites the recurrent state in place, as it does the K/V slots.  The
+Mamba2 and WKV mixers are plain PyTorch (``models/ssm.py``,
+``models/rwkv.py``), as the JAX package keeps them in ``jnp``; the
+hybrid's shared attention runs the flash prefill and paged decode
+kernels.
 """
 from __future__ import annotations
 
@@ -74,14 +86,15 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.config import (FAMILY_DECODER, FAMILY_ENCDEC, FAMILY_MOE,
+from repro_torch.config import (FAMILY_DECODER, FAMILY_ENCDEC,
+                                FAMILY_HYBRID, FAMILY_MOE, FAMILY_RWKV,
                                 FAMILY_VLM, MLA, ModelConfig)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import moe, rwkv, ssm
 from repro_torch.models.common import (PSpec, materialize, resolve_device,
-                                       rms_norm, sinusoid_at, stack_specs,
-                                       swiglu)
+                                       layer_norm, rms_norm, sinusoid_at,
+                                       stack_specs, swiglu, tree_map)
 
 Params = Any
 KV_DTYPES = ("bfloat16", "int8")
@@ -123,7 +136,7 @@ class Model:
     def param_specs(self) -> Params:
         raise NotImplementedError
 
-    def decode_state_specs(self, batch: int, max_len: int) -> Dict[str, PSpec]:
+    def decode_state_specs(self, batch: int, max_len: int) -> Params:
         raise NotImplementedError
 
     def supports_paged_decode(self) -> bool:
@@ -143,14 +156,15 @@ class Model:
         return materialize(self.specs, gen, dtype=dtype, device=device)
 
     def init_decode_state(self, batch: int, max_len: int,
-                          device=None) -> Dict[str, torch.Tensor]:
-        """Zeroed slot state (bf16 unless a spec names its dtype) on the
-        CUDA card unless ``device`` names another."""
+                          device=None) -> Params:
+        """Zeroed slot state, a tree of the spec tree's shape (bf16
+        unless a spec names its dtype), on the CUDA card unless
+        ``device`` names another."""
         device = resolve_device(device)
-        return {key: torch.zeros(p.shape, device=device,
-                                 dtype=getattr(torch, p.dtype or "bfloat16"))
-                for key, p in self.decode_state_specs(batch,
-                                                      max_len).items()}
+        return tree_map(
+            lambda p: torch.zeros(p.shape, device=device,
+                                  dtype=getattr(torch, p.dtype or "bfloat16")),
+            self.decode_state_specs(batch, max_len))
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
@@ -717,21 +731,230 @@ class EncDecModel(Model):
         return self._logits(params, x), {**state, "lengths": lengths + 1}
 
 
+class HybridModel(Model):
+    """zamba2: a Mamba2 backbone and ONE shared attention block (GQA
+    attention and a SwiGLU FFN, weights shared) applied after each of
+    ``cfg.attn_layer_ids()``.  ``prefill`` and ``decode_step`` on a
+    dense per-row state: each Mamba layer's SSM and conv state, and each
+    application's K/V slots.  The shared block's attention runs the
+    flash prefill kernel in ``prefill`` and the paged decode kernel over
+    the slots seen as pages in ``decode_step``, as the VLM's self layers
+    do; the Mamba2 mixer is plain PyTorch (``models/ssm.py``)."""
+
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        layer = {"mamba": ssm.mamba_pspecs(cfg), "ln": _ln_spec(cfg.d_model)}
+        shared = {"attn": attn.attn_pspecs(cfg), "ffn": _dense_ffn_pspecs(cfg),
+                  "ln1": _ln_spec(cfg.d_model), "ln2": _ln_spec(cfg.d_model)}
+        return {
+            "embed": PSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
+            "layers": stack_specs(layer, cfg.n_layers),
+            "shared": shared,
+            "ln_f": _ln_spec(cfg.d_model),
+        }
+
+    def decode_state_specs(self, batch: int, max_len: int) -> Params:
+        """The JAX package's: "mamba" {ssm [L,B,H,P,N], conv_x
+        [L,B,K-1,di], conv_B/conv_C [L,B,K-1,N]}, the shared block's K/V
+        slots "k"/"v" [n_apps,B,max_len,Hkv,hd] and "lengths" [B]."""
+        cfg = self.cfg
+        kv = PSpec((len(cfg.attn_layer_ids()), batch, max_len,
+                    cfg.n_kv_heads, cfg.hd),
+                   ("layers", "batch", "kv_seq", None, None), init="zeros")
+        return {"mamba": stack_specs(ssm.mamba_state_pspecs(cfg, batch),
+                                     cfg.n_layers),
+                "k": kv, "v": kv,
+                "lengths": PSpec((batch,), ("batch",), init="zeros",
+                                 dtype="int32")}
+
+    def _segments(self):
+        """(first layer, end layer, shared block after it?) runs."""
+        bounds, prev = [], 0
+        for i in self.cfg.attn_layer_ids():
+            bounds.append((prev, i + 1, True))
+            prev = i + 1
+        if prev < self.cfg.n_layers:
+            bounds.append((prev, self.cfg.n_layers, False))
+        return bounds
+
+    def _shared_ffn(self, sp, x):
+        h = rms_norm(x, sp["ln2"], self.cfg.norm_eps)
+        f = sp["ffn"]
+        return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+
+    def prefill(self, params, batch, backend=None):
+        """Prefill of ``batch["tokens"]`` [B,S] from position 0 (S at
+        least K-1 = ``ssm_conv - 1``).  Returns (logits of the last
+        position [B,V], {"mamba": each layer's state after the prompt,
+        "k"/"v" [n_apps,B,S,Hkv,hd], "lengths" [B] = S})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        sp = params["shared"]
+        x = self._embed(params, tokens)
+        mamba, kv = [], []
+        for lo, hi, has_attn in self._segments():
+            for i in range(lo, hi):
+                lp = layer_params(params, i)
+                y, st = ssm.mamba_block_with_state(
+                    lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+                x = x + y
+                mamba.append(st)
+            if has_attn:
+                h = rms_norm(x, sp["ln1"], cfg.norm_eps)
+                q, k, v = attn.project_qkv(sp["attn"], h, positions, cfg)
+                o = attn.causal_attention(q, k, v, backend=backend)
+                x = self._shared_ffn(sp, x + attn.out_proj(o,
+                                                           sp["attn"]["wo"]))
+                kv.append((k, v))
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        k, v = (torch.stack(c) for c in zip(*kv))
+        lengths = torch.full((b,), s, dtype=torch.int32,
+                             device=tokens.device)
+        return self._logits(params, x[:, -1]), {
+            "mamba": {key: torch.stack([st[key] for st in mamba])
+                      for key in mamba[0]},
+            "k": k, "v": v, "lengths": lengths}
+
+    def decode_step(self, params, state, tokens, backend=None):
+        """One batched decode step over the dense per-row state: each
+        Mamba layer's recurrent update (its state overwritten in place),
+        and at application ``ai`` the shared block over its slots (the
+        new K/V written at each row's length in place, RoPE at that
+        length, the paged decode kernel over length + 1 tokens).
+        Returns (logits [B,V], state with lengths + 1)."""
+        cfg = self.cfg
+        lengths = state["lengths"]
+        sp = params["shared"]
+        x = self._embed(params, tokens)                         # [B, D]
+        ai = 0
+        for lo, hi, has_attn in self._segments():
+            for i in range(lo, hi):
+                lp = layer_params(params, i)
+                st = {key: t[i] for key, t in state["mamba"].items()}
+                y, new = ssm.mamba_decode_step(
+                    lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), st,
+                    cfg)
+                x = x + y
+                for key, t in new.items():
+                    st[key].copy_(t)
+            if has_attn:
+                xs = x[:, None]
+                h = rms_norm(xs, sp["ln1"], cfg.norm_eps)
+                q, k_new, v_new = attn.project_qkv(sp["attn"], h,
+                                                   lengths[:, None], cfg)
+                k_c, v_c = state["k"][ai], state["v"][ai]
+                attn.cache_write(k_c, k_new, lengths)
+                attn.cache_write(v_c, v_new, lengths)
+                o = attn.decode_attention(q, k_c, v_c, lengths + 1,
+                                          backend=backend)
+                x = self._shared_ffn(
+                    sp, xs + attn.out_proj(o, sp["attn"]["wo"]))[:, 0]
+                ai += 1
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return self._logits(params, x), {**state, "lengths": lengths + 1}
+
+
+class RWKVModel(Model):
+    """RWKV6: ``ln0`` after the embedding, then per layer the time-mix
+    and the channel-mix, each after its layer norm (with bias), an
+    ``ln_f`` with zero bias and an untied ``head``.  ``prefill`` and
+    ``decode_step`` on a dense per-row state: each layer's wkv state and
+    its last ln1 / ln2 outputs (the token shift).  Plain PyTorch
+    (``models/rwkv.py``): no kernel."""
+
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        d = cfg.d_model
+        bias = PSpec((d,), ("embed",), init="zeros")
+        layer = dict(rwkv.rwkv_pspecs(cfg), ln1_g=_ln_spec(d), ln1_b=bias,
+                     ln2_g=_ln_spec(d), ln2_b=bias)
+        return {
+            "embed": PSpec((cfg.vocab_size, d), ("vocab", "embed")),
+            "ln0_g": _ln_spec(d),
+            "ln0_b": bias,
+            "layers": stack_specs(layer, cfg.n_layers),
+            "ln_f": _ln_spec(d),
+            "head": PSpec((d, cfg.vocab_size), ("embed", "vocab")),
+        }
+
+    def decode_state_specs(self, batch: int, max_len: int) -> Params:
+        """The JAX package's: "wkv" [L,B,H,hd,hd], "tm_x"/"cm_x" [L,B,D]
+        and "lengths" [B]; ``max_len`` does not size it."""
+        st = stack_specs(rwkv.rwkv_state_pspecs(self.cfg, batch),
+                         self.cfg.n_layers)
+        st["lengths"] = PSpec((batch,), ("batch",), init="zeros",
+                              dtype="int32")
+        return st
+
+    def _ln(self, x, g, b):
+        return layer_norm(x, g, b, self.cfg.norm_eps)
+
+    def _final(self, params, x):
+        return self._logits(params, self._ln(x, params["ln_f"],
+                                             torch.zeros_like(
+                                                 params["ln_f"])))
+
+    def prefill(self, params, batch):
+        """Prefill of ``batch["tokens"]`` [B,S].  Returns (logits of the
+        last position [B,V], {"wkv" [L,B,H,hd,hd] bf16 (as the JAX
+        package returns it), "tm_x"/"cm_x" [L,B,D] the last token's ln1
+        / ln2 outputs, "lengths" [B] = S})."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._ln(self._embed(params, tokens), params["ln0_g"],
+                     params["ln0_b"])
+        states = []
+        for i in range(self.cfg.n_layers):
+            lp = layer_params(params, i)
+            h = self._ln(x, lp["ln1_g"], lp["ln1_b"])
+            out, wkv = rwkv.time_mix_with_state(lp, h, self.cfg)
+            x = x + out
+            h2 = self._ln(x, lp["ln2_g"], lp["ln2_b"])
+            x = x + rwkv.channel_mix(lp, h2)
+            states.append({"wkv": wkv.to(torch.bfloat16), "tm_x": h[:, -1],
+                           "cm_x": h2[:, -1]})
+        state = {key: torch.stack([st[key] for st in states])
+                 for key in states[0]}
+        state["lengths"] = torch.full((b,), s, dtype=torch.int32,
+                                      device=tokens.device)
+        return self._final(params, x[:, -1]), state
+
+    def decode_step(self, params, state, tokens):
+        """One batched decode step: every layer's state overwritten in
+        place.  Returns (logits [B,V], state with lengths + 1)."""
+        x = self._ln(self._embed(params, tokens), params["ln0_g"],
+                     params["ln0_b"])
+        for i in range(self.cfg.n_layers):
+            lp = layer_params(params, i)
+            st = {key: state[key][i] for key in ("wkv", "tm_x", "cm_x")}
+            h = self._ln(x, lp["ln1_g"], lp["ln1_b"])
+            out, new = rwkv.rwkv_decode_step(lp, h, st, self.cfg)
+            x = x + out
+            h2 = self._ln(x, lp["ln2_g"], lp["ln2_b"])
+            out, new = rwkv.channel_mix_step(lp, h2, new)
+            x = x + out
+            for key, t in st.items():
+                t.copy_(new[key])
+        return self._final(params, x), {**state,
+                                        "lengths": state["lengths"] + 1}
+
+
 def build_model(cfg: ModelConfig, kv_dtype: str = "bfloat16") -> Model:
     """The decoder-only model (GQA/MHA/MQA or MLA attention, dense or MoE
-    FFN) with a bf16 or int8 dense slot cache, the VLM or the
-    encoder-decoder (bf16 slots); the hybrid and RWKV families are not
-    ported."""
+    FFN) with a bf16 or int8 dense slot cache; the VLM, the
+    encoder-decoder and the hybrid with bf16 slots; RWKV6."""
     if cfg.family in (FAMILY_DECODER, FAMILY_MOE):
         return DecoderModel(cfg, kv_dtype=kv_dtype)
     if cfg.family == FAMILY_VLM:
         return VLMModel(cfg, kv_dtype=kv_dtype)
-    if cfg.family == FAMILY_ENCDEC:
-        if kv_dtype != "bfloat16":
-            raise ValueError(f"{cfg.name}: the encoder-decoder keeps a bf16 "
-                             f"slot cache")
-        return EncDecModel(cfg)
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported to PyTorch yet "
-        f"(decoder-only GQA/MHA/MQA/MLA models, dense or MoE, the VLM and "
-        f"the encoder-decoder)")
+    families = {FAMILY_ENCDEC: EncDecModel, FAMILY_HYBRID: HybridModel,
+                FAMILY_RWKV: RWKVModel}
+    if cfg.family not in families:
+        raise NotImplementedError(f"{cfg.name}: unknown family "
+                                  f"{cfg.family!r}")
+    if kv_dtype != "bfloat16":
+        raise ValueError(f"{cfg.name}: the {cfg.family} family keeps a "
+                         f"bf16 state")
+    return families[cfg.family](cfg)

@@ -124,10 +124,14 @@ class ServingEngine:
         engine_cfg = EngineConfig() if engine_cfg is None else engine_cfg
         if cfg.family not in (FAMILY_DECODER, FAMILY_MOE):
             # the VLM and the encoder-decoder need their patches / frames
-            # beside each prompt; they have model-level entry points only
+            # beside each prompt; the JAX slot cache drops a hybrid
+            # model's Mamba state (it copies only K/V into a slot), so
+            # there is no correct engine behaviour to copy for the
+            # hybrid and RWKV6.  All four have model-level entry points.
             raise NotImplementedError(
                 f"{cfg.name}: the engine serves decoder-only models, not "
-                f"the {cfg.family!r} family")
+                f"the {cfg.family!r} family (the JAX slot cache drops a "
+                f"recurrent state; use the model's prefill / decode_step)")
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)

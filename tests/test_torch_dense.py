@@ -411,6 +411,33 @@ def test_ab_path_matches_jax_engine(flag, workload):
         assert tst["cow_share_hits"] + tst["inject_hits"] > 0
 
 
+@pytest.mark.parametrize("workload", sorted(WORKLOADS))
+@pytest.mark.parametrize("flag", sorted(FLAGS))
+def test_ab_path_matches_jax_engine_on_scaled_weights(monkeypatch, flag,
+                                                      workload):
+    """The same workloads and paths with the layer weights scaled x8 but
+    for the attention score path (``test_torch_moe.engine_params``):
+    greedy tokens that are mostly no echo, equal to the JAX engine's
+    (bf16 on the dense slots, where the two may part only at a near
+    tie), and equal counters."""
+    waves_fn, kw = WORKLOADS[workload]
+    kw = dict(kw)
+    block = kw.pop("block_tokens", 0)
+    jcfg = reduce_config(get_config("llama3.2-1b"))
+    tcfg = t_reduce(t_get("llama3.2-1b"))
+    if block:
+        jcfg = dataclasses.replace(jcfg, kv_block_tokens=block)
+        tcfg = dataclasses.replace(tcfg, kv_block_tokens=block)
+    waves = waves_fn()
+    jax_run, port_run = moe_tests.serve_pair(monkeypatch, jcfg, tcfg,
+                                             FLAGS[flag], waves, **kw)
+    moe_tests.assert_engines_agree(waves, jax_run, port_run,
+                                   bf16=flag == "dense")
+    if workload == "prefix":
+        st = port_run[1]
+        assert st["cow_share_hits"] + st["inject_hits"] > 0
+
+
 @pytest.mark.parametrize("flag", sorted(FLAGS))
 def test_ab_path_matches_port_default_path(flag):
     """Each A/B path generates the port's default (paged, chunked,
@@ -443,6 +470,40 @@ def test_dense_preempt_restore_matches_jax():
         eng.run()
         assert req.generated == ref.generated
         eng.shutdown()
+        outs.append((req.generated, payload.shape, payload.nbytes,
+                     payload.dtype.itemsize))
+    assert outs[0] == outs[1]
+
+
+def test_dense_preempt_restore_matches_jax_on_scaled_weights():
+    """The dense-layout preemption on bf16 weights scaled x8 but for the
+    attention score path: the restored request decodes its reference
+    run's tokens in each engine, most of them no echo, and the two
+    engines' tokens and payloads agree."""
+    jcfg = reduce_config(get_config("llama3.2-1b"))
+    tcfg = t_reduce(t_get("llama3.2-1b"))
+    params = moe_tests.engine_params(jcfg, {"paged": False})
+    kw = dict(paged=False, max_len=256, kv_budget_bytes=32e6)
+    engines = (JEngine(jcfg, JConfig(tier_specs=J_TIERS, **kw),
+                       params=params),
+               TEngine(tcfg, TConfig(**kw), device="cpu",
+                       params=params_from_numpy(
+                           jax.tree.map(np.asarray, params), device="cpu")))
+    prompt = list(range(40, 168))
+    outs = []
+    for eng, sampling in zip(engines, (JSampling, TSampling)):
+        ref = eng.submit(prompt, params=sampling(max_new_tokens=8))
+        eng.run()
+        req = eng.submit(prompt, params=sampling(max_new_tokens=8))
+        eng.step()
+        eng.preempt(req)
+        payload = eng._preempted_payloads[req.request_id][0]
+        assert eng.worker.drain(5.0)
+        eng._poll_transfers()
+        eng.run()
+        assert req.generated == ref.generated
+        eng.shutdown()
+        moe_tests.assert_no_echo([[prompt]], [req.generated])
         outs.append((req.generated, payload.shape, payload.nbytes,
                      payload.dtype.itemsize))
     assert outs[0] == outs[1]

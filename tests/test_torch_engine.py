@@ -34,6 +34,8 @@ from repro_torch.serving import engine as t_engine  # noqa: E402
 from repro_torch.serving.kvcache import (payload_from_tensor,  # noqa: E402
                                          tensor_from_payload)
 
+import test_torch_moe as moe_tests  # noqa: E402
+
 COUNTERS = ("prefill_chunks", "cow_share_hits", "segment_chunks",
             "segment_share_hits", "inject_hits")
 # the JAX engine prices block recompute at the TPU v5e bf16 peak
@@ -116,6 +118,64 @@ def test_engine_segment_reuse_matches_jax():
     st = _assert_same([[a], [b]], block_tokens=16, page_tokens=16,
                       max_len=128, kv_budget_bytes=4e6)
     assert st["segment_chunks"] > 0 and st["segment_share_hits"] > 0
+
+
+def _batch_waves():
+    rng = np.random.default_rng(7)
+    return [[[int(t) for t in rng.integers(0, 250, size=48)]
+             for _ in range(4)]]
+
+
+def _prefix_waves():
+    rng = np.random.default_rng(8)
+    prefix = [int(t) for t in rng.integers(0, 250, size=32)]
+    return [[prefix + [int(t) for t in rng.integers(0, 250, size=21)]],
+            [prefix + [int(t) for t in rng.integers(0, 250, size=13)]]]
+
+
+def _segment_waves():
+    rng = np.random.default_rng(9)
+    seg = [[int(t) for t in rng.integers(0, 250, size=16)]
+           for _ in range(3)]
+    x0 = [int(t) for t in rng.integers(0, 250, size=16)]
+    return [[seg[0] + seg[1] + seg[2]
+             + [int(t) for t in rng.integers(0, 250, size=9)]],
+            [x0 + seg[1] + seg[2]
+             + [int(t) for t in rng.integers(0, 250, size=11)]]]
+
+
+# the three workloads above on the default path, with the counter each
+# must exercise
+SCALED_WORKLOADS = {
+    "batch": (_batch_waves, 0, dict(max_len=128, kv_budget_bytes=5e5),
+              "prefill_chunks"),
+    "prefix": (_prefix_waves, 16, dict(page_tokens=16, max_len=128,
+                                       kv_budget_bytes=4e6),
+               "cow_share_hits"),
+    "segments": (_segment_waves, 16, dict(page_tokens=16, max_len=128,
+                                          kv_budget_bytes=4e6),
+                 "segment_share_hits"),
+}
+
+
+@pytest.mark.parametrize("workload", sorted(SCALED_WORKLOADS))
+def test_engine_matches_jax_on_scaled_weights(monkeypatch, workload):
+    """The batch, shared-prefix and segment-reuse workloads on the
+    default path with the layer weights scaled x8 but for the attention
+    score path (``test_torch_moe.engine_params``): greedy tokens that are
+    mostly no echo of the prompt's last token, equal to the JAX engine's
+    (float32 params), and equal counters."""
+    waves_fn, block, kw, counter = SCALED_WORKLOADS[workload]
+    jcfg = reduce_config(get_config("llama3.2-1b"))
+    tcfg = t_reduce(t_get("llama3.2-1b"))
+    if block:
+        jcfg = dataclasses.replace(jcfg, kv_block_tokens=block)
+        tcfg = dataclasses.replace(tcfg, kv_block_tokens=block)
+    waves = waves_fn()
+    jax_run, port_run = moe_tests.serve_pair(monkeypatch, jcfg, tcfg, {},
+                                             waves, **kw)
+    moe_tests.assert_engines_agree(waves, jax_run, port_run, bf16=False)
+    assert port_run[1][counter] > 0
 
 
 def test_engine_preempt_restore_matches_jax():

@@ -937,3 +937,51 @@ def test_cross_attention_model_on_card_matches_cpu(cuda, arch):
     assert _err(logits["cuda"].cpu(), logits["cpu"]) <= F32_TOL
     assert cuda.flash_prefill.launches > flash
     assert cuda.paged_decode_attention.launches > dec
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b"])
+def test_recurrent_model_on_card_matches_cpu(cuda, arch):
+    """Reduced hybrid and RWKV6, float32 weights: a 70-token prefill of
+    two rows (a full SSD chunk and a remainder; WKV chunks and a
+    remainder) and three greedy decode steps on the card equal the CPU's
+    within 1e-4, every state leaf too; the hybrid's shared attention
+    launches kernels 7 and 1."""
+    from repro_torch.config import reduce_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    m = build_model(reduce_config(get_config(arch)))
+    cfg = m.cfg
+    params = m.init_params(3, device="cpu", dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    flash = cuda.flash_prefill.launches
+    dec = cuda.paged_decode_attention.launches
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        lg, st = m.prefill(p, {"tokens": toks.to(dev)})
+        if "k" in st:           # the hybrid's K/V slots, grown to 128
+            for key in ("k", "v"):
+                st[key] = torch.cat([st[key], st[key].new_zeros(
+                    st[key].shape[:2] + (58,) + st[key].shape[3:])], dim=2)
+        st = {k: (_to(v, dev) if isinstance(v, dict)
+                  else v.float() if v.is_floating_point() else v)
+              for k, v in st.items()}
+        if "mamba" in st:
+            st["mamba"] = {k: v.float() for k, v in st["mamba"].items()}
+        logits = [lg]
+        for _ in range(3):
+            lg, st = m.decode_step(p, st, lg.argmax(-1).to(torch.int32))
+            logits.append(lg)
+        out[dev] = (torch.stack(logits), st)
+    torch.cuda.synchronize()
+    assert _err(out["cuda"][0].cpu(), out["cpu"][0]) <= F32_TOL
+    for k, v in out["cpu"][1].items():
+        for kk, leaf in (v.items() if isinstance(v, dict) else [(k, v)]):
+            card = out["cuda"][1][k]
+            card = card[kk] if isinstance(v, dict) else card
+            assert _err(card.cpu().float(), leaf.float()) <= F32_TOL, kk
+    if arch.startswith("zamba2"):
+        assert cuda.flash_prefill.launches > flash
+        assert cuda.paged_decode_attention.launches > dec

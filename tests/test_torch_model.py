@@ -20,6 +20,7 @@ from repro_torch.configs import get_config as t_get  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PAGE, PAGES, SLOTS = 16, 6, 3
@@ -162,13 +163,29 @@ def test_prefill_chunk_seg_matches_jax(models):
         _close(tout[key], jout[key])
 
 
-def test_build_model_rejects_unported_families():
-    """The hybrid and RWKV families are not ported; the MoE decoders
-    (``tests/test_torch_moe.py``), the VLM and the encoder-decoder
-    (``tests/test_torch_crossattn.py``) are."""
+def test_build_model_builds_every_family():
+    """Every family builds: the MoE decoders (``tests/test_torch_moe.py``),
+    the VLM and the encoder-decoder (``tests/test_torch_crossattn.py``),
+    the hybrid and RWKV6 (``tests/test_torch_hybrid.py``,
+    ``tests/test_torch_rwkv.py``); the engine refuses the last two (the
+    JAX slot cache drops their recurrent state), with model-level entry
+    points only."""
+    m = build_model(t_get("zamba2-1.2b"))
+    assert set(m.specs) == {"embed", "layers", "shared", "ln_f"}
+    assert [s for s in m._segments() if s[2]][-1] == (30, 36, True)
+    assert m._segments()[-1] == (36, 38, False)
+    m = build_model(t_get("rwkv6-1.6b"))
+    assert set(m.specs) == {"embed", "ln0_g", "ln0_b", "layers", "ln_f",
+                            "head"}
     for name in ("rwkv6-1.6b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError):
-            build_model(t_reduce(t_get(name)))
+        cfg = t_reduce(t_get(name))
+        m = build_model(cfg)
+        assert not m.supports_paged_decode()
+        assert not hasattr(m, "decode_step_paged")
+        with pytest.raises(ValueError):
+            build_model(cfg, kv_dtype="int8")
+        with pytest.raises(NotImplementedError, match="recurrent state"):
+            ServingEngine(cfg, device="cpu")
     m = build_model(t_get("llama-3.2-vision-11b"))
     assert (m.n_cross, m.per) == (8, 5)
     assert set(m.specs["cross"]) == {"attn", "ln", "gate"}
