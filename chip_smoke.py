@@ -141,6 +141,30 @@ check raises and the script exits non-zero with no result line:
            bytes, no kernel may launch; ``time_mix`` for the mixer);
   every generate phase first checks that earlier phases hold less than
            0.2 GB on the card beside its weights (``held_at_start_gb``);
+  kernels  (continued) the flash prefill backward (``flash_prefill_bwd``:
+           D, dK/dV and dQ kernels) against its plain version at
+           llama3.2-1b's training micro-step (4 x 1024, 32 / 8 heads, hd
+           64), the ragged 1000, llama-3.2-vision's 32 / 8 at hd 128,
+           whisper-tiny's 6 / 6 and one float32 case, beside the backward
+           of F.scaled_dot_product_attention; the forward kernel with its
+           log-sum-exp at the micro-step (``flash_prefill_lse``);
+  train    llama3.2-1b at full width and depth: 6 AdamW steps of 8 x 1024
+           tokens in two micro-steps (``make_train_step``, every layer
+           under remat, attention through the flash prefill kernel and
+           its backward); per step the loss, host ms and tokens/s, the
+           peak memory, one more step under the profiler; the loss must
+           be finite and fall, and the launches equal 2 x layers x
+           micro-steps of kernel 7 and layers x micro-steps of the
+           backward a step;
+  train_parity  the same step's loss and every gradient leaf at two
+           layers with the kernels and with the plain versions on the
+           card;
+  train_resume  at two layers, 4 steps straight against 2 steps, a
+           checkpoint saved and restored under build/, and 2 more: every
+           param and AdamW leaf equal bit for bit;
+  train_families  one train_loss and backward of zamba2-1.2b (6 layers),
+           rwkv6-1.6b (4), whisper-tiny and llama-3.2-vision-11b (10) at
+           full width: the loss finite, every gradient present and finite;
   replay   the live-engine trace replay (``traces/serving_replay.py``)
            of the reduced llama3.2-1b at 32-token blocks and pages, four
            cells (lmsys and agentic whole-prefix, sharegpt and lmsys with
@@ -2259,6 +2283,455 @@ def phase_recurrent_checks(torch, card, cfg, params, phase):
 
 
 # ---------------------------------------------------------------------------
+# training: the flash prefill backward, the train step, its parity,
+# resume and the other families' train_loss
+# ---------------------------------------------------------------------------
+H100_F32_FLOPS = 67e12               # float32 outside the tensor cores
+# Backward kernel vs plain version: both recompute the softmax and sum in
+# float32 (another order), so a bf16 gradient may round to a neighbouring
+# bf16 value: each of dq, dk, dv is held to two bf16 steps of its largest
+# magnitude (2^-6 of it, which counts as at least 1: with one token dQ
+# and dK are zero but for rounding); float32 to 1e-4 of it, the CPU
+# parity bar.  The library's backward (SDPA, bf16 probabilities) is held
+# to 2^-4 of it: it only guards against timing another function.
+BWD_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
+LIBRARY_BWD_RTOL = 2.0 ** -4
+# (name, B, S, Hq, Hkv, hd, dtype) of the backward rows: llama3.2-1b's
+# training micro-step (4 sequences of 1024), the ragged 1000,
+# llama-3.2-vision's 32 / 8 heads at hd 128 and whisper-tiny's 6 / 6
+# (G 1) at the train_families phase's lengths, and a float32 case
+BWD_CASES = (("flash_prefill_bwd", 4, 1024, 32, 8, 64, "bfloat16"),
+             ("flash_prefill_bwd_ragged", 4, 1000, 32, 8, 64, "bfloat16"),
+             ("flash_prefill_bwd_vlm", 1, 512, 32, 8, 128, "bfloat16"),
+             ("flash_prefill_bwd_whisper", 2, 448, 6, 6, 64, "bfloat16"),
+             ("flash_prefill_bwd_f32", 1, 512, 32, 8, 64, "float32"))
+# the train phase: llama3.2-1b at full width and depth, 8 sequences of
+# 1024 tokens a step in two micro-steps of 4, 6 AdamW steps under the
+# optimizer's default schedule (AdamWConfig(): lr 3e-4, 100 warmup
+# steps).  A 2-step warmup to 1e-3 makes the first update a sign step of
+# 5e-4 on every weight, and at this width the loss then jumps (12.15 ->
+# 18.25), with the kernels and with the plain versions alike
+# (scripts/train_schedule_probe.py).
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 1024, 8, 2, 6
+TRAIN_ADAMW = dict(lr=3e-4, warmup_steps=100, total_steps=10_000)
+# train_parity / train_resume: the same step with the depth cut to 2
+TRAIN_SHORT_LAYERS = 2
+# train_parity, kernels vs plain versions on the card (bf16 model): each
+# gradient leaf within 2^-4 of its largest magnitude (the serving parity
+# bar), the loss within 2^-8 of itself
+TRAIN_PARITY_RTOL, TRAIN_LOSS_RTOL = 2.0 ** -4, 2.0 ** -8
+# (name, layers kept, B, S) of train_families: full width, depth cut so
+# that each family keeps every kind of block (zamba2: 6 Mamba2 layers and
+# one application of the shared block; the VLM: two cross groups)
+TRAIN_FAMILIES = (("zamba2-1.2b", 6, 2, 512), ("rwkv6-1.6b", 4, 2, 512),
+                  ("whisper-tiny", None, 2, 448),
+                  ("llama-3.2-vision-11b", 10, 1, 512))
+
+
+def bwd_cost(a):
+    """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once)
+    and flops (10 * hd per attended (query, key) pair and query head: the
+    QK^T recompute, dO V^T and the dV, dK, dQ products) of one backward,
+    and the peak rate of the inputs' type."""
+    q, k = a["q"], a["k"]
+    B, S, Hq, hd = q.shape
+    el = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * el + a["lse"].numel() * 4
+    peak = H100_BF16_FLOPS if q.dtype != a["lse"].dtype else H100_F32_FLOPS
+    return nbytes, 10 * B * (S * (S + 1) // 2) * Hq * hd, peak
+
+
+def bwd_case(torch, gen, name, B, S, Hq, Hkv, hd, dtype):
+    """A backward's inputs: q, k, v, dO drawn N(0, 1), o and lse from the
+    forward kernel; the library yardstick is the backward of
+    F.scaled_dot_product_attention (causal, GQA) on the same values, its
+    graph built once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, S, Hq, hd), generator=gen, device="cuda")
+             .to(dt) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda")
+            .to(dt) for _ in range(2))
+    o, lse = flash_prefill(q, k, v, backend="cuda", with_lse=True)
+    a = dict(q=q, k=k, v=v, o=o, do=do, lse=lse)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                         enable_gqa=True)
+    doh = do.transpose(1, 2).contiguous()
+
+    def sdpa_bwd():
+        return tuple(g.transpose(1, 2) for g in torch.autograd.grad(
+            out, (qh, kh, vh), doh, retain_graph=True))
+    return name, a, sdpa_bwd
+
+
+def phase_train_kernels(torch, card):
+    """The backward kernel at BWD_CASES against its plain version (each of
+    dq, dk, dv within BWD_RTOL of its largest magnitude), both timed, the
+    SDPA backward beside them; then the forward kernel with its lse at
+    the train step's shape (``flash_prefill_lse``: output within
+    KERNEL_ATOL, lse within 1e-4 of its largest magnitude, against the
+    plain forward and ``ref.flash_prefill_lse``), SDPA's forward beside
+    it.  One JSON line per row, in the kernels phase."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
+    gen = torch.Generator(device="cuda").manual_seed(2222)
+    rows = {}
+    for case in BWD_CASES:
+        name, a, library = bwd_case(torch, gen, *case)
+        got = flash_prefill_bwd(**a, backend="cuda")
+        torch.cuda.synchronize()
+        plain = flash_prefill_bwd(**a, backend="torch")
+        rtol = BWD_RTOL[case[-1]]
+        errs, scales = [], []
+        for g, p in zip(got, plain):
+            errs.append(float((g.float() - p.float()).abs().max()))
+            scales.append(max(1.0, float(p.float().abs().max())))
+            if not (bool(torch.isfinite(g).all())
+                    and errs[-1] <= rtol * scales[-1]):
+                raise AssertionError(f"{name}: kernel vs plain gap "
+                                     f"{errs[-1]} (limit {rtol} x "
+                                     f"{scales[-1]})")
+        lib = library()
+        lib_err = max(float((g.float() - p.float()).abs().max()) / s
+                      for g, p, s in zip(lib, plain, scales))
+        if not lib_err <= LIBRARY_BWD_RTOL:
+            raise AssertionError(f"{name}: the library yardstick differs "
+                                 f"from the plain version by {lib_err} of "
+                                 f"the largest magnitude")
+        del got, plain, lib
+        nbytes, flops, peak = bwd_cost(a)
+        kt = time_ms(torch, lambda: flash_prefill_bwd(**a, backend="cuda"))
+        pt = time_ms(torch, lambda: flash_prefill_bwd(**a, backend="torch"),
+                     iters=5)
+        lt = time_ms(torch, library)
+        t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, flops / peak
+        rows[name] = {
+            "body": "cuda_core", "shape": list(case[1:6]), "dtype": case[-1],
+            "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+            "tol": [rtol * s for s in scales], "ms": kt["ms"],
+            "plain_ms": pt["ms"], "flush_ms": kt["flush_ms"],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "peak_flops": peak,
+            "tflops": flops / kt["ms"] / 1e9, "library_ms": lt["ms"],
+            "library_max_rel_err": lib_err}
+        emit({"phase": "kernels", "card": card, "kernel": name,
+              **rows[name]})
+
+    # the forward with its lse at one micro-step of the train phase
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    q = torch.randn((4, TRAIN_SEQ, 32, 64), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((4, TRAIN_SEQ, 8, 64), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    out, lse = flash_prefill(q, k, v, backend="cuda", with_lse=True)
+    torch.cuda.synchronize()
+    plain_out = flash_prefill(q, k, v, backend="torch")
+    plain_lse = ref.flash_prefill_lse(q, k)
+    err = float((out.float() - plain_out.float()).abs().max())
+    lse_err = float((lse - plain_lse).abs().max())
+    lse_tol = 1e-4 * float(plain_lse.abs().max())
+    if not (err <= KERNEL_ATOL and lse_err <= lse_tol):
+        raise AssertionError(f"flash_prefill_lse: output gap {err} (tol "
+                             f"{KERNEL_ATOL}), lse gap {lse_err} (tol "
+                             f"{lse_tol})")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    nbytes, flops = flash_cost({"q": q, "k": k})
+    nbytes += lse.numel() * 4
+    bound_ms, bound_by = bound(nbytes, flops)
+    kt = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda",
+                                              with_lse=True))
+    no_lse = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda"))
+    pt = time_ms(torch, lambda: flash_prefill(q, k, v, backend="torch",
+                                              with_lse=True), iters=5)
+    lt = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    rows["flash_prefill_lse"] = {
+        "body": kernel_body("flash_prefill", {"q": q}),
+        "shape": [4, TRAIN_SEQ, 32, 8, 64], "max_abs_err": err,
+        "lse_max_abs_err": lse_err, "tol": KERNEL_ATOL, "lse_tol": lse_tol,
+        "ms": kt["ms"], "ms_without_lse": no_lse["ms"], "plain_ms": pt["ms"],
+        "flush_ms": kt["flush_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "tflops": flops / kt["ms"] / 1e9, "library_ms": lt["ms"]}
+    emit({"phase": "kernels", "card": card, "kernel": "flash_prefill_lse",
+          **rows["flash_prefill_lse"]})
+    return rows
+
+
+def train_setup(torch, cfg, seed=0):
+    """(model, seeded bf16 params on the card, the seekable data stream)
+    of a training phase."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training import data as data_mod
+    model = build_model(cfg)
+    params = model.init_params(seed, device="cuda")
+    data = data_mod.SyntheticLM(data_mod.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH))
+    return model, params, data
+
+
+def train_batch(torch, data, cfg, step):
+    from repro_torch.launch.train import make_batch
+    return make_batch(data, cfg, step, TRAIN_BATCH, "cuda")
+
+
+def phase_train(torch, kernel_fns, card, cfg):
+    """TRAIN_STEPS AdamW steps of llama3.2-1b at full width and depth
+    through ``make_train_step`` (``n_micro`` TRAIN_MICRO), every count
+    zeroed just before and read just after; then one more step under the
+    profiler.  Each step's loss, host time (ending in a synchronise),
+    tokens/s; the peak memory.  Checks: every loss finite, the last below
+    the first, and the launches: under remat each layer's forward runs
+    twice a micro-step (the forward, then its recompute in the backward),
+    so kernel 7 launches 2 x layers x micro-steps a step and the backward
+    kernel layers x micro-steps."""
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train as train_mod
+    model, params, data = train_setup(torch, cfg)
+    held = check_held(torch, params, "train")
+    opt_state = opt_mod.init_state(params)
+    step_fn = train_mod.make_train_step(
+        model, adamw=opt_mod.AdamWConfig(**TRAIN_ADAMW), n_micro=TRAIN_MICRO)
+    state_gb = sum(tree_bytes(t) for t in (opt_state.master, opt_state.m,
+                                           opt_state.v)) / 1e9
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for s in range(TRAIN_STEPS):
+        batch = train_batch(torch, data, cfg, s)
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"step": s, "loss": float(m["loss"]),
+                      "lr": float(m["lr"]), "grad_norm": float(m["grad_norm"]),
+                      "ms": dt * 1e3,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt})
+        emit({"phase": "train", "card": card, **steps[-1]})
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    batch = train_batch(torch, data, cfg, TRAIN_STEPS)
+    out = {}
+
+    def one_step():
+        out["r"] = step_fn(params, opt_state, batch)
+    t0 = time.perf_counter()
+    prof = step_profile(torch, one_step)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    per_step = {"flash_prefill": 2 * cfg.n_layers * TRAIN_MICRO,
+                "flash_prefill_bwd": cfg.n_layers * TRAIN_MICRO}
+    want = {name: per_step.get(name, 0) * TRAIN_STEPS for name in launches}
+    losses = [r["loss"] for r in steps]
+    ms = sorted(r["ms"] for r in steps[1:])     # step 0 builds caches
+    emit({"phase": "train", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+          "n_micro": TRAIN_MICRO, "steps": TRAIN_STEPS, "adamw": TRAIN_ADAMW,
+          "params_gb": tree_bytes(params) / 1e9, "adamw_state_gb": state_gb,
+          "held_at_start_gb": held, "losses": losses,
+          "step_ms_median": ms[len(ms) // 2],
+          "tokens_per_s_median": TRAIN_BATCH * TRAIN_SEQ * 1e3
+          / ms[len(ms) // 2],
+          "peak_mem_gb": peak / 1e9, "launches": launches,
+          "launches_expected": want,
+          "launches_note": "kernel 7 runs twice a layer and micro-step "
+                           "(forward, then its recompute under remat)",
+          # the profiler slows the host: its step's device time is read
+          # against the median unprofiled step
+          "profiled_step": {**prof, "profiled_wall_ms": wall_ms,
+                            "device_idle_share": (
+                                None if prof["device_busy_ms"] is None
+                                else 1 - prof["device_busy_ms"]
+                                / ms[len(ms) // 2])}})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if launches != want:
+        raise AssertionError(f"train: launches {launches} != {want}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def short_config(cfg):
+    return dataclasses.replace(cfg, n_layers=TRAIN_SHORT_LAYERS)
+
+
+def phase_train_parity(torch, card, cfg):
+    """One train step's loss and gradients (``compute_grads``, TRAIN_MICRO
+    micro-steps) of llama3.2-1b at full width and TRAIN_SHORT_LAYERS
+    layers with the kernels and with the plain versions on the card
+    (``backend="torch"``), on the same params and batch.  Every leaf gets
+    a gradient in both (``compute_grads`` raises otherwise); each leaf
+    within TRAIN_PARITY_RTOL of its largest magnitude, the loss within
+    TRAIN_LOSS_RTOL.  The attention weights' gradients are nonzero."""
+    from repro_torch.training import train as train_mod
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
+    cfg = short_config(cfg)
+    model, params, data = train_setup(torch, cfg, seed=1)
+    batch = train_batch(torch, data, cfg, 0)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        before = flash_prefill_bwd.launches, flash_prefill.launches
+        grads, metrics = train_mod.compute_grads(
+            model, params, batch, n_micro=TRAIN_MICRO, backend=backend)
+        torch.cuda.synchronize()
+        runs[backend] = (grads, float(metrics["loss"]),
+                         (flash_prefill_bwd.launches - before[0],
+                          flash_prefill.launches - before[1]))
+    (gk, lk, nk), (gp, lp, np_) = runs["cuda"], runs["torch"]
+    worst, leaves = 0.0, {}
+    for (path, a), (_, b) in zip(tree_leaves(gk), tree_leaves(gp)):
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max())
+        rel = gap / scale if scale > 0 else gap
+        leaves["/".join(path)] = {"max_abs": scale, "gap_over_max": rel}
+        worst = max(worst, rel)
+    attn_scale = min(leaves[f"layers/attn/{w}"]["max_abs"]
+                     for w in ("wq", "wk", "wv"))
+    emit({"phase": "train_parity", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "loss_kernels": lk, "loss_plain": lp,
+          "loss_rel_gap": abs(lk - lp) / abs(lp), "loss_rtol": TRAIN_LOSS_RTOL,
+          "grad_rtol": TRAIN_PARITY_RTOL, "worst_gap_over_max": worst,
+          "launches_kernels_run": {"flash_prefill_bwd": nk[0],
+                                   "flash_prefill": nk[1]},
+          "launches_plain_run": {"flash_prefill_bwd": np_[0],
+                                 "flash_prefill": np_[1]},
+          "leaves": leaves})
+    if not abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp):
+        raise AssertionError(f"train_parity: loss {lk} vs {lp}")
+    if not worst <= TRAIN_PARITY_RTOL:
+        raise AssertionError(f"train_parity: a gradient leaf is "
+                             f"{worst} of its magnitude apart")
+    if not (attn_scale > 0 and nk[0] > 0 and np_ == (0, 0)):
+        raise AssertionError(f"train_parity: attention grads {attn_scale}, "
+                             f"launches {nk} / {np_}")
+
+
+def phase_train_resume(torch, card, cfg):
+    """At TRAIN_SHORT_LAYERS layers: 4 steps straight against 2 steps, a
+    checkpoint saved to and restored from a temporary directory under
+    build/ (removed afterwards), then 2 more; every param and AdamW state
+    leaf equal bit for bit (``torch.equal``)."""
+    import shutil
+    import tempfile
+    from repro_torch.training import checkpoint as ckpt_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train as train_mod
+    cfg = short_config(cfg)
+    model, params0, data = train_setup(torch, cfg, seed=2)
+    state0 = opt_mod.init_state(params0)
+    step_fn = train_mod.make_train_step(
+        model, adamw=opt_mod.AdamWConfig(**TRAIN_ADAMW), n_micro=TRAIN_MICRO)
+
+    def run(params, state, start, n):
+        for s in range(start, start + n):
+            params, state, _ = step_fn(params, state,
+                                       train_batch(torch, data, cfg, s))
+        return params, state
+    straight = run(params0, state0, 0, 4)
+    half = run(params0, state0, 0, 2)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_resume_", dir=ROOT / "build")
+    try:
+        mgr = ckpt_mod.CheckpointManager(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manifest = mgr.save(2, half)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(half)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    resumed = run(*restored, 2, 2)
+    a = ckpt_mod._leaf_paths(straight)
+    b = ckpt_mod._leaf_paths(resumed)
+    differ = [ka for (ka, x), (kb, y) in zip(a, b)
+              if ka != kb or x.dtype != y.dtype or not torch.equal(x, y)]
+    emit({"phase": "train_resume", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "leaves": len(a),
+          "checkpoint_bytes": manifest["delta"]["new_bytes"],
+          "save_s": save_s, "restore_s": restore_s,
+          "leaves_differing": differ[:10], "n_differing": len(differ)})
+    if differ or len(a) != len(b):
+        raise AssertionError(f"train_resume: {len(differ)} leaves differ "
+                             f"from the straight run: {differ[:10]}")
+
+
+def phase_train_families(torch, kernel_fns, card):
+    """One ``train_loss`` and backward at full width for each of
+    TRAIN_FAMILIES (depth cut as listed; the VLM's cross gates at
+    VLM_GATE and N(0, 1) patches, whisper's frames N(0, 1)): the loss
+    finite, every param leaf's gradient present and finite; the flash
+    kernels' launches printed (RWKV runs none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    by_family = {}
+    for name, layers, B, S in TRAIN_FAMILIES:
+        cfg = get_config(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
+        params = model.init_params(0, device="cuda")
+        if "cross" in params:
+            params["cross"]["gate"].fill_(VLM_GATE)
+        leaves = [t.requires_grad_(True) for _, t in tree_leaves(params)]
+        batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                  device="cuda").to(torch.int32)
+                 for k in ("tokens", "labels")}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn(
+                (B, cfg.n_patches, cfg.d_model), generator=gen,
+                device="cuda").bfloat16()
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(
+                (B, cfg.enc_len, cfg.d_model), generator=gen,
+                device="cuda").bfloat16()
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = model.train_loss(params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernel_fns.items()}
+        launches = {k: n for k, n in counts.items() if n}
+        bad = [("/".join(p)) for (p, _), t in zip(tree_leaves(params), leaves)
+               if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+        by_family[name] = counts
+        emit({"phase": "train_families", "card": card, "model": name,
+              "layers": cfg.n_layers, "batch": B, "seq_len": S,
+              "loss": float(loss.detach()), "step_s": wall,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "param_leaves": len(leaves), "bad_grads": bad,
+              "launches": launches})
+        attends = cfg.family != "rwkv"
+        if not (math.isfinite(float(loss.detach())) and not bad):
+            raise AssertionError(f"train_families {name}: loss "
+                                 f"{float(loss.detach())}, bad grads {bad}")
+        if attends != bool(launches.get("flash_prefill_bwd")):
+            raise AssertionError(f"train_families {name}: launches "
+                                 f"{launches}")
+        del params, leaves, loss, batch
+        torch.cuda.empty_cache()
+    return by_family
+
+
+# ---------------------------------------------------------------------------
 # the trace-replay, cluster and front-end drivers
 # ---------------------------------------------------------------------------
 # llama3.2-1b at full width with the replay's 32-token blocks
@@ -2728,6 +3201,10 @@ REPLACES = {
                       "src/repro/kernels/flash_prefill.py:65"),
     "paged_decode_int8": ("src/repro_torch/csrc/paged_decode.cu",
                           "src/repro/kernels/paged_attention.py:195"),
+    "flash_prefill_bwd": ("src/repro_torch/csrc/flash_prefill_bwd.cu",
+                          "src/repro/models/attention.py:119 "
+                          "causal_attention under jax.grad (no Pallas "
+                          "kernel)"),
 }
 GQA_PATH = ("paged_decode", "paged_prefill", "paged_prefill_seg")
 MLA_PATH = ("mla_paged_decode", "mla_paged_prefill", "mla_paged_prefill_seg")
@@ -2757,7 +3234,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
     from repro_torch.kernels.mla_paged_decode import mla_paged_decode
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_decode_attention_int8)
@@ -2775,7 +3253,8 @@ def main() -> int:
                   "mla_paged_prefill": mla_paged_prefill,
                   "mla_paged_prefill_seg": mla_paged_prefill_segments,
                   "flash_prefill": flash_prefill,
-                  "paged_decode_int8": paged_decode_attention_int8}
+                  "paged_decode_int8": paged_decode_attention_int8,
+                  "flash_prefill_bwd": flash_prefill_bwd}
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -2787,6 +3266,7 @@ def main() -> int:
     rows = phase_kernels(torch, ops, smi)
     rows.update(phase_mla_kernels(torch, ops, smi, mla_cfg))
     rows.update(phase_dense_kernels(torch, ops, smi))
+    rows.update(phase_train_kernels(torch, smi))
 
     # each path is driven with every count zeroed just before it; a
     # kernel's launches are those of its own path (``by_path``: every
@@ -2884,6 +3364,17 @@ def main() -> int:
         phase_recurrent_checks(torch, smi, cfg, params, phase + "_checks")
         del params
         torch.cuda.empty_cache()
+
+    # training: llama3.2-1b at full width and depth, then the same step at
+    # two layers against the plain versions and across a checkpoint, then
+    # one step of the other families
+    by_path["train"] = phase_train(torch, kernel_fns, smi, llama)
+    launches["flash_prefill_bwd"] = by_path["train"]["flash_prefill_bwd"]
+    phase_train_parity(torch, smi, llama)
+    phase_train_resume(torch, smi, llama)
+    for name, counts in phase_train_families(torch, kernel_fns,
+                                             smi).items():
+        by_path[f"train_families:{name}"] = counts
 
     phase_replay(torch, kernel_fns, smi)
     full = replay_full_config()

@@ -36,6 +36,10 @@
 //
 // Layouts: q [B,S,Hq,hd]; k/v [B,S,Hkv,hd]; out [B,S,Hq,hd]; one type
 // for all four (float32 or bfloat16); float32 softmax and accumulation.
+// An optional `lse` [B,Hq,S] float32 receives each row's log-sum-exp of
+// its scaled scores in natural-log units, which the backward kernels
+// (flash_prefill_bwd.cu) use to recompute the probabilities; serving
+// calls pass NULL and write nothing there.
 #include "mma_common.cuh"
 #include "paged_common.cuh"
 
@@ -72,7 +76,8 @@ __global__ void __launch_bounds__(flash_tc::NT)
     flash_prefill_tc(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int S, int Hq, int Hkv,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int S, int Hq, int Hkv,
                      float scale_log2) {
   using namespace flash_tc;
   constexpr int LD = ld<HD>(), KS = HD / 16, NS = KT / 8, NV = HD / 8;
@@ -172,6 +177,11 @@ __global__ void __launch_bounds__(flash_tc::NT)
     const int row = row0 + u * 8;
     const float den = fmaxf(mma::quad_sum(l[u]), 1e-30f);
     if (row >= S) continue;
+    // m is in log2 units (the scale carries log2 e); the lane of the
+    // row's quad with t = 0 writes it
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((size_t)b * Hq + h) * S + row] =
+          (m[u] + log2f(den)) * 0.6931471805599453f;
     __nv_bfloat16* orow = out + (((size_t)b * S + row) * Hq + h) * HD;
 #pragma unroll
     for (int n = 0; n < NV; ++n)
@@ -182,7 +192,7 @@ __global__ void __launch_bounds__(flash_tc::NT)
 
 template <int HD>
 static int launch_tc(const void* q, const void* k, const void* v, void* out,
-                     int B, int S, int Hq, int Hkv, float scale,
+                     float* lse, int B, int S, int Hq, int Hkv, float scale,
                      cudaStream_t stream) {
   const size_t smem = flash_tc::smem_bytes<HD>();
   auto kernel = flash_prefill_tc<HD>;
@@ -191,7 +201,7 @@ static int launch_tc(const void* q, const void* k, const void* v, void* out,
   dim3 grid((S + flash_tc::QT - 1) / flash_tc::QT, Hq, B);
   kernel<<<grid, flash_tc::NT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Hq, Hkv,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, S, Hq, Hkv,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -203,7 +213,8 @@ template <typename T>
 __global__ void flash_prefill_kernel(const T* __restrict__ q,
                                      const T* __restrict__ k,
                                      const T* __restrict__ v,
-                                     T* __restrict__ out, int S, int Hq,
+                                     T* __restrict__ out,
+                                     float* __restrict__ lse, int S, int Hq,
                                      int Hkv, int hd, int QT, int KT,
                                      float scale) {
   extern __shared__ float smem[];
@@ -238,12 +249,17 @@ __global__ void flash_prefill_kernel(const T* __restrict__ q,
     out[(((size_t)b * S + i0 + r) * Hq + h) * hd + d] =
         from_f<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
   }
+  // m is in natural-log units here (tile_update runs expf)
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < nq; r += blockDim.x)
+      lse[((size_t)b * Hq + h) * S + i0 + r] =
+          t.m[r] + logf(fmaxf(t.l[r], 1e-30f));
 }
 
 template <typename T>
 static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int S, int Hq, int Hkv, int hd, float scale,
-                  cudaStream_t stream) {
+                  float* lse, int B, int S, int Hq, int Hkv, int hd,
+                  float scale, cudaStream_t stream) {
   // 64 x 64 tiles up to hd 128 (148 KB of shared memory), 32 x 32 above
   const int QT = hd <= 128 ? 64 : 32, KT = QT;
   const size_t smem = tile_floats(QT, KT, hd) * sizeof(float);
@@ -252,7 +268,8 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + QT - 1) / QT, Hq, B);
   kernel<<<grid, 256, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                      (T*)out, S, Hq, Hkv, hd, QT, KT, scale);
+                                      (T*)out, lse, S, Hq, Hkv, hd, QT, KT,
+                                      scale);
   return (int)cudaGetLastError();
 }
 
@@ -261,25 +278,29 @@ static bool tensor_core(int hd, int dtype) {
   return dtype == 1 && (hd == 16 || hd == 32 || hd == 64 || hd == 128);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16.  `lse` is NULL or [B,Hq,S]
+// float32.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
-                             void* out, int B, int S, int Hq, int Hkv, int hd,
-                             float scale, int dtype, void* stream) {
+                             void* out, void* lse_out, int B, int S, int Hq,
+                             int Hkv, int hd, float scale, int dtype,
+                             void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_out;
   if (tensor_core(hd, dtype)) {
     if (hd == 16)
-      return launch_tc<16>(q, k, v, out, B, S, Hq, Hkv, scale, st);
+      return launch_tc<16>(q, k, v, out, lse, B, S, Hq, Hkv, scale, st);
     if (hd == 32)
-      return launch_tc<32>(q, k, v, out, B, S, Hq, Hkv, scale, st);
+      return launch_tc<32>(q, k, v, out, lse, B, S, Hq, Hkv, scale, st);
     if (hd == 64)
-      return launch_tc<64>(q, k, v, out, B, S, Hq, Hkv, scale, st);
-    return launch_tc<128>(q, k, v, out, B, S, Hq, Hkv, scale, st);
+      return launch_tc<64>(q, k, v, out, lse, B, S, Hq, Hkv, scale, st);
+    return launch_tc<128>(q, k, v, out, lse, B, S, Hq, Hkv, scale, st);
   }
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, hd, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, out, lse, B, S, Hq, Hkv, hd, scale,
+                                 st);
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, S, Hq, Hkv, hd, scale, st);
+    return launch<float>(q, k, v, out, lse, B, S, Hq, Hkv, hd, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

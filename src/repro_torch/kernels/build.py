@@ -30,7 +30,7 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_decode", "paged_prefill", "mla_paged_decode",
-           "mla_paged_prefill", "flash_prefill")
+           "mla_paged_prefill", "flash_prefill", "flash_prefill_bwd")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": nvcc wall time (None when loaded from the cache),

@@ -1,14 +1,24 @@
-"""Causal flash attention over a dense sequence: the CUDA kernel
-``csrc/flash_prefill.cu`` and its wrapper.
+"""Causal flash attention over a dense sequence: the CUDA kernels
+``csrc/flash_prefill.cu`` (forward) and ``csrc/flash_prefill_bwd.cu``
+(backward), their wrappers, and the autograd function that joins them.
 
 Replaces the Pallas TPU kernel ``flash_prefill``
 (``repro/kernels/flash_prefill.py``): query i attends keys j <= i, the
 computation of ``models/attention.causal_attention`` with no query
 offset, which the monolithic prefill runs for a prompt without a prefix
-hit.  The kernel is bound by the bytes of q, k, v and the output at the
-serving path's prompt lengths (see the source note); it handles any
-sequence length, a ragged last tile included.  On CPU tensors the
-wrapper runs the plain version in ``kernels/ref.py``.
+hit.  The forward kernel is bound by the bytes of q, k, v and the output
+at the serving path's prompt lengths (see the source note); it handles
+any sequence length, a ragged last tile included.  With ``with_lse`` it
+also returns each row's log-sum-exp of its scaled scores (float32
+[B,Hq,S], natural-log units), which the backward recomputes the
+probabilities from.
+
+The JAX package differentiates this attention in ``jnp`` (``jax.grad``
+of ``causal_attention``); it has no backward kernel to translate.
+``FlashCausal`` is the port's: its forward runs the forward kernel with
+``lse``, its backward ``flash_prefill_bwd`` (dQ, dK, dV without atomics,
+so gradients are deterministic).  On CPU tensors every wrapper runs the
+plain version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -22,40 +32,114 @@ from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.paged_attention import DTYPE_CODES, stream_ptr
 
 PTR, INT, FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, out; B, S, Hq, Hkv, hd; scale; dtype code; stream
-FLASH_ARGS = [PTR] * 4 + [INT] * 5 + [FLT, INT, PTR]
+# q, k, v, out, lse (or NULL); B, S, Hq, Hkv, hd; scale; dtype code; stream
+FLASH_ARGS = [PTR] * 5 + [INT] * 5 + [FLT, INT, PTR]
+# q, k, v, o, dO, lse, D scratch, dq, dk, dv; B, S, Hq, Hkv, hd; scale;
+# dtype code; stream
+FLASH_BWD_ARGS = [PTR] * 10 + [INT] * 5 + [FLT, INT, PTR]
+# head widths the backward kernel takes (the trainable families')
+BWD_HEAD_DIMS = (64, 128)
+
+
+def _check_qkv(name: str, q, k, v, *extra) -> None:
+    """Device, dtype, contiguity and layout of q [B,S,Hq,hd], k/v
+    [B,S,Hkv,hd] and any ``extra`` tensors shaped like q."""
+    for t in (q, k, v) + extra:
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.dtype != q.dtype or t.dtype not in DTYPE_CODES:
+            raise ValueError(f"{name}: inputs must share one dtype of "
+                             f"{tuple(DTYPE_CODES)}, got {t.dtype} beside "
+                             f"{q.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"{name}: q [B,S,Hq,hd], k/v [B,S,Hkv,hd]")
+    b, s, hq, hd = q.shape
+    if (k.shape[:2] != (b, s) or k.shape[3] != hd or hq % k.shape[2] != 0
+            or any(t.shape != q.shape for t in extra)):
+        raise ValueError(f"{name}: head layout q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  backend: str | None = None) -> torch.Tensor:
-    """q [B,S,Hq,hd]; k/v [B,S,Hkv,hd] -> [B,S,Hq,hd] in q's dtype."""
+                  backend: str | None = None, with_lse: bool = False):
+    """q [B,S,Hq,hd]; k/v [B,S,Hkv,hd] -> [B,S,Hq,hd] in q's dtype; with
+    ``with_lse`` also the rows' log-sum-exp [B,Hq,S] float32."""
     if resolve_backend(backend, q) == "torch":
-        return ref.flash_prefill(q, k, v)
-    for t in (q, k, v):
-        if t.device != q.device:
-            raise ValueError(f"flash_prefill: tensors on {t.device} and "
-                             f"{q.device}")
-        if not t.is_contiguous():
-            raise ValueError("flash_prefill: inputs must be contiguous")
-        if t.dtype != q.dtype or t.dtype not in DTYPE_CODES:
-            raise ValueError(f"flash_prefill: q/k/v must share one dtype of "
-                             f"{tuple(DTYPE_CODES)}, got {q.dtype}, "
-                             f"{k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("flash_prefill: q [B,S,Hq,hd], k/v [B,S,Hkv,hd]")
+        out = ref.flash_prefill(q, k, v)
+        return (out, ref.flash_prefill_lse(q, k)) if with_lse else out
+    _check_qkv("flash_prefill", q, k, v)
     b, s, hq, hd = q.shape
-    hkv = k.shape[2]
-    if k.shape[:2] != (b, s) or k.shape[3] != hd or hq % hkv != 0:
-        raise ValueError(f"flash_prefill: head layout q {tuple(q.shape)} "
-                         f"vs k {tuple(k.shape)}")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn = build.entry("flash_prefill", "flash_prefill", FLASH_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, hq, hkv, hd, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
-            stream_ptr(q.device))
+            None if lse is None else lse.data_ptr(),
+            b, s, hq, k.shape[2], hd, 1.0 / math.sqrt(hd),
+            DTYPE_CODES[q.dtype], stream_ptr(q.device))
     build.check(rc, "flash_prefill", "flash_prefill")
     flash_prefill.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_prefill.launches = 0
+
+
+def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor,
+                      lse: torch.Tensor | None = None,
+                      backend: str | None = None):
+    """Gradients (dq [B,S,Hq,hd], dk / dv [B,S,Hkv,hd]) in q's dtype of
+    causal attention's output o [B,S,Hq,hd] given its cotangent do.  The
+    kernel needs the forward's ``lse`` [B,Hq,S] float32 and takes hd 64
+    or 128; the plain version recomputes the softmax itself."""
+    if resolve_backend(backend, q) == "torch":
+        return ref.flash_prefill_bwd(q, k, v, o, do)
+    _check_qkv("flash_prefill_bwd", q, k, v, o, do)
+    b, s, hq, hd = q.shape
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_prefill_bwd: the kernel takes hd in "
+                         f"{BWD_HEAD_DIMS}, got {hd}")
+    if (lse is None or lse.shape != (b, hq, s)
+            or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError("flash_prefill_bwd: the kernel needs the forward's "
+                         "lse [B,Hq,S] float32, contiguous, on q's device")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    fn = build.entry("flash_prefill_bwd", "flash_prefill_bwd", FLASH_BWD_ARGS)
+    rc = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+            b, s, hq, k.shape[2], hd, 1.0 / math.sqrt(hd),
+            DTYPE_CODES[q.dtype], stream_ptr(q.device))
+    build.check(rc, "flash_prefill_bwd", "flash_prefill_bwd")
+    flash_prefill_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_prefill_bwd.launches = 0
+
+
+class FlashCausal(torch.autograd.Function):
+    """Causal attention with a gradient: the forward kernel with ``lse``
+    and the backward kernel on the card; the plain versions of both on
+    CPU tensors or with ``backend="torch"``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, backend=None):
+        if resolve_backend(backend, q) == "torch":
+            out, lse = ref.flash_prefill(q, k, v), None
+        else:
+            out, lse = flash_prefill(q, k, v, backend=backend, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.backend = backend
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_bwd(q, k, v, out, do.contiguous(), lse,
+                                       backend=ctx.backend)
+        return dq, dk, dv, None

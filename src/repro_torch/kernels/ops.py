@@ -11,7 +11,9 @@ explicitly.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_prefill import flash_prefill
+import torch
+
+from repro_torch.kernels.flash_prefill import FlashCausal, flash_prefill
 from repro_torch.kernels.mla_paged_decode import mla_paged_decode
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_decode_attention_int8)
@@ -77,7 +79,12 @@ def mla_prefill_seg(q_lat, q_rope, lat_chunk, latent_pages, block_tables,
 
 def flash_causal(q, k, v, backend: str | None = None):
     """Causal prefill attention. q [B,S,Hq,hd], k/v [B,S,Hkv,hd]
-    -> [B,S,Hq,hd]; any S."""
+    -> [B,S,Hq,hd]; any S.  When autograd records and an input requires
+    grad (training), through ``FlashCausal``: the forward kernel with its
+    ``lse``, then the backward kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashCausal.apply(q, k, v, backend)
     return flash_prefill(q, k, v, backend=backend)
 
 

@@ -106,6 +106,47 @@ def flash_prefill(q, k, v):
     return _attend(q, k, v, causal_mask(s, s, 0, q.device).expand(b, s, s))
 
 
+def _causal_scores(q, k):
+    """q [B,S,Hq,hd]; k [B,S,Hkv,hd] -> the scaled scores [B,Hkv,G,S,S]
+    in float32, NEG_INF where key j > query i."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, hd).float()
+    sc = torch.einsum("bihgd,bjhd->bhgij", qg, k.float()) / math.sqrt(hd)
+    return sc.masked_fill(~causal_mask(s, s, 0, q.device)[0], NEG_INF)
+
+
+def flash_prefill_lse(q, k):
+    """Each query row's log-sum-exp of its scaled causal scores, [B,Hq,S]
+    float32 (natural-log units): the forward kernel's ``lse`` output."""
+    b, s, hq = q.shape[:3]
+    return torch.logsumexp(_causal_scores(q, k), dim=-1).reshape(b, hq, s)
+
+
+def flash_prefill_bwd(q, k, v, o, do):
+    """The gradients of causal attention (``flash_prefill``) given its
+    output o and the output's cotangent do, all [B,S,H,hd]: (dq, dk, dv)
+    in the inputs' dtypes, computed analytically in float32 for any S and
+    any G = Hq/Hkv: P = softmax(scale QK^T) over keys j <= i,
+    dV = P^T dO, dS = P o (dO V^T - rowsum(dO o O)), dQ = scale dS K,
+    dK = scale dS^T Q (each KV head summed over its G query heads)."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qg, og, dog = (t.reshape(b, s, hkv, hq // hkv, hd).float()
+                   for t in (q, o, do))
+    kf, vf = k.float(), v.float()
+    p = torch.softmax(_causal_scores(q, k), dim=-1)
+    dv = torch.einsum("bhgij,bihgd->bjhd", p, dog)
+    dp = torch.einsum("bihgd,bjhd->bhgij", dog, vf)
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]   # [b,h,g,i,1]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgij,bjhd->bihgd", ds, kf) * scale
+    dk = torch.einsum("bhgij,bihgd->bjhd", ds, qg) * scale
+    return (dq.reshape(b, s, hq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def _chunk_attend(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
                   prior: torch.Tensor) -> torch.Tensor:
     """Pool tokens where ``prior`` [B,C,T_pool] holds, plus chunk tokens

@@ -49,12 +49,21 @@ class PSpec:
 ParamTree = Any     # nested dict of PSpec / tensors
 
 
-def tree_map(fn: Callable, tree: ParamTree) -> ParamTree:
+def tree_map(fn: Callable, tree: ParamTree, *rest: ParamTree) -> ParamTree:
     """Apply ``fn`` to every leaf of a nested dict (sorted key order,
-    the order JAX flattens a dict in)."""
+    the order JAX flattens a dict in), leaf by leaf across ``tree`` and
+    the same-shaped trees in ``rest``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: ParamTree) -> list:
+    """The leaves of a nested dict in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
 def stack_specs(tree: ParamTree, n: int) -> ParamTree:
@@ -177,3 +186,28 @@ def sinusoid_at(positions: torch.Tensor, dim: int,
     i = torch.arange(dim // 2, dtype=torch.float32, device=positions.device)
     angle = positions[..., None].float() / torch.pow(10000.0, 2 * i / dim)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Softmax cross-entropy (the training loss)
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """logits [..., V] in any dtype, labels [...] integer -> the mean
+    negative log-likelihood in float32, plus ``z_loss`` times the square
+    of each row's log-sum-exp of its max-shifted logits, as the JAX
+    package computes it (the max is detached, as ``stop_gradient``
+    does).  With ``mask`` [...], the masked mean."""
+    lg = logits.float()
+    shifted = lg - lg.amax(dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(shifted).sum(dim=-1))
+    gold = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(logz)
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+

@@ -58,6 +58,16 @@ The decode steps write the new token's KV into the pool or the slot
 cache IN PLACE instead of returning new arrays: the returned state
 holds the same cache tensors.
 
+Every family but MLA has ``train_loss(params, batch) -> (loss,
+metrics)``, the JAX package's: the logits of every position, its
+cross-entropy with z-loss (plus the MoE aux term), each layer under
+``remat`` (non-reentrant ``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``; the VLM's cross groups too) and causal
+self-attention through ``FlashCausal`` (the flash prefill kernel with
+its log-sum-exp, then its backward kernel).  The params are plain
+leaves that require grad; the decode paths' in-place writes stay off
+this path.  MLA raises until kernel 5 has a backward.
+
 The cross-attention families have the dense layout's ``prefill`` and
 ``decode_step`` only (no paged or chunked entry point, as in the JAX
 package, whose engine serves neither).  Their image patches or audio
@@ -82,9 +92,11 @@ kernels.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (FAMILY_DECODER, FAMILY_ENCDEC,
                                 FAMILY_HYBRID, FAMILY_MOE, FAMILY_RWKV,
@@ -92,9 +104,10 @@ from repro_torch.config import (FAMILY_DECODER, FAMILY_ENCDEC,
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rwkv, ssm
-from repro_torch.models.common import (PSpec, materialize, resolve_device,
-                                       layer_norm, rms_norm, sinusoid_at,
-                                       stack_specs, swiglu, tree_map)
+from repro_torch.models.common import (PSpec, cross_entropy, materialize,
+                                       resolve_device, layer_norm, rms_norm,
+                                       sinusoid_at, stack_specs, swiglu,
+                                       tree_map)
 
 Params = Any
 KV_DTYPES = ("bfloat16", "int8")
@@ -116,12 +129,19 @@ def _dense_ffn_pspecs(cfg: ModelConfig) -> Dict[str, PSpec]:
 
 def layer_params(params: Params, i: int, stack: str = "layers") -> Params:
     """Layer ``i``'s slice of the stacked ``[L, ...]`` tree
-    ``params[stack]`` (views)."""
+    ``params[stack]`` (views: a gradient through them lands in the
+    stacked leaf)."""
     def take(tree):
         if isinstance(tree, dict):
             return {k: take(v) for k, v in tree.items()}
         return tree[i]
     return take(params[stack])
+
+
+def remat(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward
+    pass instead of kept: ``jax.checkpoint``'s counterpart."""
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class Model:
@@ -167,12 +187,28 @@ class Model:
             self.decode_state_specs(batch, max_len))
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        # an embedding lookup, whose backward on the card sums each row's
+        # gradients in a fixed order (an indexed read's does not)
+        return F.embedding(tokens.long(), params["embed"])
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return torch.matmul(x, params["embed"].t())
         return torch.matmul(x, params["head"])
+
+    # -- training -------------------------------------------------------------
+    def train_loss(self, params: Params, batch: Dict,
+                   backend=None) -> Tuple[torch.Tensor, Dict]:
+        """The next-token loss of ``batch`` ({"tokens", "labels"} [B,S],
+        plus the family's "patches" / "frames") with the logits of every
+        position -> (loss, {"loss", ...}).  Every layer runs under
+        ``remat``; causal self-attention runs ``FlashCausal`` (the flash
+        prefill kernel and its backward on the card)."""
+        raise NotImplementedError
+
+    def _loss_from_logits(self, logits, labels):
+        loss = cross_entropy(logits, labels)
+        return loss, {"loss": loss}
 
 
 class DecoderModel(Model):
@@ -242,14 +278,18 @@ class DecoderModel(Model):
             o = o * mask              # zero padded layout heads
         return attn.out_proj(o, lp["attn"]["wo"])
 
-    def _ffn_residual(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
-        """x + FFN(ln2(x)): the SwiGLU FFN, or the MoE FFN (its aux loss
-        is dropped, as the JAX serving paths drop it)."""
+    def _ffn_residual(self, lp: Params, x: torch.Tensor,
+                      with_aux: bool = False):
+        """x + FFN(ln2(x)): the SwiGLU FFN, or the MoE FFN, whose aux
+        loss is dropped (as the JAX serving paths drop it) unless
+        ``with_aux``: then (x, aux), aux None for the SwiGLU FFN."""
         h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
         f = lp["ffn"]
         if self.cfg.n_experts > 0:
-            return x + moe.moe_ffn(f, h, self.cfg)[0]
-        return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+            y, aux = moe.moe_ffn(f, h, self.cfg)
+        else:
+            y, aux = swiglu(h, f["w_gate"], f["w_up"], f["w_down"]), None
+        return (x + y, aux) if with_aux else x + y
 
     # -- monolithic prefill and dense decode -----------------------------------
     def _self_block_full(self, lp, x, positions, backend=None, prefix=None,
@@ -296,6 +336,51 @@ class DecoderModel(Model):
             per_layer.append(kv)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return x, tuple(torch.stack(c) for c in zip(*per_layer))
+
+    def _train_layer(self, lp, x, positions, backend=None):
+        """One GQA layer of the training forward -> (x, MoE aux or
+        None)."""
+        h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)
+        q, k, v = attn.project_qkv(lp["attn"], h, positions, self.cfg)
+        o = attn.causal_attention(q, k, v, backend=backend)
+        return self._ffn_residual(lp, x + self._attn_out(lp, o),
+                                  with_aux=True)
+
+    def _train_layers(self, params, batch, x, positions, backend):
+        """Every layer under ``remat`` -> (x before the final norm, the
+        per-layer MoE aux losses)."""
+        auxes = []
+        for i in range(self.cfg.n_layers):
+            x, aux = remat(self._train_layer, layer_params(params, i), x,
+                           positions, backend)
+            auxes.append(aux)
+        return x, auxes
+
+    def train_loss(self, params, batch, backend=None):
+        """The JAX package's: the mean cross-entropy over every position,
+        plus ``router_aux_weight`` times the layers' mean MoE aux loss
+        (``metrics["aux_loss"]``).  MLA raises: its forward runs the MLA
+        chunk prefill kernel, which has no backward yet."""
+        cfg = self.cfg
+        if self.mla:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA training needs a backward of the MLA "
+                f"chunk prefill kernel (kernel 5, csrc/mla_paged_prefill.cu"
+                f"), which the port does not have yet")
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        x, auxes = self._train_layers(params, batch,
+                                      self._embed(params, tokens), positions,
+                                      backend)
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        loss, metrics = self._loss_from_logits(self._logits(params, x),
+                                               batch["labels"])
+        if cfg.n_experts > 0:
+            aux = torch.stack(auxes).mean()
+            loss = loss + cfg.router_aux_weight * aux
+            metrics["aux_loss"] = aux
+        metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(self, params, batch, backend=None):
         """Monolithic prefill of ``batch["tokens"]`` [B,S] from position
@@ -557,6 +642,27 @@ class VLMModel(DecoderModel):
     def _group(self, g: int) -> range:
         return range(g * self.per, (g + 1) * self.per)
 
+    def _train_group(self, params, g, x, mem, positions, backend):
+        """Cross group ``g`` of the training forward: its cross block over
+        the projected patches ``mem``, then its self layers, each under
+        ``remat``."""
+        cp = layer_params(params, g, "cross")
+        x = self._cross_block(cp, x, *attn.cross_kv(cp["attn"], mem))
+        for i in self._group(g):
+            x, _ = remat(self._train_layer, layer_params(params, i), x,
+                         positions, backend)
+        return x
+
+    def _train_layers(self, params, batch, x, positions, backend):
+        """As JAX scans the VLM: ``batch["patches"]`` [B,n_patches,D]
+        projected once, then each group (its cross block and its self
+        layers) under ``remat`` too."""
+        mem = torch.matmul(batch["patches"], params["patch_proj"])
+        for g in range(self.n_cross):
+            x = remat(self._train_group, params, g, x, mem, positions,
+                      backend)
+        return x, []
+
     def prefill(self, params, batch, backend=None):
         """Monolithic prefill of ``batch["tokens"]`` [B,S] with
         ``batch["patches"]`` [B,n_patches,D], from position 0.  The
@@ -674,6 +780,35 @@ class EncDecModel(Model):
         h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
         return x + attn.cross_attention(lp["xattn"], h, xk, xv)
 
+    def _dec_layer(self, lp, x, enc_out, backend=None):
+        """One decoder layer over a whole prompt from position 0: causal
+        self-attention (the flash prefill kernel), cross-attention over
+        its keys and values of ``enc_out``, the FFN -> (x, (k, v, xk,
+        xv))."""
+        h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)
+        q, k, v = attn.project_qkv(lp["attn"], h, None, self.cfg, rope=False)
+        o = attn.causal_attention(q, k, v, backend=backend)
+        x = x + attn.out_proj(o, lp["attn"]["wo"])
+        xk, xv = attn.cross_kv(lp["xattn"], enc_out)
+        x = self._ffn_residual(lp, self._cross(lp, x, xk, xv), "ln3")
+        return x, (k, v, xk, xv)
+
+    def train_loss(self, params, batch, backend=None):
+        """The JAX package's: ``batch["frames"]`` through the encoder (no
+        remat, as in JAX), then each decoder layer under ``remat``, the
+        cross-entropy over every position."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        x = self._embed_dec(params, tokens, positions)
+        for i in range(cfg.n_layers):
+            x = remat(self._dec_layer, layer_params(params, i, "dec_layers"),
+                      x, enc_out, backend)[0]
+        x = rms_norm(x, params["ln_dec"], cfg.norm_eps)
+        return self._loss_from_logits(self._logits(params, x),
+                                      batch["labels"])
+
     def prefill(self, params, batch, backend=None):
         """Encode ``batch["frames"]`` [B,enc_len,D], then the decoder over
         ``batch["tokens"]`` [B,S] from position 0: causal self-attention
@@ -689,14 +824,9 @@ class EncDecModel(Model):
         x = self._embed_dec(params, tokens, positions)
         caches = []
         for i in range(cfg.n_layers):
-            lp = layer_params(params, i, "dec_layers")
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn.project_qkv(lp["attn"], h, None, cfg, rope=False)
-            o = attn.causal_attention(q, k, v, backend=backend)
-            x = x + attn.out_proj(o, lp["attn"]["wo"])
-            xk, xv = attn.cross_kv(lp["xattn"], enc_out)
-            x = self._ffn_residual(lp, self._cross(lp, x, xk, xv), "ln3")
-            caches.append((k, v, xk, xv))
+            x, c = self._dec_layer(layer_params(params, i, "dec_layers"), x,
+                                   enc_out, backend)
+            caches.append(c)
         x = rms_norm(x, params["ln_dec"], cfg.norm_eps)
         k, v, xk, xv = (torch.stack(c) for c in zip(*caches))
         lengths = torch.full((b,), s, dtype=torch.int32,
@@ -782,6 +912,37 @@ class HybridModel(Model):
         f = sp["ffn"]
         return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
 
+    def _shared_block(self, sp, x, positions, backend=None):
+        """The shared attention block over a whole prompt from position 0
+        (the flash prefill kernel) -> (x, (k, v))."""
+        h = rms_norm(x, sp["ln1"], self.cfg.norm_eps)
+        q, k, v = attn.project_qkv(sp["attn"], h, positions, self.cfg)
+        o = attn.causal_attention(q, k, v, backend=backend)
+        return self._shared_ffn(sp, x + attn.out_proj(o, sp["attn"]["wo"])), \
+            (k, v)
+
+    def _mamba_layer(self, lp, x):
+        return x + ssm.mamba_block(lp["mamba"],
+                                   rms_norm(x, lp["ln"], self.cfg.norm_eps),
+                                   self.cfg)
+
+    def train_loss(self, params, batch, backend=None):
+        """The JAX package's: each Mamba2 layer under ``remat``, the
+        shared block after each of its layers without (as in JAX), the
+        cross-entropy over every position."""
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        x = self._embed(params, tokens)
+        for lo, hi, has_attn in self._segments():
+            for i in range(lo, hi):
+                x = remat(self._mamba_layer, layer_params(params, i), x)
+            if has_attn:
+                x, _ = self._shared_block(params["shared"], x, positions,
+                                          backend)
+        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+        return self._loss_from_logits(self._logits(params, x),
+                                      batch["labels"])
+
     def prefill(self, params, batch, backend=None):
         """Prefill of ``batch["tokens"]`` [B,S] from position 0 (S at
         least K-1 = ``ssm_conv - 1``).  Returns (logits of the last
@@ -802,12 +963,8 @@ class HybridModel(Model):
                 x = x + y
                 mamba.append(st)
             if has_attn:
-                h = rms_norm(x, sp["ln1"], cfg.norm_eps)
-                q, k, v = attn.project_qkv(sp["attn"], h, positions, cfg)
-                o = attn.causal_attention(q, k, v, backend=backend)
-                x = self._shared_ffn(sp, x + attn.out_proj(o,
-                                                           sp["attn"]["wo"]))
-                kv.append((k, v))
+                x, c = self._shared_block(sp, x, positions, backend)
+                kv.append(c)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         k, v = (torch.stack(c) for c in zip(*kv))
         lengths = torch.full((b,), s, dtype=torch.int32,
@@ -895,6 +1052,23 @@ class RWKVModel(Model):
         return self._logits(params, self._ln(x, params["ln_f"],
                                              torch.zeros_like(
                                                  params["ln_f"])))
+
+    def _train_layer(self, lp, x):
+        x = x + rwkv.time_mix(lp, self._ln(x, lp["ln1_g"], lp["ln1_b"]),
+                              self.cfg)
+        return x + rwkv.channel_mix(lp, self._ln(x, lp["ln2_g"],
+                                                 lp["ln2_b"]))
+
+    def train_loss(self, params, batch, backend=None):
+        """The JAX package's: each layer under ``remat``, the
+        cross-entropy over every position.  No kernel runs (``backend``
+        is accepted for a uniform signature)."""
+        x = self._ln(self._embed(params, batch["tokens"]), params["ln0_g"],
+                     params["ln0_b"])
+        for i in range(self.cfg.n_layers):
+            x = remat(self._train_layer, layer_params(params, i), x)
+        return self._loss_from_logits(self._final(params, x),
+                                      batch["labels"])
 
     def prefill(self, params, batch):
         """Prefill of ``batch["tokens"]`` [B,S].  Returns (logits of the

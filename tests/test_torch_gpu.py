@@ -1,6 +1,6 @@
 """The port's CUDA kernels (GQA paged decode / prefill / segment
-prefill, their absorbed-MLA counterparts, causal flash prefill and int8
-paged decode) against their plain PyTorch versions on the card, and the
+prefill, their absorbed-MLA counterparts, causal flash prefill with its
+log-sum-exp, the flash prefill backward and int8 paged decode) against their plain PyTorch versions on the card, and the
 bf16 decode kernels' split walks against themselves (bit for bit); the
 MLA kernels on the dense layout's routes (a whole prompt at offset 0,
 latent slots seen as pages); the MoE FFN's routing on the card against
@@ -336,6 +336,125 @@ def test_flash_prefill_kernel(cuda, dtype, tol, b, s, hq, hkv, hd):
     assert cuda.flash_prefill.launches == before + 1
     assert bool(torch.isfinite(out).all())
     assert _err(out, cuda.flash_causal(*args, backend="torch")) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("b,s,hq,hkv,hd", [(1, 416, 32, 8, 64),
+                                           (2, 65, 8, 2, 128),
+                                           (1, 40, 2, 1, 256),
+                                           (2, 77, 6, 6, 64)])
+def test_flash_prefill_lse_output(cuda, dtype, tol, b, s, hq, hkv, hd):
+    """The forward kernel's optional log-sum-exp [B,Hq,S] (both bodies)
+    against the plain version's, and the output unchanged by asking
+    for it."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    g = torch.Generator(device="cuda").manual_seed(s)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    args = (rn(b, s, hq, hd), rn(b, s, hkv, hd), rn(b, s, hkv, hd))
+    out, lse = flash_prefill(*args, with_lse=True)
+    torch.cuda.synchronize()
+    plain_out, plain_lse = flash_prefill(*args, backend="torch",
+                                         with_lse=True)
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_prefill(*args))
+    assert _err(out, plain_out) <= tol
+    # float32 scores in both; the sums differ only in order
+    assert _err(lse, plain_lse) <= F32_TOL * float(plain_lse.abs().max())
+
+
+# (B, S, Hq, Hkv, hd, dtype): the chip_smoke kernels phase's backward
+# shapes (llama3.2-1b's training batch of one micro-step at S 1024 and
+# the ragged 1000, llama-3.2-vision's 32 / 8 at hd 128, whisper-tiny's
+# 6 / 6, G 1, a float32 case), then small ones at the tile edges: one
+# token, a partial 64-row tile, MQA
+BWD_SHAPES = [(4, 1024, 32, 8, 64, torch.bfloat16),
+              (4, 1000, 32, 8, 64, torch.bfloat16),
+              (1, 512, 32, 8, 128, torch.bfloat16),
+              (2, 448, 6, 6, 64, torch.bfloat16),
+              (1, 512, 32, 8, 64, torch.float32),
+              (1, 1, 4, 2, 64, torch.bfloat16), (2, 50, 8, 2, 64, torch.float32),
+              (1, 65, 4, 1, 128, torch.float32), (3, 129, 8, 1, 64,
+                                                  torch.bfloat16)]
+# Backward kernel vs plain version: both recompute the softmax and sum in
+# float32 (another order); a bf16 gradient can then round to a
+# neighbouring bf16 value, so the gap is held to two bf16 steps of the
+# tensor's largest magnitude (2^-6 of it); float32 to 1e-4 of it.  The
+# magnitude counts as at least 1: with one token dQ and dK are zero in
+# exact arithmetic and both versions return rounding noise.
+BWD_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
+
+
+def bwd_inputs(b, s, hq, hkv, hd, dtype, seed):
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    q, k, v = rn(b, s, hq, hd), rn(b, s, hkv, hd), rn(b, s, hkv, hd)
+    o, lse = flash_prefill(q, k, v, with_lse=True)
+    return q, k, v, o, rn(b, s, hq, hd), lse
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,dtype", BWD_SHAPES)
+def test_flash_prefill_bwd_kernel(cuda, b, s, hq, hkv, hd, dtype):
+    """dq, dk, dv of the backward kernel against the plain version on the
+    forward kernel's own o and lse; one launch a call, and two calls equal
+    bit for bit (no atomics)."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
+    q, k, v, o, do, lse = bwd_inputs(b, s, hq, hkv, hd, dtype, seed=s)
+    before = flash_prefill_bwd.launches
+    grads = flash_prefill_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert flash_prefill_bwd.launches == before + 1
+    plain = flash_prefill_bwd(q, k, v, o, do, backend="torch")
+    for got, want, t in zip(grads, plain, (q, k, v)):
+        assert got.shape == t.shape and got.dtype == dtype
+        assert bool(torch.isfinite(got).all())
+        assert _err(got, want) <= BWD_RTOL[dtype] * max(
+            1.0, float(want.float().abs().max()))
+    again = flash_prefill_bwd(q, k, v, o, do, lse)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def test_flash_causal_gradient_on_card_matches_cpu(cuda):
+    """float32 FlashCausal on the card (forward kernel with lse, backward
+    kernel) against the same function on the CPU (plain forward and
+    backward), through a loss that reaches every output."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
+    rs = np.random.RandomState(3)
+    b, s, hq, hkv, hd = 2, 70, 8, 2, 64
+    host = [torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+            for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd),
+                          (b, s, hq, hd))]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        q, k, v = (t.detach().to(dev).requires_grad_(True)
+                   for t in host[:3])
+        before = flash_prefill_bwd.launches
+        out = cuda.flash_causal(q, k, v)
+        assert out.grad_fn is not None
+        (out * host[3].to(dev)).sum().backward()
+        assert flash_prefill_bwd.launches == before + (dev == "cuda")
+        grads[dev] = [t.grad.cpu() for t in (q, k, v)]
+    for a, c in zip(grads["cuda"], grads["cpu"]):
+        assert _err(a, c) <= F32_TOL * float(c.abs().max())
+
+
+def test_flash_prefill_bwd_rejects_bad_inputs(cuda):
+    """Other head widths and a missing lse are refused with an error,
+    never routed to the plain version."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
+    q, k, v, o, do, lse = bwd_inputs(1, 20, 4, 2, 32, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="hd"):
+        flash_prefill_bwd(q, k, v, o, do, lse)
+    q, k, v, o, do, lse = bwd_inputs(1, 20, 4, 2, 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="lse"):
+        flash_prefill_bwd(q, k, v, o, do)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_prefill_bwd(q, k, v, o.float(), do, lse)
 
 
 def _int8_inputs(b, hq, hkv, hd, page, pages, seed=0):

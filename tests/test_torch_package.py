@@ -27,7 +27,8 @@ VERBATIM = (["config.py", "configs/__init__.py"]
             + [f"serving/{m}.py" for m in (
                 "request", "scheduler", "block_allocator", "frontend")]
             + [f"traces/{m}.py" for m in (
-                "__init__", "generators", "ingest", "replay", "loadgen")])
+                "__init__", "generators", "ingest", "replay", "loadgen")]
+            + ["training/data.py"])
 
 
 def _imported_roots(path: Path):

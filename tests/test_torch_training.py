@@ -1,0 +1,242 @@
+"""The port's training math against the JAX package's, on the CPU: the
+flash prefill backward (``FlashCausal`` with its plain backward) against
+``jax.vjp`` of JAX ``causal_attention``; every non-MLA family's
+``train_loss`` value and gradients against ``jax.value_and_grad`` on
+float32 params from the JAX ``init_params`` tree crossed through numpy
+(``tests/test_torch_train_loss.py`` holds every family); MLA's
+``train_loss`` refusing; one AdamW step against
+``apply_updates``; ``lr_schedule``; ``compress_int8`` bit for bit.
+Tolerance 1e-4 (the port's CPU parity bar) unless a test states
+another."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import reduce_config  # noqa: E402
+from repro.configs import get_config  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models.model import build_model as jax_build  # noqa: E402
+from repro.training import optimizer as jopt  # noqa: E402
+from repro.training import train as jtrain  # noqa: E402
+from repro_torch.config import reduce_config as t_reduce  # noqa: E402
+from repro_torch.configs import get_config as t_get  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import common  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.training import optimizer as topt  # noqa: E402
+from repro_torch.training import train as ttrain  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+VLM_GATE = 0.7      # the seeded zero gate would switch the cross blocks off
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def flat(tree, path=()):
+    """{path: leaf} of nested dicts."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat(tree[k], path + (k,)))
+        return out
+    return {path: tree}
+
+
+def jax_tree(arch, seed=0):
+    """(JAX model, the float32 init tree as numpy) of a reduced config."""
+    jm = jax_build(reduce_config(get_config(arch)))
+    tree = jax.tree.map(lambda a: np.array(a, np.float32),
+                        jax.jit(jm.init_params)(jax.random.PRNGKey(seed)))
+    if "cross" in tree:
+        tree["cross"]["gate"] = np.full_like(tree["cross"]["gate"], VLM_GATE)
+    return jm, tree
+
+
+def make_batch(cfg, b=2, s=24, seed=0):
+    rs = np.random.RandomState(seed)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (b, s)).astype(np.int32),
+             "labels": rs.randint(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rs.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rs.standard_normal(
+            (b, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+# ---------------------------------------------------------------------------
+# the flash prefill backward
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("s,hq,hkv", [(64, 8, 2), (50, 8, 2), (64, 4, 4),
+                                      (50, 4, 4)])
+def test_flash_causal_backward_matches_jax_vjp(s, hq, hkv):
+    """dq, dk, dv of ``ops.flash_causal`` (``FlashCausal``: the plain
+    forward and backward on CPU tensors) against ``jax.vjp`` of JAX
+    ``causal_attention`` at G 4 and G 1, S 64 and the ragged 50."""
+    rs = np.random.RandomState(s + hq)
+    b, hd = 2, 16
+    q, k, v = (rs.standard_normal((b, s, h, hd)).astype(np.float32)
+               for h in (hq, hkv, hkv))
+    do = rs.standard_normal((b, s, hq, hd)).astype(np.float32)
+    out, vjp = jax.vjp(lambda *a: jattn.causal_attention(*a), q, k, v)
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = ops.flash_causal(tq, tk, tv)
+    assert o.grad_fn is not None
+    np.testing.assert_allclose(_np(o), np.asarray(out), **TOL)
+    tgrads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    for t, j in zip(tgrads, jgrads):
+        np.testing.assert_allclose(_np(t), np.asarray(j), **TOL)
+
+
+def test_serving_attention_builds_no_graph():
+    """Without grad (serving) the flash op stays on the plain forward
+    wrapper: no ``FlashCausal`` node, no saved tensors."""
+    x = torch.randn(1, 8, 2, 16, requires_grad=True)
+    with torch.no_grad():
+        assert ops.flash_causal(x, x[:, :, :1], x[:, :, :1]).grad_fn is None
+    assert ops.flash_causal(x.detach(), x.detach()[:, :, :1],
+                            x.detach()[:, :, :1]).grad_fn is None
+
+
+def test_mla_train_loss_raises():
+    """MLA's forward runs kernel 5, which has no backward yet."""
+    from repro_torch.configs.paper_models import DEEPSEEK_V3
+    cfg = t_reduce(DEEPSEEK_V3)
+    model = build_model(cfg)
+    params = model.init_params(0, device="cpu", dtype=torch.float32)
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="kernel 5"):
+        model.train_loss(params, {"tokens": toks, "labels": toks})
+
+
+def test_cross_entropy_matches_jax():
+    """With and without a mask, and its gradient (the max detached)."""
+    from repro.models import common as jcommon
+    rs = np.random.RandomState(1)
+    logits = (3 * rs.standard_normal((3, 5, 40))).astype(np.float32)
+    labels = rs.randint(0, 40, (3, 5)).astype(np.int32)
+    mask = (rs.rand(3, 5) > 0.3).astype(np.float32)
+    for m in (None, mask):
+        def jloss(lg):
+            return jcommon.cross_entropy(lg, jnp.asarray(labels),
+                                         None if m is None else jnp.asarray(m))
+        jl, jgr = jax.value_and_grad(jloss)(jnp.asarray(logits))
+        t = torch.from_numpy(logits).requires_grad_(True)
+        tl = common.cross_entropy(t, torch.from_numpy(labels),
+                                  None if m is None else torch.from_numpy(m))
+        tl.backward()
+        np.testing.assert_allclose(float(tl.detach()), float(jl), **TOL)
+        np.testing.assert_allclose(_np(t.grad), np.asarray(jgr), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer and gradient compression
+# ---------------------------------------------------------------------------
+def test_adamw_step_matches_apply_updates():
+    """One update from a mid-run state (step 4, nonzero moments, a
+    gradient norm past the clip): new bf16 params bit for bit, step, lr
+    and grad norm, and the float32 master and moments within float32
+    rounding (1e-6 of their scale: both run the same float32 formula)."""
+    rs = np.random.RandomState(2)
+    shapes = {"a": (4, 6), "b": {"c": (5,), "d": (3, 2, 2)}}
+    mk = {}
+
+    def tree(fn, sh=shapes):
+        return {k: tree(fn, v) if isinstance(v, dict) else fn(v)
+                for k, v in sh.items()}
+    mk["grads"] = tree(lambda s: (2 * rs.standard_normal(s)).astype(
+        np.float32))
+    mk["master"] = tree(lambda s: rs.standard_normal(s).astype(np.float32))
+    mk["m"] = tree(lambda s: (0.1 * rs.standard_normal(s)).astype(np.float32))
+    mk["v"] = tree(lambda s: (0.05 * rs.rand(*s)).astype(np.float32))
+    cfg = dict(lr=1e-3, warmup_steps=3, total_steps=20)
+    jstate = jopt.AdamWState(jnp.asarray(4, jnp.int32),
+                             *(jax.tree.map(jnp.asarray, mk[k])
+                               for k in ("master", "m", "v")))
+    jparams = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jstate.master)
+    jp, js, jmet = jopt.apply_updates(jopt.AdamWConfig(**cfg), jparams,
+                                      jax.tree.map(jnp.asarray, mk["grads"]),
+                                      jstate)
+    tt = {k: params_from_numpy(mk[k], device="cpu") for k in mk}
+    tstate = topt.AdamWState(torch.tensor(4, dtype=torch.int32), tt["master"],
+                             tt["m"], tt["v"])
+    tparams = common.tree_map(lambda a: a.to(torch.bfloat16), tt["master"])
+    tp, ts, tmet = topt.apply_updates(topt.AdamWConfig(**cfg), tparams,
+                                      tt["grads"], tstate)
+    assert float(jmet["grad_norm"]) > 1.0          # the clip is active
+    assert int(ts.step) == int(js.step) == 5 and ts.step.dtype == torch.int32
+    for key in ("lr", "grad_norm"):
+        np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
+                                   rtol=1e-6)
+    jf = {k: flat(jax.tree.map(np.asarray, getattr(js, k)))
+          for k in ("master", "m", "v")}
+    for key in ("master", "m", "v"):
+        for path, t in flat(getattr(ts, key)).items():
+            np.testing.assert_allclose(_np(t), jf[key][path], rtol=1e-6,
+                                       atol=1e-6 * np.abs(jf[key][path]).max())
+    jpf = flat(jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), jp))
+    for path, t in flat(tp).items():
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_np(t), jpf[path])
+
+
+def test_lr_schedule_matches_jax():
+    cfg = dict(lr=1e-3, warmup_steps=10, total_steps=100)
+    for s in (0, 5, 10, 50, 99):
+        j = float(jopt.lr_schedule(jopt.AdamWConfig(**cfg), jnp.asarray(s)))
+        t = topt.lr_schedule(topt.AdamWConfig(**cfg),
+                             torch.tensor(s, dtype=torch.int32))
+        assert t.dtype == torch.float32
+        np.testing.assert_allclose(float(t), j, rtol=1e-6)
+
+
+def test_init_state_matches_jax():
+    jm, tree = jax_tree("llama3.2-1b")
+    js = jopt.init_state(jax.tree.map(jnp.asarray, tree))
+    ts = topt.init_state(params_from_numpy(tree, device="cpu"))
+    assert ts.step.dtype == torch.int32 and int(ts.step) == 0
+    for key in ("master", "m", "v"):
+        jf = flat(jax.tree.map(np.asarray, getattr(js, key)))
+        for path, t in flat(getattr(ts, key)).items():
+            assert t.dtype == torch.float32
+            np.testing.assert_array_equal(t.numpy(), jf[path])
+
+
+def test_compress_int8_bit_equal_to_jax():
+    """Values, scale and the round trip bit for bit, ties included
+    (round half to even)."""
+    rs = np.random.RandomState(4)
+    g = rs.standard_normal((64, 33)).astype(np.float32)
+    # exact halves after scaling: max |g| = 127 makes the scale 1
+    ties = np.array([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.49, -126.5],
+                    np.float32)
+    for a in (g, ties, np.zeros(7, np.float32)):
+        jq, js = jtrain.compress_int8(jnp.asarray(a))
+        tq, ts = ttrain.compress_int8(torch.from_numpy(a))
+        assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        assert np.float32(ts) == np.asarray(js)
+        np.testing.assert_array_equal(
+            ttrain.decompress_int8(tq, ts).numpy(),
+            np.asarray(jtrain.decompress_int8(jq, js)))
+
+
+def test_pick_n_microbatches_matches_jax():
+    from repro.config import ShapeConfig as JShape
+    from repro_torch.config import ShapeConfig as TShape
+    for arch in ("llama3.2-1b", "llama-3.2-vision-11b"):
+        for seq, gb, shards in ((1024, 8, 1), (4096, 64, 2), (128, 6, 1)):
+            kw = dict(name="t", kind="train", seq_len=seq, global_batch=gb)
+            assert ttrain.pick_n_microbatches(
+                t_get(arch), TShape(**kw), shards) == \
+                jtrain.pick_n_microbatches(get_config(arch), JShape(**kw),
+                                           shards)
