@@ -12,10 +12,10 @@ check raises and the script exits non-zero with no result line:
            parallel) with the compiler's register and spill report and,
            per compiled entry, its tensor-core instructions (HMMA /
            HGMMA) counted in ``cuobjdump -sass`` of the built library;
-           the tensor-core bodies of flash prefill, of both MLA chunk
-           prefill entries, of the MLA split decode, of the GQA decode
-           bandwidth body, of the int8 decode and of both GQA chunk
-           prefill entries must hold some;
+           the tensor-core bodies of flash prefill and of its backward
+           (dK/dV and dQ), of both MLA chunk prefill entries, of the MLA
+           split decode, of the GQA decode bandwidth body, of the int8
+           decode and of both GQA chunk prefill entries must hold some;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
            lengths up to 512 with inactive rows; the decode also with
@@ -142,18 +142,23 @@ check raises and the script exits non-zero with no result line:
   every generate phase first checks that earlier phases hold less than
            0.2 GB on the card beside its weights (``held_at_start_gb``);
   kernels  (continued) the flash prefill backward (``flash_prefill_bwd``:
-           D, dK/dV and dQ kernels) against its plain version at
-           llama3.2-1b's training micro-step (4 x 1024, 32 / 8 heads, hd
-           64), the ragged 1000, llama-3.2-vision's 32 / 8 at hd 128,
-           whisper-tiny's 6 / 6 and one float32 case, beside the backward
-           of F.scaled_dot_product_attention; the forward kernel with its
-           log-sum-exp at the micro-step (``flash_prefill_lse``);
+           D, dK/dV and dQ kernels; bf16 on the tensor cores, the dK/dV
+           walk split at small batch, float32 on the CUDA cores) against
+           its plain version at llama3.2-1b's training micro-step (4 x
+           1024, 32 / 8 heads, hd 64; with each kernel's device ms from
+           the profiler), the ragged 1000, llama-3.2-vision's 32 / 8 at
+           hd 128, whisper-tiny's 6 / 6 and one float32 case, beside the
+           backward of F.scaled_dot_product_attention; the forward kernel
+           with its log-sum-exp at the micro-step (``flash_prefill_lse``);
   train    llama3.2-1b at full width and depth: 6 AdamW steps of 8 x 1024
            tokens in two micro-steps (``make_train_step``, every layer
            under remat, attention through the flash prefill kernel and
-           its backward); per step the loss, host ms and tokens/s, the
-           peak memory, one more step under the profiler; the loss must
-           be finite and fall, and the launches equal 2 x layers x
+           its backward); per step the loss, host ms, the host's ms
+           until the step returned (before its synchronise) and
+           tokens/s, the peak memory, one more step under the profiler,
+           the median step beside the one measured with the backward's
+           CUDA-core body (``CUDA_CORE_BWD_TRAIN``); the loss must be
+           finite and fall, and the launches equal 2 x layers x
            micro-steps of kernel 7 and layers x micro-steps of the
            backward a step;
   train_parity  the same step's loss and every gradient leaf at two
@@ -384,6 +389,8 @@ def sass_tensor_core_counts(build, name) -> dict:
 # entries that must run on the tensor cores: (source, entry name part,
 # how many such entries)
 TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 4),
+                       ("flash_prefill_bwd", "bwd_dkdv_tc", 2),
+                       ("flash_prefill_bwd", "bwd_dq_tc", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi0E", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
@@ -505,6 +512,9 @@ def kernel_body(name, a) -> str:
         tc = mpd.tensor_core(a["q_lat"].shape[-1], a["q_rope"].shape[-1],
                              DTYPE_CODES[a["q_lat"].dtype],
                              DTYPE_CODES[a["latent_pages"].dtype])
+    elif name.startswith("flash_prefill_bwd"):
+        from repro_torch.kernels.flash_prefill import bwd_tensor_core
+        tc = bwd_tensor_core(a["q"].shape[-1], DTYPE_CODES[a["q"].dtype])
     elif name.startswith("flash_prefill"):
         fn = build.entry("flash_prefill", "flash_prefill_tensor_core",
                          [ctypes.c_int] * 2)
@@ -2313,6 +2323,11 @@ BWD_CASES = (("flash_prefill_bwd", 4, 1024, 32, 8, 64, "bfloat16"),
 # 18.25), with the kernels and with the plain versions alike
 # (scripts/train_schedule_probe.py).
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 1024, 8, 2, 6
+# the train phase's median step when the backward ran its bf16 inputs on
+# the float32 CUDA-core body (NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's
+CUDA_CORE_BWD_TRAIN = {"step_ms_median": 559.2,
+                       "tokens_per_s_median": 14649}
 TRAIN_ADAMW = dict(lr=3e-4, warmup_steps=100, total_steps=10_000)
 # train_parity / train_resume: the same step with the depth cut to 2
 TRAIN_SHORT_LAYERS = 2
@@ -2339,6 +2354,30 @@ def bwd_cost(a):
     nbytes = (4 * q.numel() + 4 * k.numel()) * el + a["lse"].numel() * 4
     peak = H100_BF16_FLOPS if q.dtype != a["lse"].dtype else H100_F32_FLOPS
     return nbytes, 10 * B * (S * (S + 1) // 2) * Hq * hd, peak
+
+
+def kernel_split_ms(torch, fn, calls: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (``bwd_delta``,
+    ``bwd_dkdv_tc``, ...), from ``torch.profiler`` over ``calls`` calls
+    (L2 warm); None where the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"\b(bwd_\w+)", e.name)
+        key = m.group(1) if m else e.name
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    if not by_name:
+        return None
+    return {k: us / calls / 1e3 for k, us in sorted(by_name.items())}
 
 
 def bwd_case(torch, gen, name, B, S, Hq, Hkv, hd, dtype):
@@ -2375,7 +2414,9 @@ def phase_train_kernels(torch, card):
     KERNEL_ATOL, lse within 1e-4 of its largest magnitude, against the
     plain forward and ``ref.flash_prefill_lse``), SDPA's forward beside
     it.  One JSON line per row, in the kernels phase."""
-    from repro_torch.kernels.flash_prefill import (flash_prefill,
+    from repro_torch.kernels.flash_prefill import (bwd_kv_chunk,
+                                                   bwd_kv_parts,
+                                                   flash_prefill,
                                                    flash_prefill_bwd)
     gen = torch.Generator(device="cuda").manual_seed(2222)
     rows = {}
@@ -2409,7 +2450,9 @@ def phase_train_kernels(torch, card):
         lt = time_ms(torch, library)
         t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, flops / peak
         rows[name] = {
-            "body": "cuda_core", "shape": list(case[1:6]), "dtype": case[-1],
+            "body": kernel_body(name, a), "shape": list(case[1:6]),
+            "dtype": case[-1], "kv_chunk": bwd_kv_chunk(*case[1:5]),
+            "kv_parts": bwd_kv_parts(*case[1:5]),
             "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
             "tol": [rtol * s for s in scales], "ms": kt["ms"],
             "plain_ms": pt["ms"], "flush_ms": kt["flush_ms"],
@@ -2418,6 +2461,9 @@ def phase_train_kernels(torch, card):
             "bytes": nbytes, "flops": flops, "peak_flops": peak,
             "tflops": flops / kt["ms"] / 1e9, "library_ms": lt["ms"],
             "library_max_rel_err": lib_err}
+        if name == "flash_prefill_bwd":
+            rows[name]["kernel_split_ms"] = kernel_split_ms(
+                torch, lambda: flash_prefill_bwd(**a, backend="cuda"))
         emit({"phase": "kernels", "card": card, "kernel": name,
               **rows[name]})
 
@@ -2485,11 +2531,12 @@ def phase_train(torch, kernel_fns, card, cfg):
     """TRAIN_STEPS AdamW steps of llama3.2-1b at full width and depth
     through ``make_train_step`` (``n_micro`` TRAIN_MICRO), every count
     zeroed just before and read just after; then one more step under the
-    profiler.  Each step's loss, host time (ending in a synchronise),
-    tokens/s; the peak memory.  Checks: every loss finite, the last below
-    the first, and the launches: under remat each layer's forward runs
-    twice a micro-step (the forward, then its recompute in the backward),
-    so kernel 7 launches 2 x layers x micro-steps a step and the backward
+    profiler.  Each step's loss, host time (ending in a synchronise) and
+    the host's time until the step returned, tokens/s; the peak memory.
+    Checks: every loss finite, the last below the first, and the
+    launches: under remat each layer's forward runs twice a micro-step
+    (the forward, then its recompute in the backward), so kernel 7
+    launches 2 x layers x micro-steps a step and the backward
     kernel layers x micro-steps."""
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import train as train_mod
@@ -2508,11 +2555,12 @@ def phase_train(torch, kernel_fns, card, cfg):
         batch = train_batch(torch, data, cfg, s)
         t0 = time.perf_counter()
         params, opt_state, m = step_fn(params, opt_state, batch)
+        queued = time.perf_counter() - t0
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         steps.append({"step": s, "loss": float(m["loss"]),
                       "lr": float(m["lr"]), "grad_norm": float(m["grad_norm"]),
-                      "ms": dt * 1e3,
+                      "ms": dt * 1e3, "host_queue_ms": queued * 1e3,
                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt})
         emit({"phase": "train", "card": card, **steps[-1]})
     launches = {name: fn.launches for name, fn in kernel_fns.items()}
@@ -2540,6 +2588,7 @@ def phase_train(torch, kernel_fns, card, cfg):
           "step_ms_median": ms[len(ms) // 2],
           "tokens_per_s_median": TRAIN_BATCH * TRAIN_SEQ * 1e3
           / ms[len(ms) // 2],
+          "cuda_core_backward": CUDA_CORE_BWD_TRAIN,
           "peak_mem_gb": peak / 1e9, "launches": launches,
           "launches_expected": want,
           "launches_note": "kernel 7 runs twice a layer and micro-step "

@@ -56,21 +56,6 @@ constexpr size_t smem_bytes() {  // Q and two stages of K and V
 }
 }  // namespace flash_tc
 
-// Rows r0 .. r0+63 of one head ([row][HD], stride `stride` elements
-// between tokens) into a [64][HD + 8] tile; rows >= S are zero.
-template <int HD>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           size_t stride, int r0, int S) {
-  constexpr int CH = HD / 8, LD = flash_tc::ld<HD>();
-  for (int c = threadIdx.x; c < 64 * CH; c += flash_tc::NT) {
-    const int r = c / CH, col = (c - r * CH) * 8;
-    const bool ok = r0 + r < S;
-    mma::cp_async16(dst + r * LD + col,
-                    ok ? src + (size_t)(r0 + r) * stride + col : src, ok);
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(flash_tc::NT)
     flash_prefill_tc(const __nv_bfloat16* __restrict__ q,
@@ -94,9 +79,9 @@ __global__ void __launch_bounds__(flash_tc::NT)
   const __nv_bfloat16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
   const __nv_bfloat16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
 
-  stage_rows<HD>(sq, qb, q_stride, i0, S);
-  stage_rows<HD>(sk, kb, kv_stride, 0, S);
-  stage_rows<HD>(sv, vb, kv_stride, 0, S);
+  mma::stage_rows<HD, NT>(sq, qb, q_stride, i0, S);
+  mma::stage_rows<HD, NT>(sk, kb, kv_stride, 0, S);
+  mma::stage_rows<HD, NT>(sv, vb, kv_stride, 0, S);
   mma::cp_async_commit();
 
   uint32_t qf[KS][4];
@@ -115,8 +100,10 @@ __global__ void __launch_bounds__(flash_tc::NT)
     __syncthreads();  // tile t staged; stage (t+1)&1 no longer read
     if (t < tile) {
       const int st = (t + 1) & 1;
-      stage_rows<HD>(sk + st * KT * LD, kb, kv_stride, (t + 1) * KT, S);
-      stage_rows<HD>(sv + st * KT * LD, vb, kv_stride, (t + 1) * KT, S);
+      mma::stage_rows<HD, NT>(sk + st * KT * LD, kb, kv_stride,
+                              (t + 1) * KT, S);
+      mma::stage_rows<HD, NT>(sv + st * KT * LD, vb, kv_stride,
+                              (t + 1) * KT, S);
       mma::cp_async_commit();
     }
     if (t == 0) {

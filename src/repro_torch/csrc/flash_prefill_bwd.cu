@@ -13,37 +13,63 @@
 //   dS  = P o (dO V^T - D)
 //   dV  = P^T dO,   dK = scale * dS^T Q,   dQ = scale * dS K,
 //
-// so no S x S matrix is ever stored.  Three kernels:
-//
-// * `bwd_delta`: D [B,Hq,S] float32, one warp per (token, q head).
-// * `bwd_dkdv`: one block per (64-key tile, KV head, sequence).  It loops
-//   over the G query heads of the group and, for each, over the 64-query
-//   tiles on and below the key tile's diagonal, and keeps dK and dV of its
-//   64 keys in float32 registers until the end.  The GQA sum therefore
-//   happens inside the block, in a fixed order: no atomics, and two runs
-//   give the same bits (a training run that resumes from a checkpoint
-//   relies on that).
-// * `bwd_dq`: one block per (64-query tile, q head, sequence) over the key
-//   tiles 0 .. diagonal, dQ in float32 registers.
+// so no S x S matrix is ever stored.  `bwd_delta` computes D [B,Hq,S]
+// float32, 16 bytes of o and dO a lane; then a dK/dV kernel and a dQ
+// kernel, each recomputing P and dS for its tiles (FlashAttention-2's
+// backward layout).
 //
 // Bound on the H100: the operations.  A sequence does 10 * S(S+1)/2 * Hq
-// * hd flops (the QK^T recompute, dO V^T, dV, dK and dQ products, two
-// flops a multiply-add) over (4 * S * Hq + 4 * S * Hkv) * hd elements
-// moved, ~1.2 * S flops a bf16 byte at Hq 32 / Hkv 8: past the card's
-// ~295 from S ~250.  This first body is a simple one: float32 FMAs out of
-// shared memory on the CUDA cores (each thread a 4 x 4 register tile of
-// scores and a 4 x hd/16 tile of its outputs, rows padded by one float so
-// the 16 keys or rows a half-warp reads sit in 16 banks), for bf16 and
-// float32 inputs alike, so it runs well below the tensor cores' rate.  A
-// tensor-core body (the forward's `mma.sync` fragments) is later work.
+// * hd flops of products (the QK^T recompute, dO V^T, dV, dK, dQ; the dQ
+// kernel recomputes QK^T and dO V^T, 14 in all) over (4 * S * Hq + 4 * S
+// * Hkv) * hd elements moved, ~1.2 * S flops a bf16 byte at Hq 32 / Hkv
+// 8: past the card's ~295 from S ~250.  So the products belong on the
+// tensor cores.  Two bodies, chosen by type and width in the C entry
+// below (never a retry after a failure):
+//
+// * bf16 at hd 64 and 128 -- the tensor-core body (`mma.sync.m16n8k16`,
+//   float32 accumulators, mma_common.cuh), 4 warps a block:
+//   - `bwd_dkdv_tc`: one block per (64-key tile, KV head, sequence), a
+//     warp per 16 keys.  It walks the G query heads of the group and,
+//     for each, the 64-query tiles from the diagonal down; Q, dO, lse and
+//     D of tile t+1 are staged by `cp.async` into the second of two
+//     stages while tile t computes.  Per tile a warp forms S^T = K Q^T
+//     and dP^T = V dO^T in registers, P^T = exp2(S^T scale log2e - lse
+//     log2e) and dS^T = P^T o (dP^T - D), rounds both to bf16 A fragments
+//     in registers (no trip through shared memory), and accumulates dV +=
+//     P^T dO and dK += dS^T Q in float32 registers (dO and Q as B through
+//     `ldmatrix.trans`).  At hd 128 the 64 queries go in two passes of 32
+//     to keep the two [16 x 128] accumulators and the score fragments
+//     within the register file.  The GQA sum stays inside a block, in a
+//     fixed order: no atomics, and two runs give the same bits (a
+//     training run that resumes from a checkpoint relies on that).  When
+//     one block a key tile would leave SMs idle (small B, the wrapper's
+//     `bwd_kv_chunk`), the walk of each key tile is cut into chunks of
+//     `chunk` tiles, one block each, that write float32 partials; then
+//     `bwd_dkdv_combine` sums them in chunk order (deterministic too).
+//   - `bwd_dq_tc`: one block per (64-query tile, q head, sequence), a
+//     warp per 16 rows, over key tiles 0 .. diagonal with K and V in two
+//     stages; S, P, dP, dS as above, then dQ += dS K (K through
+//     `ldmatrix.trans`) in float32 registers, scaled at the end.  Longest
+//     tiles first.
+//   Only diagonal and ragged tiles are masked; rows and keys >= S are
+//   zero-filled by `cp.async` and never written, so any S is legal.
+// * float32 -- the CUDA-core body: float32 FMAs out of shared memory
+//   (each thread a 4 x 4 register tile of scores and a 4 x hd/16 tile of
+//   its outputs, rows padded by one float so the 16 keys or rows a
+//   half-warp reads sit in 16 banks), `bwd_dkdv` and `bwd_dq` on the same
+//   grids as above without a split.  The tensor cores take bf16, so
+//   float32 (the CPU-parity checks) stays on the CUDA cores' 67 TFLOP/s.
 //
 // Layouts: q/dq/o/dO [B,S,Hq,hd]; k/v/dk/dv [B,S,Hkv,hd]; lse and the D
 // scratch [B,Hq,S] float32.  One type (float32 or bfloat16) for q, k, v,
 // o, dO and the gradients; float32 everywhere inside.  hd 64 or 128 (the
-// trainable families' widths); any S, a ragged last tile included (rows
-// and keys >= S are zero-filled and never written).
+// trainable families' widths).
+#include "mma_common.cuh"
 #include "paged_common.cuh"
 
+// ---------------------------------------------------------------------------
+// CUDA-core body (float32) and D
+// ---------------------------------------------------------------------------
 namespace flash_bwd {
 constexpr int T64 = 64;   // keys and queries a tile
 constexpr int NT = 256;   // threads: 16 x 16
@@ -144,20 +170,32 @@ __device__ __forceinline__ void probs_tile(const Smem<HD>& sm, int i0,
 }
 }  // namespace flash_bwd
 
-// D = rowsum(dO o O), one warp per (b, i, h) row.
+// D = rowsum(dO o O): L = hd * sizeof(T) / 16 neighbouring lanes a (b, i,
+// h) row (8 or 16 in bf16, 16 or 32 in float32), 16 bytes of o and of dO
+// each.
 template <typename T>
 __global__ void bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
                           float* __restrict__ delta, int B, int S, int Hq,
                           int hd) {
-  const size_t row = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= (size_t)B * S * Hq) return;  // whole warps leave together
-  const T* orow = o + row * hd;
-  const T* grow = dout + row * hd;
+  constexpr int E = 16 / sizeof(T);  // elements a 16-byte load
+  const int L = hd / E;
+  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = tid / L;
+  const int sub = (int)(tid % L);
+  const bool ok = row < (size_t)B * S * Hq;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc += to_f(orow[d]) * to_f(grow[d]);
-  acc = warp_sum(acc);
-  if (lane == 0) {
+  if (ok) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * hd + sub * E);
+    const uint4 g =
+        *reinterpret_cast<const uint4*>(dout + row * hd + sub * E);
+    const T* av = reinterpret_cast<const T*>(&a);
+    const T* gv = reinterpret_cast<const T*>(&g);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc += to_f(av[e]) * to_f(gv[e]);
+  }
+  for (int m = L / 2; m > 0; m >>= 1)  // every lane takes part
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (ok && sub == 0) {
     const int h = (int)(row % Hq);
     const size_t bi = row / Hq;  // b * S + i
     const int i = (int)(bi % S), b = (int)(bi / S);
@@ -299,61 +337,476 @@ __global__ void __launch_bounds__(flash_bwd::NT)
   }
 }
 
-template <typename T, int HD>
-static int launch(const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, const void* lse, void* delta, void* dq,
-                  void* dk, void* dv, int B, int S, int Hq, int Hkv,
-                  float scale, cudaStream_t st) {
+// ---------------------------------------------------------------------------
+// tensor-core body (bf16)
+// ---------------------------------------------------------------------------
+namespace bwd_tc {
+constexpr int T = 64;    // keys and queries a tile
+constexpr int NT = 128;  // 4 warps of 16 keys (dK/dV) or query rows (dQ)
+constexpr float LOG2E = 1.4426950408889634f;
+template <int HD>
+__host__ __device__ constexpr int ld() { return HD + 8; }
+template <int HD>
+constexpr size_t smem_bytes() {
+  // six bf16 tiles (dK/dV: K, V, two stages of Q and dO; dQ: Q, dO, two
+  // stages of K and V) and two stages of the 64 rows' lse and D (dK/dV)
+  return (size_t)6 * T * ld<HD>() * sizeof(__nv_bfloat16) +
+         (size_t)4 * T * sizeof(float);
+}
+
+// lse and D of rows i0 .. i0+63 of one head ([B,Hq,S] rows from row0)
+// into st[0..63] and st[64..127], 4 bytes a `cp.async`; rows >= S are 0.
+__device__ __forceinline__ void stage_stats(float* st, const float* lse,
+                                            const float* delta, size_t row0,
+                                            int i0, int S) {
+  static_assert(NT == 2 * T, "one thread a staged row statistic");
+  const int r = threadIdx.x & (T - 1);
+  const float* src = threadIdx.x < T ? lse : delta;
+  const bool ok = i0 + r < S;
+  mma::cp_async4(st + threadIdx.x, ok ? src + row0 + i0 + r : src, ok);
+}
+}  // namespace bwd_tc
+
+// Block (key tile blockIdx.x / parts, chunk blockIdx.x % parts, KV head,
+// sequence): iterations [chunk * c, chunk * (c + 1)) of the key tile's
+// walk over (query head of the group, query tile from the diagonal
+// down).  parts == 1: dK (scaled) and dV in bf16; else unscaled float32
+// partials [2][parts][B,S,Hkv,HD] (dK, then dV) for `bwd_dkdv_combine`.
+template <int HD>
+__global__ void __launch_bounds__(bwd_tc::NT)
+    bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                float* __restrict__ part, int S, int Hq, int Hkv, int chunk,
+                int parts, float scale_log2, float scale) {
+  using namespace bwd_tc;
+  constexpr int LD = ld<HD>(), KS = HD / 16, NV = HD / 8;
+  // query columns a pass: 64 at hd 64, two passes of 32 at hd 128
+  constexpr int QW = HD <= 64 ? 64 : 32, NS = QW / 8;
+  extern __shared__ float4 bwd_tc_smem[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(bwd_tc_smem);
+  __nv_bfloat16* sv = sk + T * LD;
+  __nv_bfloat16* sq = sv + T * LD;       // [2][T][LD]
+  __nv_bfloat16* sdo = sq + 2 * T * LD;  // [2][T][LD]
+  float* sst = reinterpret_cast<float*>(sdo + 2 * T * LD);  // [2][lse, D]
+  const int n = (S + T - 1) / T, G = Hq / Hkv;
+  const int kt = blockIdx.x / parts, c = blockIdx.x - kt * parts;
+  const int hk = blockIdx.y, b = blockIdx.z, nq = n - kt;
+  const int it0 = c * chunk, it1 = min(G * nq, it0 + chunk);
+  if (it0 >= it1) return;  // a chunk past this key tile's walk
+  const int j0 = kt * T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
+  const size_t kv_base = ((size_t)b * S * Hkv + hk) * HD;
+
+  // iteration it: query head hk * G + it / nq, query tile kt + it % nq
+  auto stage = [&](int it, int st) {
+    const int g = it / nq, i0 = (kt + it - g * nq) * T, h = hk * G + g;
+    const size_t q_base = ((size_t)b * S * Hq + h) * HD;
+    mma::stage_rows<HD, NT>(sq + st * T * LD, q + q_base, q_stride, i0, S);
+    mma::stage_rows<HD, NT>(sdo + st * T * LD, dout + q_base, q_stride, i0,
+                            S);
+    stage_stats(sst + st * 2 * T, lse, delta, ((size_t)b * Hq + h) * S, i0,
+                S);
+  };
+  mma::stage_rows<HD, NT>(sk, k + kv_base, kv_stride, j0, S);
+  mma::stage_rows<HD, NT>(sv, v + kv_base, kv_stride, j0, S);
+  stage(it0, 0);
+  mma::cp_async_commit();
+
+  float acc_k[NV][4], acc_v[NV][4];
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[x][e] = acc_v[x][e] = 0.f;
+  const int key0 = j0 + warp * 16 + (lane >> 2);  // keys key0, key0 + 8
+
+  for (int it = it0; it < it1; ++it) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile `it` staged; the other stage no longer read
+    const int st = (it - it0) & 1;
+    if (it + 1 < it1) {
+      stage(it + 1, st ^ 1);
+      mma::cp_async_commit();
+    }
+    const int qt = kt + it % nq, i0 = qt * T;
+    const __nv_bfloat16* tq = sq + st * T * LD;
+    const __nv_bfloat16* tdo = sdo + st * T * LD;
+    const float* tl = sst + st * 2 * T;
+    const float* td = tl + T;
+    const bool edge = qt == kt || i0 + T > S;  // diagonal or ragged tile
+#pragma unroll
+    for (int c0 = 0; c0 < T; c0 += QW) {
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int x = 0; x < NS; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[x][e] = dp[x][e] = 0.f;
+      // S^T = K Q^T, dP^T = V dO^T: K, V as A; Q, dO as B
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        mma::ldsm_x4(ka, mma::a_frag_addr(sk, LD, warp * 16, kk * 16, lane));
+        mma::ldsm_x4(va, mma::a_frag_addr(sv, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bq[4], bo[4];
+          mma::ldsm_x4(bq, mma::bk_frag_addr(tq, LD, c0 + np * 16, kk * 16,
+                                             lane));
+          mma::mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+          mma::mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+          mma::ldsm_x4(bo, mma::bk_frag_addr(tdo, LD, c0 + np * 16, kk * 16,
+                                             lane));
+          mma::mma_bf16(dp[2 * np], va, bo[0], bo[1]);
+          mma::mma_bf16(dp[2 * np + 1], va, bo[2], bo[3]);
+        }
+      }
+      // P^T into s, dS^T into dp; entry e of 8-query tile x is key
+      // key0 + 8 (e / 2), query i0 + c0 + 8x + 2t + e % 2
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        const int col = c0 + x * 8 + 2 * (lane & 3);
+        const float2 l2 = *reinterpret_cast<const float2*>(tl + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(td + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + col + (e & 1), j = key0 + (e >> 1) * 8;
+          float p = exp2f(s[x][e] * scale_log2 -
+                          (e & 1 ? l2.y : l2.x) * LOG2E);
+          if (edge && (j > i || i >= S)) p = 0.f;
+          s[x][e] = p;
+          dp[x][e] = p * (dp[x][e] - (e & 1 ? d2.y : d2.x));
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q: dO, Q as B through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < QW / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        mma::probs_to_a<NS>(s, kk, pa);
+        mma::probs_to_a<NS>(dp, kk, da);
+#pragma unroll
+        for (int np = 0; np < NV / 2; ++np) {
+          uint32_t bo[4], bq[4];
+          mma::ldsm_x4_trans(bo, mma::bv_frag_addr(tdo, LD, c0 + kk * 16,
+                                                   np * 16, lane));
+          mma::mma_bf16(acc_v[2 * np], pa, bo[0], bo[1]);
+          mma::mma_bf16(acc_v[2 * np + 1], pa, bo[2], bo[3]);
+          mma::ldsm_x4_trans(bq, mma::bv_frag_addr(tq, LD, c0 + kk * 16,
+                                                   np * 16, lane));
+          mma::mma_bf16(acc_k[2 * np], da, bq[0], bq[1]);
+          mma::mma_bf16(acc_k[2 * np + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  const size_t per = (size_t)gridDim.z * S * Hkv * HD;  // one partial
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = key0 + u * 8;
+    if (j >= S) continue;
+    const size_t off = kv_base + (size_t)j * kv_stride + 2 * (lane & 3);
+    if (parts == 1) {
+#pragma unroll
+      for (int x = 0; x < NV; ++x) {
+        *reinterpret_cast<uint32_t*>(dk + off + x * 8) = mma::pack_bf16(
+            acc_k[x][2 * u] * scale, acc_k[x][2 * u + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + x * 8) =
+            mma::pack_bf16(acc_v[x][2 * u], acc_v[x][2 * u + 1]);
+      }
+    } else {
+      float* pk = part + (size_t)c * per + off;
+      float* pv = part + (size_t)(parts + c) * per + off;
+#pragma unroll
+      for (int x = 0; x < NV; ++x) {
+        *reinterpret_cast<float2*>(pk + x * 8) =
+            make_float2(acc_k[x][2 * u], acc_k[x][2 * u + 1]);
+        *reinterpret_cast<float2*>(pv + x * 8) =
+            make_float2(acc_v[x][2 * u], acc_v[x][2 * u + 1]);
+      }
+    }
+  }
+}
+
+// dK (scaled) and dV in bf16 from the chunks' float32 partials, summed in
+// chunk order; key j's tile has ceil(G * (n - j / 64) / chunk) chunks.
+__global__ void bwd_dkdv_combine(const float* __restrict__ part,
+                                 __nv_bfloat16* __restrict__ dk,
+                                 __nv_bfloat16* __restrict__ dv, int B, int S,
+                                 int Hkv, int hd, int G, int chunk, int parts,
+                                 float scale) {
+  const size_t per = (size_t)B * S * Hkv * hd, row = (size_t)Hkv * hd;
+  const int n = (S + bwd_tc::T - 1) / bwd_tc::T;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int j = (int)(i / row % S);
+    const int used = (G * (n - j / bwd_tc::T) + chunk - 1) / chunk;
+    float sk = 0.f, sv = 0.f;
+    for (int c = 0; c < used; ++c) {
+      sk += part[c * per + i];
+      sv += part[(parts + c) * per + i];
+    }
+    dk[i] = __float2bfloat16(sk * scale);
+    dv[i] = __float2bfloat16(sv);
+  }
+}
+
+// Block (query tile, q head, sequence), query tiles longest first.
+template <int HD>
+__global__ void __launch_bounds__(bwd_tc::NT)
+    bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int S, int Hq, int Hkv,
+              float scale_log2, float scale) {
+  using namespace bwd_tc;
+  constexpr int LD = ld<HD>(), KS = HD / 16, NV = HD / 8, NS = T / 8;
+  extern __shared__ float4 bwd_tc_smem[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(bwd_tc_smem);
+  __nv_bfloat16* sdo = sq + T * LD;
+  __nv_bfloat16* sk = sdo + T * LD;     // [2][T][LD]
+  __nv_bfloat16* sv = sk + 2 * T * LD;  // [2][T][LD]
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int i0 = qt * T, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t q_stride = (size_t)Hq * HD, kv_stride = (size_t)Hkv * HD;
+  const size_t q_base = ((size_t)b * S * Hq + h) * HD;
+  const __nv_bfloat16* kb = k + ((size_t)b * S * Hkv + hk) * HD;
+  const __nv_bfloat16* vb = v + ((size_t)b * S * Hkv + hk) * HD;
+
+  mma::stage_rows<HD, NT>(sq, q + q_base, q_stride, i0, S);
+  mma::stage_rows<HD, NT>(sdo, dout + q_base, q_stride, i0, S);
+  mma::stage_rows<HD, NT>(sk, kb, kv_stride, 0, S);
+  mma::stage_rows<HD, NT>(sv, vb, kv_stride, 0, S);
+  mma::cp_async_commit();
+
+  // rows row0, row0 + 8: -lse log2e and D; rows >= S -inf (P = 0) and 0
+  const int row0 = i0 + warp * 16 + (lane >> 2);
+  float nl[2], dd[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = row0 + u * 8;
+    const size_t r = ((size_t)b * Hq + h) * S + row;
+    nl[u] = row < S ? -lse[r] * LOG2E : mma::neg_inf();
+    dd[u] = row < S ? delta[r] : 0.f;
+  }
+  float acc[NV][4];
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[x][e] = 0.f;
+
+  // key tiles 0 .. qt; the last one holds the diagonal
+  for (int t = 0; t <= qt; ++t) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile t staged; stage (t+1)&1 no longer read
+    if (t < qt) {
+      const int st = (t + 1) & 1;
+      mma::stage_rows<HD, NT>(sk + st * T * LD, kb, kv_stride, (t + 1) * T,
+                              S);
+      mma::stage_rows<HD, NT>(sv + st * T * LD, vb, kv_stride, (t + 1) * T,
+                              S);
+      mma::cp_async_commit();
+    }
+    const __nv_bfloat16* tk = sk + (t & 1) * T * LD;
+    const __nv_bfloat16* tv = sv + (t & 1) * T * LD;
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int x = 0; x < NS; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[x][e] = dp[x][e] = 0.f;
+    // S = Q K^T, dP = dO V^T: Q, dO as A; K, V as B
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], oa[4];
+      mma::ldsm_x4(qa, mma::a_frag_addr(sq, LD, warp * 16, kk * 16, lane));
+      mma::ldsm_x4(oa, mma::a_frag_addr(sdo, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        mma::ldsm_x4(bk, mma::bk_frag_addr(tk, LD, np * 16, kk * 16, lane));
+        mma::mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma::mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+        mma::ldsm_x4(bv, mma::bk_frag_addr(tv, LD, np * 16, kk * 16, lane));
+        mma::mma_bf16(dp[2 * np], oa, bv[0], bv[1]);
+        mma::mma_bf16(dp[2 * np + 1], oa, bv[2], bv[3]);
+      }
+    }
+    // dS into dp; entry e of 8-key tile x is row row0 + 8 (e / 2), key
+    // 64t + 8x + 2t' + e % 2
+    const bool diag = t == qt;
+#pragma unroll
+    for (int x = 0; x < NS; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t * T + x * 8 + 2 * (lane & 3) + (e & 1);
+        const int u = e >> 1;
+        float p = exp2f(s[x][e] * scale_log2 + nl[u]);
+        if (diag && key > row0 + u * 8) p = 0.f;
+        dp[x][e] = p * (dp[x][e] - dd[u]);
+      }
+    // dQ += dS K: K as B through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+      uint32_t da[4];
+      mma::probs_to_a<NS>(dp, kk, da);
+#pragma unroll
+      for (int np = 0; np < NV / 2; ++np) {
+        uint32_t bk[4];
+        mma::ldsm_x4_trans(bk, mma::bv_frag_addr(tk, LD, kk * 16, np * 16,
+                                                 lane));
+        mma::mma_bf16(acc[2 * np], da, bk[0], bk[1]);
+        mma::mma_bf16(acc[2 * np + 1], da, bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = row0 + u * 8;
+    if (row >= S) continue;
+    __nv_bfloat16* drow = dq + q_base + (size_t)row * q_stride;
+#pragma unroll
+    for (int x = 0; x < NV; ++x)
+      *reinterpret_cast<uint32_t*>(drow + x * 8 + 2 * (lane & 3)) =
+          mma::pack_bf16(acc[x][2 * u] * scale, acc[x][2 * u + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches and the C entries
+// ---------------------------------------------------------------------------
+template <typename T>
+static cudaError_t launch_delta(const void* o, const void* dout, void* delta,
+                                int B, int S, int Hq, int hd,
+                                cudaStream_t st) {
+  const size_t threads = (size_t)B * S * Hq * (hd * sizeof(T) / 16);
+  bwd_delta<T><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      (const T*)o, (const T*)dout, (float*)delta, B, S, Hq, hd);
+  return cudaGetLastError();
+}
+
+template <int HD>
+static int launch_tc(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const void* lse,
+                     void* delta, void* dq, void* dk, void* dv, void* part,
+                     int B, int S, int Hq, int Hkv, float scale, int chunk,
+                     cudaStream_t st) {
+  using namespace bwd_tc;
+  using bf16 = __nv_bfloat16;
+  const int n = (S + T - 1) / T, G = Hq / Hkv;
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  const int parts = (G * n + chunk - 1) / chunk;
+  if (parts > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  const float scale_log2 = scale * LOG2E;
+  cudaError_t err = launch_delta<bf16>(o, dout, delta, B, S, Hq, HD, st);
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = smem_bytes<HD>();
+  auto kv_kernel = bwd_dkdv_tc<HD>;
+  err = allow_smem(kv_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kv_kernel<<<dim3(n * parts, Hkv, B), NT, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+      (float*)part, S, Hq, Hkv, chunk, parts, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (parts > 1) {
+    const size_t per = (size_t)B * S * Hkv * HD, need = (per + 255) / 256;
+    const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
+    bwd_dkdv_combine<<<blocks, 256, 0, st>>>((const float*)part, (bf16*)dk,
+                                             (bf16*)dv, B, S, Hkv, HD, G,
+                                             chunk, parts, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  auto q_kernel = bwd_dq_tc<HD>;
+  err = allow_smem(q_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  q_kernel<<<dim3(n, Hq, B), NT, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, S, Hq, Hkv,
+      scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+static int launch_f32(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const void* lse,
+                      void* delta, void* dq, void* dk, void* dv, int B, int S,
+                      int Hq, int Hkv, float scale, cudaStream_t st) {
   using namespace flash_bwd;
-  const size_t rows = (size_t)B * S * Hq;
-  bwd_delta<T><<<(unsigned)((rows * 32 + NT - 1) / NT), NT, 0, st>>>(
-      (const T*)o, (const T*)dout, (float*)delta, B, S, Hq, HD);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<float>(o, dout, delta, B, S, Hq, HD, st);
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem = smem_bytes<HD>();
   const int tiles = (S + T64 - 1) / T64;
-  auto kv_kernel = bwd_dkdv<T, HD>;
+  auto kv_kernel = bwd_dkdv<float, HD>;
   err = allow_smem(kv_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kv_kernel<<<dim3(tiles, Hkv, B), NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, S, Hq, Hkv,
-      scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, S, Hq,
+      Hkv, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  auto q_kernel = bwd_dq<T, HD>;
+  auto q_kernel = bwd_dq<float, HD>;
   err = allow_smem(q_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   q_kernel<<<dim3(tiles, Hq, B), NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, S, Hq, Hkv, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, S, Hq, Hkv, scale);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core body takes bf16 at hd 64 and 128.
+static bool tensor_core(int hd, int dtype) {
+  return dtype == 1 && (hd == 64 || hd == 128);
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16; hd 64 or 128 (anything else
 // returns cudaErrorInvalidValue, and the wrapper refuses it first).
-// `delta` is float32 scratch [B,Hq,S] the caller allocates.
+// `delta` is float32 scratch [B,Hq,S] the caller allocates.  `kv_chunk`:
+// query-tile iterations a dK/dV block of the tensor-core body walks;
+// when it is less than G * ceil(S / 64), `partials` is float32 scratch of
+// 2 * ceil(G * ceil(S / 64) / kv_chunk) * B * S * Hkv * hd elements (the
+// float32 body reads neither).
 extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* delta, void* dq,
-                                 void* dk, void* dv, int B, int S, int Hq,
-                                 int Hkv, int hd, float scale, int dtype,
-                                 void* stream) {
+                                 void* dk, void* dv, void* partials, int B,
+                                 int S, int Hq, int Hkv, int hd, float scale,
+                                 int kv_chunk, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                     B, S, Hq, Hkv, scale, st);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, S, Hq, Hkv, scale, st);
+  if (tensor_core(hd, dtype)) {
+    if (hd == 64)
+      return launch_tc<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                           partials, B, S, Hq, Hkv, scale, kv_chunk, st);
+    return launch_tc<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, partials,
+                          B, S, Hq, Hkv, scale, kv_chunk, st);
+  }
   if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
-                             Hq, Hkv, scale, st);
+    return launch_f32<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, Hq,
+                          Hkv, scale, st);
   if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
-                              Hq, Hkv, scale, st);
+    return launch_f32<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                           Hq, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// 1 when `flash_prefill_bwd` runs the tensor-core body for this type and
+// width.
+extern "C" int flash_prefill_bwd_tensor_core(int hd, int dtype) {
+  return tensor_core(hd, dtype);
 }

@@ -1,7 +1,10 @@
-// Tensor-core building blocks for the bf16 attention kernels on Hopper:
-// 16-byte `cp.async` copies into shared memory, `ldmatrix` loads of bf16
-// fragments (`.trans` for a value tile stored [key][column]), and the
-// warp-level `mma.sync.m16n8k16` bf16 product with float32 accumulators.
+// Tensor-core building blocks for the bf16 attention kernels on Hopper
+// (forward and backward): 16-byte `cp.async` copies into shared memory
+// (whole 64-row tiles with `stage_rows`; 4-byte ones for row
+// statistics), `ldmatrix` loads of bf16 fragments (`.trans` for a tile
+// stored [key][column] that is the B operand of a product over keys),
+// and the warp-level `mma.sync.m16n8k16` bf16 product with float32
+// accumulators.
 //
 // Fragment layouts of m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
 //   A [16 x 16] row-major, 4 registers of two bf16:
@@ -39,10 +42,34 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// Copy 4 bytes global -> shared, or write 4 zero bytes when !pred.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
 // Wait until at most N committed groups of this thread are in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows r0 .. r0+63 of one head (W bf16 a row, `stride` elements from one
+// token to the next) into a [64][W + 8] tile, 16 bytes a `cp.async`, by
+// the block's NT threads; rows >= S are zero-filled.
+template <int W, int NT>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           size_t stride, int r0, int S) {
+  constexpr int CH = W / 8, LD = W + 8;
+  for (int c = threadIdx.x; c < 64 * CH; c += NT) {
+    const int r = c / CH, col = (c - r * CH) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * LD + col,
+               ok ? src + (size_t)(r0 + r) * stride + col : src, ok);
+  }
 }
 
 // Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.

@@ -17,12 +17,19 @@ The JAX package differentiates this attention in ``jnp`` (``jax.grad``
 of ``causal_attention``); it has no backward kernel to translate.
 ``FlashCausal`` is the port's: its forward runs the forward kernel with
 ``lse``, its backward ``flash_prefill_bwd`` (dQ, dK, dV without atomics,
-so gradients are deterministic).  On CPU tensors every wrapper runs the
-plain version in ``kernels/ref.py``.
+so gradients are deterministic; bf16 on the tensor cores, float32 on
+the CUDA cores).  On CPU tensors every wrapper runs the plain version in
+``kernels/ref.py``.
+
+At small batch the tensor-core dK/dV kernel cuts each key tile's walk
+into chunks of ``bwd_kv_chunk`` query tiles, chosen from the shape
+alone; the wrapper allocates the chunks' float32 partials, which a
+second kernel sums in a fixed order.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,11 +41,41 @@ from repro_torch.kernels.paged_attention import DTYPE_CODES, stream_ptr
 PTR, INT, FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, out, lse (or NULL); B, S, Hq, Hkv, hd; scale; dtype code; stream
 FLASH_ARGS = [PTR] * 5 + [INT] * 5 + [FLT, INT, PTR]
-# q, k, v, o, dO, lse, D scratch, dq, dk, dv; B, S, Hq, Hkv, hd; scale;
-# dtype code; stream
-FLASH_BWD_ARGS = [PTR] * 10 + [INT] * 5 + [FLT, INT, PTR]
+# q, k, v, o, dO, lse, D scratch, dq, dk, dv, dK/dV partials (or NULL);
+# B, S, Hq, Hkv, hd; scale; query tiles a dK/dV block; dtype code; stream
+FLASH_BWD_ARGS = [PTR] * 11 + [INT] * 5 + [FLT, INT, INT, PTR]
 # head widths the backward kernel takes (the trainable families')
 BWD_HEAD_DIMS = (64, 128)
+# the dK/dV grid: one block a (64-key tile, KV head, sequence) when that
+# gives each of the H100's 132 SMs two; else the walks are cut into
+# chunks of at least 2 query tiles, about 2 x 132 blocks in all
+BWD_TILE, BWD_SMS, BWD_MIN_CHUNK = 64, 132, 2
+
+
+def bwd_kv_chunk(b: int, s: int, hq: int, hkv: int) -> int:
+    """Query-tile iterations a block of the tensor-core dK/dV kernel
+    walks.  Key tile kt of n = ceil(s / 64) walks G (n - kt) of them (each
+    query head of the group over the tiles from the diagonal down);
+    G n means one block a key tile, no partials."""
+    n, g = -(-s // BWD_TILE), hq // hkv
+    if b * hkv * n >= 2 * BWD_SMS:
+        return g * n
+    pairs = b * hkv * g * n * (n + 1) // 2
+    return min(g * n, max(BWD_MIN_CHUNK, -(-pairs // (2 * BWD_SMS))))
+
+
+def bwd_kv_parts(b: int, s: int, hq: int, hkv: int) -> int:
+    """Chunks of the longest walk (key tile 0): the partials' count."""
+    whole = hq // hkv * -(-s // BWD_TILE)
+    return -(-whole // bwd_kv_chunk(b, s, hq, hkv))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_tensor_core(hd: int, dtype_code: int) -> bool:
+    """Whether the backward's C entry runs the tensor-core body."""
+    fn = build.entry("flash_prefill_bwd", "flash_prefill_bwd_tensor_core",
+                     [INT] * 2)
+    return bool(fn(hd, dtype_code))
 
 
 def _check_qkv(name: str, q, k, v, *extra) -> None:
@@ -108,12 +145,18 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError("flash_prefill_bwd: the kernel needs the forward's "
                          "lse [B,Hq,S] float32, contiguous, on q's device")
+    hkv, code = k.shape[2], DTYPE_CODES[q.dtype]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    parts = bwd_kv_parts(b, s, hq, hkv)
+    part = (torch.empty((2, parts) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device)
+            if parts > 1 and bwd_tensor_core(hd, code) else None)
     fn = build.entry("flash_prefill_bwd", "flash_prefill_bwd", FLASH_BWD_ARGS)
     rc = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-            b, s, hq, k.shape[2], hd, 1.0 / math.sqrt(hd),
-            DTYPE_CODES[q.dtype], stream_ptr(q.device))
+            None if part is None else part.data_ptr(),
+            b, s, hq, hkv, hd, 1.0 / math.sqrt(hd),
+            bwd_kv_chunk(b, s, hq, hkv), code, stream_ptr(q.device))
     build.check(rc, "flash_prefill_bwd", "flash_prefill_bwd")
     flash_prefill_bwd.launches += 1
     return dq, dk, dv

@@ -369,7 +369,11 @@ def test_flash_prefill_lse_output(cuda, dtype, tol, b, s, hq, hkv, hd):
 # shapes (llama3.2-1b's training batch of one micro-step at S 1024 and
 # the ragged 1000, llama-3.2-vision's 32 / 8 at hd 128, whisper-tiny's
 # 6 / 6, G 1, a float32 case), then small ones at the tile edges: one
-# token, a partial 64-row tile, MQA
+# token, a partial 64-row tile, MQA; then the tensor-core body's edges at
+# hd 128 (S 63, 64, 65; G 1) and a split dK/dV walk whose chunks end
+# mid-head (S 320 at G 4: chunks of 2 of the 20 tiles).  By
+# ``bwd_kv_chunk`` the bf16 shapes at B 4, S 1 and S 100 keep one dK/dV
+# block a key tile; the other bf16 shapes split the walk
 BWD_SHAPES = [(4, 1024, 32, 8, 64, torch.bfloat16),
               (4, 1000, 32, 8, 64, torch.bfloat16),
               (1, 512, 32, 8, 128, torch.bfloat16),
@@ -377,7 +381,12 @@ BWD_SHAPES = [(4, 1024, 32, 8, 64, torch.bfloat16),
               (1, 512, 32, 8, 64, torch.float32),
               (1, 1, 4, 2, 64, torch.bfloat16), (2, 50, 8, 2, 64, torch.float32),
               (1, 65, 4, 1, 128, torch.float32), (3, 129, 8, 1, 64,
-                                                  torch.bfloat16)]
+                                                  torch.bfloat16),
+              (1, 63, 8, 2, 128, torch.bfloat16),
+              (1, 64, 8, 2, 128, torch.bfloat16),
+              (1, 65, 8, 2, 128, torch.bfloat16),
+              (2, 100, 4, 4, 128, torch.bfloat16),
+              (1, 320, 8, 2, 64, torch.bfloat16)]
 # Backward kernel vs plain version: both recompute the softmax and sum in
 # float32 (another order); a bf16 gradient can then round to a
 # neighbouring bf16 value, so the gap is held to two bf16 steps of the
@@ -402,8 +411,13 @@ def bwd_inputs(b, s, hq, hkv, hd, dtype, seed):
 def test_flash_prefill_bwd_kernel(cuda, b, s, hq, hkv, hd, dtype):
     """dq, dk, dv of the backward kernel against the plain version on the
     forward kernel's own o and lse; one launch a call, and two calls equal
-    bit for bit (no atomics)."""
-    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
+    bit for bit (no atomics); bf16 runs the tensor-core body, float32 the
+    CUDA-core body."""
+    from repro_torch.kernels.flash_prefill import (bwd_tensor_core,
+                                                   flash_prefill_bwd)
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
+    assert bwd_tensor_core(hd, DTYPE_CODES[dtype]) == (dtype
+                                                       == torch.bfloat16)
     q, k, v, o, do, lse = bwd_inputs(b, s, hq, hkv, hd, dtype, seed=s)
     before = flash_prefill_bwd.launches
     grads = flash_prefill_bwd(q, k, v, o, do, lse)
@@ -734,7 +748,7 @@ def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr):
 
 def test_tensor_core_dispatch(cuda):
     """The C entries choose a body by type and width: bf16 flash prefill
-    at hd 16-128, bf16 MLA chunk prefill and MLA decode at every width
+    at hd 16-128 and its backward at hd 64 and 128, bf16 MLA chunk prefill and MLA decode at every width
     above and bf16 GQA decode and GQA chunk / segment prefill at hd
     16-128 with up to 16 query heads a KV head run on the tensor cores,
     and so does the int8 GQA decode with a bf16 query at those widths;
@@ -748,6 +762,10 @@ def test_tensor_core_dispatch(cuda):
                         [ctypes.c_int] * 2)
     assert [flash(hd, 1) for hd in (16, 32, 64, 128, 256)] == [1] * 4 + [0]
     assert [flash(hd, 0) for hd in (16, 32, 64, 128, 256)] == [0] * 5
+    bwd = build.entry("flash_prefill_bwd", "flash_prefill_bwd_tensor_core",
+                      [ctypes.c_int] * 2)
+    assert [bwd(hd, 1) for hd in (32, 64, 128, 256)] == [0, 1, 1, 0]
+    assert [bwd(hd, 0) for hd in (32, 64, 128, 256)] == [0] * 4
     mla = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
                       [ctypes.c_int] * 5)
     for _, dl, dr in MLA_WIDTHS:

@@ -97,6 +97,46 @@ def test_flash_causal_backward_matches_jax_vjp(s, hq, hkv):
         np.testing.assert_allclose(_np(t), np.asarray(j), **TOL)
 
 
+# (B, S, Hq, Hkv) -> (query tiles a dK/dV block, chunks of the longest
+# walk): chip_smoke.py's backward rows and train_families' attention
+@pytest.mark.parametrize("shape,chunk,parts", [
+    ((4, 1024, 32, 8), 64, 1),      # the train micro-step: 512 blocks
+    ((4, 1000, 32, 8), 64, 1),
+    ((1, 512, 32, 8), 5, 7),        # llama-3.2-vision: 64 blocks unsplit
+    ((2, 448, 6, 6), 2, 4),         # whisper-tiny, G 1: 84 unsplit
+    ((2, 512, 32, 32), 8, 1),       # zamba2's shared attention, G 1
+])
+def test_bwd_kv_plan_at_smoke_shapes(shape, chunk, parts):
+    """The tensor-core dK/dV kernel's split plan at the card run's
+    shapes: no split where one block a key tile fills the card twice."""
+    from repro_torch.kernels.flash_prefill import bwd_kv_chunk, bwd_kv_parts
+    assert (bwd_kv_chunk(*shape), bwd_kv_parts(*shape)) == (chunk, parts)
+
+
+@pytest.mark.parametrize("b,hq,hkv", [(1, 32, 8), (2, 6, 6), (3, 8, 1),
+                                      (8, 32, 8)])
+def test_bwd_kv_plan_covers_every_walk(b, hq, hkv):
+    """At every S up to 2048: the chunks of each key tile's walk (G (n -
+    kt) query tiles) cover it, the longest walk needs exactly
+    ``bwd_kv_parts`` chunks, and a split grid gives the 132 SMs at least
+    one block each or runs chunks of the least length."""
+    from repro_torch.kernels.flash_prefill import (BWD_MIN_CHUNK, BWD_SMS,
+                                                   bwd_kv_chunk,
+                                                   bwd_kv_parts)
+    g = hq // hkv
+    for s in range(1, 2049, 7):
+        n = -(-s // 64)
+        chunk, parts = bwd_kv_chunk(b, s, hq, hkv), bwd_kv_parts(b, s, hq,
+                                                                  hkv)
+        assert 1 <= chunk <= g * n
+        used = [-(-g * (n - kt) // chunk) for kt in range(n)]
+        assert max(used) == parts and all(u * chunk >= g * (n - kt)
+                                          for kt, u in enumerate(used))
+        if parts > 1:
+            assert (b * hkv * sum(used) >= BWD_SMS
+                    or chunk == BWD_MIN_CHUNK)
+
+
 def test_serving_attention_builds_no_graph():
     """Without grad (serving) the flash op stays on the plain forward
     wrapper: no ``FlashCausal`` node, no saved tensors."""
