@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mla-depth-probe LAYERS
 
 Needs one CUDA card and the CUDA toolkit; imports nothing of JAX.
 Phases, each printed as one JSON object on its own line; any failed
@@ -150,6 +151,11 @@ check raises and the script exits non-zero with no result line:
            hd 128, whisper-tiny's 6 / 6 and one float32 case, beside the
            backward of F.scaled_dot_product_attention; the forward kernel
            with its log-sum-exp at the micro-step (``flash_prefill_lse``);
+           both again at DeepSeek-V3's train_mla micro-step (2 x 1024,
+           128 / 128 heads, Q/K 192 over V 128: ``*_mla``; the backward
+           also at the ragged 1000 and in float32 at 1 x 256), SDPA on
+           the first of its backends that takes V narrower than Q/K
+           (``library_backend``);
   train    llama3.2-1b at full width and depth: 6 AdamW steps of 8 x 1024
            tokens in two micro-steps (``make_train_step``, every layer
            under remat, attention through the flash prefill kernel and
@@ -170,6 +176,15 @@ check raises and the script exits non-zero with no result line:
   train_families  one train_loss and backward of zamba2-1.2b (6 layers),
            rwkv6-1.6b (4), whisper-tiny and llama-3.2-vision-11b (10) at
            full width: the loss finite, every gradient present and finite;
+  train_mla  the train phase for DeepSeek-V3 at every published width,
+           the depth cut to TRAIN_MLA_LAYERS of 61: 4 x 1024 tokens a step
+           in two micro-steps, MLA in the non-absorbed form (per-head K
+           [c_kv W_uk ; k_rope] 192 wide, V c_kv W_uv 128 wide) through
+           kernel 7 and its backward at that width pair; the same checks
+           (finite, falling loss, exact launches);
+  train_mla_parity  train_parity for DeepSeek-V3 at one layer, 1 x 512
+           tokens a micro-step; the attention weights' gradients (wq,
+           w_dkv, w_kr, w_uk, w_uv, wo) nonzero;
   replay   the live-engine trace replay (``traces/serving_replay.py``)
            of the reduced llama3.2-1b at 32-token blocks and pages, four
            cells (lmsys and agentic whole-prefix, sharegpt and lmsys with
@@ -198,6 +213,12 @@ check raises and the script exits non-zero with no result line:
 
 Then the ``{"kernels": [...]}`` summary, the card's nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
+
+``--mla-depth-probe LAYERS`` runs none of this: two steps of the
+train_mla step at LAYERS layers, and one JSON line with the parameter
+count and either the peak memory or the out-of-memory error with the
+bytes allocated when it struck (``probe_mla_depth``; one depth a
+process, on a fresh card).  TRAIN_MLA_LAYERS is fixed from it.
 """
 from __future__ import annotations
 
@@ -388,9 +409,10 @@ def sass_tensor_core_counts(build, name) -> dict:
 
 # entries that must run on the tensor cores: (source, entry name part,
 # how many such entries)
-TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 4),
+TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 5),
                        ("flash_prefill_bwd", "bwd_dkdv_tc", 2),
-                       ("flash_prefill_bwd", "bwd_dq_tc", 2),
+                       ("flash_prefill_bwd", "bwd_dkdv_pair_tc", 1),
+                       ("flash_prefill_bwd", "bwd_dq_tc", 3),
                        ("mla_paged_prefill", "mla_tc_kernelILi0E", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
@@ -514,11 +536,12 @@ def kernel_body(name, a) -> str:
                              DTYPE_CODES[a["latent_pages"].dtype])
     elif name.startswith("flash_prefill_bwd"):
         from repro_torch.kernels.flash_prefill import bwd_tensor_core
-        tc = bwd_tensor_core(a["q"].shape[-1], DTYPE_CODES[a["q"].dtype])
+        tc = bwd_tensor_core(a["q"].shape[-1], a["v"].shape[-1],
+                             DTYPE_CODES[a["q"].dtype])
     elif name.startswith("flash_prefill"):
-        fn = build.entry("flash_prefill", "flash_prefill_tensor_core",
-                         [ctypes.c_int] * 2)
-        tc = fn(a["q"].shape[-1], DTYPE_CODES[a["q"].dtype])
+        from repro_torch.kernels.flash_prefill import tensor_core
+        tc = tensor_core(a["q"].shape[-1], a["v"].shape[-1],
+                         DTYPE_CODES[a["q"].dtype])
     elif name.startswith("mla_paged_prefill"):
         fn = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
                          [ctypes.c_int] * 5)
@@ -890,13 +913,14 @@ def mla_dense_cases(torch, gen, cfg, ops):
 # ---------------------------------------------------------------------------
 def flash_cost(a):
     """Bytes (q, k, v read once, the output written once) and flops
-    (4 * hd per attended (query, key) pair and query head) of one causal
-    prefill."""
-    q, k = a["q"], a["k"]
-    B, S, Hq, hd = q.shape
+    (2 (dk + dv) per attended (query, key) pair and query head: QK^T over
+    dk, PV over dv) of one causal prefill."""
+    q, k, v = a["q"], a["k"], a["v"]
+    B, S, Hq, dk = q.shape
+    dv = v.shape[-1]
     el = q.element_size()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * el
-    return nbytes, 4 * B * (S * (S + 1) // 2) * Hq * hd
+    nbytes = (q.numel() + k.numel() + v.numel() + B * S * Hq * dv) * el
+    return nbytes, 2 * B * (S * (S + 1) // 2) * Hq * (dk + dv)
 
 
 def make_int8_decode_inputs(torch, gen, attn, lengths=None):
@@ -2306,15 +2330,29 @@ H100_F32_FLOPS = 67e12               # float32 outside the tensor cores
 # to 2^-4 of it: it only guards against timing another function.
 BWD_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
 LIBRARY_BWD_RTOL = 2.0 ** -4
-# (name, B, S, Hq, Hkv, hd, dtype) of the backward rows: llama3.2-1b's
+# (name, B, S, Hq, Hkv, dk, dv, dtype) of the backward rows: llama3.2-1b's
 # training micro-step (4 sequences of 1024), the ragged 1000,
 # llama-3.2-vision's 32 / 8 heads at hd 128 and whisper-tiny's 6 / 6
-# (G 1) at the train_families phase's lengths, and a float32 case
-BWD_CASES = (("flash_prefill_bwd", 4, 1024, 32, 8, 64, "bfloat16"),
-             ("flash_prefill_bwd_ragged", 4, 1000, 32, 8, 64, "bfloat16"),
-             ("flash_prefill_bwd_vlm", 1, 512, 32, 8, 128, "bfloat16"),
-             ("flash_prefill_bwd_whisper", 2, 448, 6, 6, 64, "bfloat16"),
-             ("flash_prefill_bwd_f32", 1, 512, 32, 8, 64, "float32"))
+# (G 1) at the train_families phase's lengths, and a float32 case; then
+# DeepSeek-V3's train_mla micro-step (2 x 1024, 128 / 128 heads, Q/K 192
+# over V 128: the non-absorbed MLA form), the ragged 1000 and a float32
+# case
+BWD_CASES = (("flash_prefill_bwd", 4, 1024, 32, 8, 64, 64, "bfloat16"),
+             ("flash_prefill_bwd_ragged", 4, 1000, 32, 8, 64, 64,
+              "bfloat16"),
+             ("flash_prefill_bwd_vlm", 1, 512, 32, 8, 128, 128, "bfloat16"),
+             ("flash_prefill_bwd_whisper", 2, 448, 6, 6, 64, 64, "bfloat16"),
+             ("flash_prefill_bwd_f32", 1, 512, 32, 8, 64, 64, "float32"),
+             ("flash_prefill_bwd_mla", 2, 1024, 128, 128, 192, 128,
+              "bfloat16"),
+             ("flash_prefill_bwd_mla_ragged", 2, 1000, 128, 128, 192, 128,
+              "bfloat16"),
+             ("flash_prefill_bwd_mla_f32", 1, 256, 128, 128, 192, 128,
+              "float32"))
+# (name, B, S, Hq, Hkv, dk, dv) of the forward-with-lse rows: the train
+# and train_mla phases' micro-steps
+LSE_CASES = (("flash_prefill_lse", 4, 1024, 32, 8, 64, 64),
+             ("flash_prefill_lse_mla", 2, 1024, 128, 128, 192, 128))
 # the train phase: llama3.2-1b at full width and depth, 8 sequences of
 # 1024 tokens a step in two micro-steps of 4, 6 AdamW steps under the
 # optimizer's default schedule (AdamWConfig(): lr 3e-4, 100 warmup
@@ -2323,6 +2361,19 @@ BWD_CASES = (("flash_prefill_bwd", 4, 1024, 32, 8, 64, "bfloat16"),
 # 18.25), with the kernels and with the plain versions alike
 # (scripts/train_schedule_probe.py).
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 1024, 8, 2, 6
+# train_mla: DeepSeek-V3 at every published width, the depth cut to
+# TRAIN_MLA_LAYERS of 61; 4 sequences of 1024 a step in TRAIN_MICRO
+# micro-steps, TRAIN_STEPS steps at TRAIN_ADAMW.  One layer: the
+# functional AdamW update holds the old and the new float32 master and
+# moments (24 bytes a parameter) beside the float32 gradients and both
+# bf16 trees; at two layers (2.35 B parameters) it ran out of the 80 GB
+# card with 75.81 GB allocated, at one (1.64 B) the peak was 59.21 GB
+# (``--mla-depth-probe``, NVIDIA H100 80GB HBM3, 700 W).
+# train_mla_parity: one layer, 2 x 512 tokens in TRAIN_MICRO micro-steps
+# (1 x 512 each)
+TRAIN_MLA_LAYERS, TRAIN_MLA_BATCH = 1, 4
+TRAIN_MLA_PARITY_SEQ, TRAIN_MLA_PARITY_BATCH = 512, 2
+MLA_ATTN_LEAVES = ("wq", "w_dkv", "w_kr", "w_uk", "w_uv", "wo")
 # the train phase's median step when the backward ran its bf16 inputs on
 # the float32 CUDA-core body (NVIDIA H100 80GB HBM3, 700 W), printed
 # beside this run's
@@ -2345,15 +2396,19 @@ TRAIN_FAMILIES = (("zamba2-1.2b", 6, 2, 512), ("rwkv6-1.6b", 4, 2, 512),
 
 def bwd_cost(a):
     """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once)
-    and flops (10 * hd per attended (query, key) pair and query head: the
-    QK^T recompute, dO V^T and the dV, dK, dQ products) of one backward,
-    and the peak rate of the inputs' type."""
-    q, k = a["q"], a["k"]
-    B, S, Hq, hd = q.shape
+    and flops (2 (3 dk + 2 dv) per attended (query, key) pair and query
+    head: the QK^T recompute, dK and dQ over dk, dO V^T and dV over dv;
+    10 hd when dk = dv = hd) of one backward, and the peak rate of the
+    inputs' type."""
+    q, k, v = a["q"], a["k"], a["v"]
+    B, S, Hq, dk = q.shape
+    dv = v.shape[-1]
     el = q.element_size()
-    nbytes = (4 * q.numel() + 4 * k.numel()) * el + a["lse"].numel() * 4
+    nbytes = (2 * (q.numel() + k.numel() + v.numel() + a["o"].numel())
+              * el + a["lse"].numel() * 4)
     peak = H100_BF16_FLOPS if q.dtype != a["lse"].dtype else H100_F32_FLOPS
-    return nbytes, 10 * B * (S * (S + 1) // 2) * Hq * hd, peak
+    return (nbytes, 2 * B * (S * (S + 1) // 2) * Hq * (3 * dk + 2 * dv),
+            peak)
 
 
 def kernel_split_ms(torch, fn, calls: int = 5) -> dict:
@@ -2380,48 +2435,134 @@ def kernel_split_ms(torch, fn, calls: int = 5) -> dict:
     return {k: us / calls / 1e3 for k, us in sorted(by_name.items())}
 
 
-def bwd_case(torch, gen, name, B, S, Hq, Hkv, hd, dtype):
+def sdpa_backend(torch, q, k, v, do):
+    """The first of PyTorch's SDPA backends (flash, cuDNN, efficient,
+    math) that takes causal attention on these [B, H, S, d] inputs
+    forward and backward, tried alone under ``sdpa_kernel``: for Q/K
+    wider than V, where the flash backend refuses.  Its name and a
+    context that selects it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        qh, kh, vh = (t.detach().requires_grad_(True) for t in (q, k, v))
+        try:
+            with sdpa_kernel(be):
+                out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                     is_causal=True)
+                torch.autograd.grad(out, (qh, kh, vh), do)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return be.name, (lambda be=be: sdpa_kernel(be))
+    raise AssertionError("no SDPA backend takes these inputs")
+
+
+def bwd_case(torch, gen, name, B, S, Hq, Hkv, dk, dv, dtype):
     """A backward's inputs: q, k, v, dO drawn N(0, 1), o and lse from the
     forward kernel; the library yardstick is the backward of
     F.scaled_dot_product_attention (causal, GQA) on the same values, its
-    graph built once."""
+    graph built once: by PyTorch's own choice of backend when dk == dv,
+    else on ``sdpa_backend``'s (its name the fourth element, else
+    None)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import flash_prefill
     dt = getattr(torch, dtype)
-    q, do = (torch.randn((B, S, Hq, hd), generator=gen, device="cuda")
-             .to(dt) for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda")
-            .to(dt) for _ in range(2))
+    q = torch.randn((B, S, Hq, dk), generator=gen, device="cuda").to(dt)
+    do = torch.randn((B, S, Hq, dv), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, S, Hkv, dk), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, S, Hkv, dv), generator=gen, device="cuda").to(dt)
     o, lse = flash_prefill(q, k, v, backend="cuda", with_lse=True)
     a = dict(q=q, k=k, v=v, o=o, do=do, lse=lse)
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                         enable_gqa=True)
     doh = do.transpose(1, 2).contiguous()
+    backend, ctx = None, contextlib.nullcontext
+    if dk != dv:
+        backend, ctx = sdpa_backend(torch, qh, kh, vh, doh)
+    with ctx():
+        out = F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=dk == dv or Hq != Hkv)
 
     def sdpa_bwd():
-        return tuple(g.transpose(1, 2) for g in torch.autograd.grad(
-            out, (qh, kh, vh), doh, retain_graph=True))
-    return name, a, sdpa_bwd
+        with ctx():
+            return tuple(g.transpose(1, 2) for g in torch.autograd.grad(
+                out, (qh, kh, vh), doh, retain_graph=True))
+    return name, a, sdpa_bwd, backend
+
+
+def lse_row(torch, gen, name, B, S, Hq, Hkv, dk, dv):
+    """The forward kernel with its lse on bf16 N(0, 1) inputs: output
+    within KERNEL_ATOL and lse within 1e-4 of its largest magnitude of
+    the plain forward and ``ref.flash_prefill_lse``; timed with and
+    without lse, beside the plain version and SDPA's forward (on
+    ``sdpa_backend``'s backend when dk != dv)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    q = torch.randn((B, S, Hq, dk), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, S, Hkv, dk), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, S, Hkv, dv), generator=gen, device="cuda").bfloat16()
+    out, lse = flash_prefill(q, k, v, backend="cuda", with_lse=True)
+    torch.cuda.synchronize()
+    plain_out = flash_prefill(q, k, v, backend="torch")
+    plain_lse = ref.flash_prefill_lse(q, k)
+    err = float((out.float() - plain_out.float()).abs().max())
+    lse_err = float((lse - plain_lse).abs().max())
+    lse_tol = 1e-4 * float(plain_lse.abs().max())
+    if not (err <= KERNEL_ATOL and lse_err <= lse_tol):
+        raise AssertionError(f"{name}: output gap {err} (tol "
+                             f"{KERNEL_ATOL}), lse gap {lse_err} (tol "
+                             f"{lse_tol})")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    backend, ctx = None, contextlib.nullcontext
+    if dk != dv:
+        backend, ctx = sdpa_backend(torch, qh, kh, vh,
+                                    plain_out.transpose(1, 2).contiguous())
+
+    def sdpa():
+        with ctx():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=dk == dv or Hq != Hkv)
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - plain_out.float()).abs().max())
+    if not lib_err <= LIBRARY_ATOL:
+        raise AssertionError(f"{name}: the library yardstick differs from "
+                             f"the plain version by {lib_err}")
+    nbytes, flops = flash_cost({"q": q, "k": k, "v": v})
+    nbytes += lse.numel() * 4
+    bound_ms, bound_by = bound(nbytes, flops)
+    kt = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda",
+                                              with_lse=True))
+    no_lse = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda"))
+    pt = time_ms(torch, lambda: flash_prefill(q, k, v, backend="torch",
+                                              with_lse=True), iters=5)
+    lt = time_ms(torch, sdpa)
+    return {"body": kernel_body("flash_prefill", {"q": q, "v": v}),
+            "shape": [B, S, Hq, Hkv, dk, dv], "max_abs_err": err,
+            "lse_max_abs_err": lse_err, "tol": KERNEL_ATOL,
+            "lse_tol": lse_tol, "ms": kt["ms"],
+            "ms_without_lse": no_lse["ms"], "plain_ms": pt["ms"],
+            "flush_ms": kt["flush_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "tflops": flops / kt["ms"] / 1e9, "library_ms": lt["ms"],
+            "library_backend": backend, "library_max_abs_err": lib_err}
 
 
 def phase_train_kernels(torch, card):
     """The backward kernel at BWD_CASES against its plain version (each of
     dq, dk, dv within BWD_RTOL of its largest magnitude), both timed, the
     SDPA backward beside them; then the forward kernel with its lse at
-    the train step's shape (``flash_prefill_lse``: output within
-    KERNEL_ATOL, lse within 1e-4 of its largest magnitude, against the
-    plain forward and ``ref.flash_prefill_lse``), SDPA's forward beside
-    it.  One JSON line per row, in the kernels phase."""
+    the train and train_mla steps' micro-steps (LSE_CASES:
+    ``flash_prefill_lse``, ``flash_prefill_lse_mla``), SDPA's forward
+    beside it.  One JSON line per row, in the kernels phase."""
     from repro_torch.kernels.flash_prefill import (bwd_kv_chunk,
                                                    bwd_kv_parts,
-                                                   flash_prefill,
                                                    flash_prefill_bwd)
     gen = torch.Generator(device="cuda").manual_seed(2222)
     rows = {}
     for case in BWD_CASES:
-        name, a, library = bwd_case(torch, gen, *case)
+        name, a, library, lib_backend = bwd_case(torch, gen, *case)
         got = flash_prefill_bwd(**a, backend="cuda")
         torch.cuda.synchronize()
         plain = flash_prefill_bwd(**a, backend="torch")
@@ -2450,7 +2591,7 @@ def phase_train_kernels(torch, card):
         lt = time_ms(torch, library)
         t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, flops / peak
         rows[name] = {
-            "body": kernel_body(name, a), "shape": list(case[1:6]),
+            "body": kernel_body(name, a), "shape": list(case[1:7]),
             "dtype": case[-1], "kv_chunk": bwd_kv_chunk(*case[1:5]),
             "kv_parts": bwd_kv_parts(*case[1:5]),
             "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
@@ -2460,56 +2601,24 @@ def phase_train_kernels(torch, card):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "peak_flops": peak,
             "tflops": flops / kt["ms"] / 1e9, "library_ms": lt["ms"],
+            "library_backend": lib_backend,
             "library_max_rel_err": lib_err}
-        if name == "flash_prefill_bwd":
+        if name in ("flash_prefill_bwd", "flash_prefill_bwd_mla"):
             rows[name]["kernel_split_ms"] = kernel_split_ms(
                 torch, lambda: flash_prefill_bwd(**a, backend="cuda"))
         emit({"phase": "kernels", "card": card, "kernel": name,
               **rows[name]})
+        del a, library
 
-    # the forward with its lse at one micro-step of the train phase
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    q = torch.randn((4, TRAIN_SEQ, 32, 64), generator=gen,
-                    device="cuda").bfloat16()
-    k, v = (torch.randn((4, TRAIN_SEQ, 8, 64), generator=gen,
-                        device="cuda").bfloat16() for _ in range(2))
-    out, lse = flash_prefill(q, k, v, backend="cuda", with_lse=True)
-    torch.cuda.synchronize()
-    plain_out = flash_prefill(q, k, v, backend="torch")
-    plain_lse = ref.flash_prefill_lse(q, k)
-    err = float((out.float() - plain_out.float()).abs().max())
-    lse_err = float((lse - plain_lse).abs().max())
-    lse_tol = 1e-4 * float(plain_lse.abs().max())
-    if not (err <= KERNEL_ATOL and lse_err <= lse_tol):
-        raise AssertionError(f"flash_prefill_lse: output gap {err} (tol "
-                             f"{KERNEL_ATOL}), lse gap {lse_err} (tol "
-                             f"{lse_tol})")
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    nbytes, flops = flash_cost({"q": q, "k": k})
-    nbytes += lse.numel() * 4
-    bound_ms, bound_by = bound(nbytes, flops)
-    kt = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda",
-                                              with_lse=True))
-    no_lse = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda"))
-    pt = time_ms(torch, lambda: flash_prefill(q, k, v, backend="torch",
-                                              with_lse=True), iters=5)
-    lt = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True))
-    rows["flash_prefill_lse"] = {
-        "body": kernel_body("flash_prefill", {"q": q}),
-        "shape": [4, TRAIN_SEQ, 32, 8, 64], "max_abs_err": err,
-        "lse_max_abs_err": lse_err, "tol": KERNEL_ATOL, "lse_tol": lse_tol,
-        "ms": kt["ms"], "ms_without_lse": no_lse["ms"], "plain_ms": pt["ms"],
-        "flush_ms": kt["flush_ms"], "bound_ms": bound_ms,
-        "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-        "tflops": flops / kt["ms"] / 1e9, "library_ms": lt["ms"]}
-    emit({"phase": "kernels", "card": card, "kernel": "flash_prefill_lse",
-          **rows["flash_prefill_lse"]})
+    # the forward with its lse at one micro-step of each train phase
+    for name, *shape in LSE_CASES:
+        rows[name] = lse_row(torch, gen, name, *shape)
+        emit({"phase": "kernels", "card": card, "kernel": name,
+              **rows[name]})
     return rows
 
 
-def train_setup(torch, cfg, seed=0):
+def train_setup(torch, cfg, seed=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     """(model, seeded bf16 params on the card, the seekable data stream)
     of a training phase."""
     from repro_torch.models.model import build_model
@@ -2517,31 +2626,32 @@ def train_setup(torch, cfg, seed=0):
     model = build_model(cfg)
     params = model.init_params(seed, device="cuda")
     data = data_mod.SyntheticLM(data_mod.DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_BATCH))
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
     return model, params, data
 
 
-def train_batch(torch, data, cfg, step):
+def train_batch(torch, data, cfg, step, batch=TRAIN_BATCH):
     from repro_torch.launch.train import make_batch
-    return make_batch(data, cfg, step, TRAIN_BATCH, "cuda")
+    return make_batch(data, cfg, step, batch, "cuda")
 
 
-def phase_train(torch, kernel_fns, card, cfg):
-    """TRAIN_STEPS AdamW steps of llama3.2-1b at full width and depth
-    through ``make_train_step`` (``n_micro`` TRAIN_MICRO), every count
-    zeroed just before and read just after; then one more step under the
-    profiler.  Each step's loss, host time (ending in a synchronise) and
-    the host's time until the step returned, tokens/s; the peak memory.
-    Checks: every loss finite, the last below the first, and the
-    launches: under remat each layer's forward runs twice a micro-step
-    (the forward, then its recompute in the backward), so kernel 7
-    launches 2 x layers x micro-steps a step and the backward
-    kernel layers x micro-steps."""
+def phase_train(torch, kernel_fns, card, cfg, phase="train",
+                batch=TRAIN_BATCH, reference=CUDA_CORE_BWD_TRAIN):
+    """TRAIN_STEPS AdamW steps of ``cfg`` (llama3.2-1b at full width and
+    depth; ``train_mla``: DeepSeek-V3 at TRAIN_MLA_LAYERS layers) through
+    ``make_train_step`` (``n_micro`` TRAIN_MICRO, ``batch`` sequences of
+    TRAIN_SEQ a step), every count zeroed just before and read just
+    after; then one more step under the profiler.  Each step's loss, host
+    time (ending in a synchronise) and the host's time until the step
+    returned, tokens/s; the peak memory.  Checks: every loss finite, the
+    last below the first, and the launches: under remat each layer's
+    forward runs twice a micro-step (the forward, then its recompute in
+    the backward), so kernel 7 launches 2 x layers x micro-steps a step
+    and the backward kernel layers x micro-steps."""
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import train as train_mod
-    model, params, data = train_setup(torch, cfg)
-    held = check_held(torch, params, "train")
+    model, params, data = train_setup(torch, cfg, batch=batch)
+    held = check_held(torch, params, phase)
     opt_state = opt_mod.init_state(params)
     step_fn = train_mod.make_train_step(
         model, adamw=opt_mod.AdamWConfig(**TRAIN_ADAMW), n_micro=TRAIN_MICRO)
@@ -2552,24 +2662,24 @@ def phase_train(torch, kernel_fns, card, cfg):
     torch.cuda.reset_peak_memory_stats()
     steps = []
     for s in range(TRAIN_STEPS):
-        batch = train_batch(torch, data, cfg, s)
+        b_s = train_batch(torch, data, cfg, s, batch)
         t0 = time.perf_counter()
-        params, opt_state, m = step_fn(params, opt_state, batch)
+        params, opt_state, m = step_fn(params, opt_state, b_s)
         queued = time.perf_counter() - t0
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         steps.append({"step": s, "loss": float(m["loss"]),
                       "lr": float(m["lr"]), "grad_norm": float(m["grad_norm"]),
                       "ms": dt * 1e3, "host_queue_ms": queued * 1e3,
-                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt})
-        emit({"phase": "train", "card": card, **steps[-1]})
+                      "tokens_per_s": batch * TRAIN_SEQ / dt})
+        emit({"phase": phase, "card": card, **steps[-1]})
     launches = {name: fn.launches for name, fn in kernel_fns.items()}
     peak = torch.cuda.max_memory_allocated()
-    batch = train_batch(torch, data, cfg, TRAIN_STEPS)
+    b_s = train_batch(torch, data, cfg, TRAIN_STEPS, batch)
     out = {}
 
     def one_step():
-        out["r"] = step_fn(params, opt_state, batch)
+        out["r"] = step_fn(params, opt_state, b_s)
     t0 = time.perf_counter()
     prof = step_profile(torch, one_step)
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2579,16 +2689,18 @@ def phase_train(torch, kernel_fns, card, cfg):
     want = {name: per_step.get(name, 0) * TRAIN_STEPS for name in launches}
     losses = [r["loss"] for r in steps]
     ms = sorted(r["ms"] for r in steps[1:])     # step 0 builds caches
-    emit({"phase": "train", "card": card, "model": cfg.name,
+    emit({"phase": phase, "card": card, "model": cfg.name,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "global_batch": batch,
           "n_micro": TRAIN_MICRO, "steps": TRAIN_STEPS, "adamw": TRAIN_ADAMW,
           "params_gb": tree_bytes(params) / 1e9, "adamw_state_gb": state_gb,
           "held_at_start_gb": held, "losses": losses,
           "step_ms_median": ms[len(ms) // 2],
-          "tokens_per_s_median": TRAIN_BATCH * TRAIN_SEQ * 1e3
+          "host_queue_ms_median": sorted(
+              r["host_queue_ms"] for r in steps[1:])[len(ms) // 2],
+          "tokens_per_s_median": batch * TRAIN_SEQ * 1e3
           / ms[len(ms) // 2],
-          "cuda_core_backward": CUDA_CORE_BWD_TRAIN,
+          "cuda_core_backward": reference,
           "peak_mem_gb": peak / 1e9, "launches": launches,
           "launches_expected": want,
           "launches_note": "kernel 7 runs twice a layer and micro-step "
@@ -2601,34 +2713,74 @@ def phase_train(torch, kernel_fns, card, cfg):
                                 else 1 - prof["device_busy_ms"]
                                 / ms[len(ms) // 2])}})
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: non-finite loss {losses}")
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     if launches != want:
-        raise AssertionError(f"train: launches {launches} != {want}")
+        raise AssertionError(f"{phase}: launches {launches} != {want}")
     del params, opt_state
     torch.cuda.empty_cache()
     return launches
+
+
+def probe_mla_depth(torch, layers: int) -> int:
+    """Two train_mla steps of DeepSeek-V3 at ``layers`` layers (as
+    phase_train builds them) and one JSON line: the parameter count, the
+    AdamW state's bytes and the peak memory, or the out-of-memory error
+    with the bytes allocated when it struck."""
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train as train_mod
+    cfg = dataclasses.replace(mla_config(), n_layers=layers)
+    model, params, data = train_setup(torch, cfg, batch=TRAIN_MLA_BATCH)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    opt_state = opt_mod.init_state(params)
+    step_fn = train_mod.make_train_step(
+        model, adamw=opt_mod.AdamWConfig(**TRAIN_ADAMW), n_micro=TRAIN_MICRO)
+    out = {"phase": "mla_depth_probe", "card": nvidia_smi(),
+           "model": cfg.name, "layers": layers, "params": n_params,
+           "adamw_state_gb": sum(tree_bytes(t) for t in (
+               opt_state.master, opt_state.m, opt_state.v)) / 1e9,
+           "card_total_gb":
+               torch.cuda.get_device_properties(0).total_memory / 1e9,
+           "losses": []}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for s in range(2):
+            params, opt_state, m = step_fn(
+                params, opt_state,
+                train_batch(torch, data, cfg, s, TRAIN_MLA_BATCH))
+            out["losses"].append(float(m["loss"]))
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    except torch.cuda.OutOfMemoryError as e:
+        out["out_of_memory"] = str(e).splitlines()[0]
+        out["peak_gb_before_oom"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(out)
+    return 0
 
 
 def short_config(cfg):
     return dataclasses.replace(cfg, n_layers=TRAIN_SHORT_LAYERS)
 
 
-def phase_train_parity(torch, card, cfg):
+def phase_train_parity(torch, card, cfg, phase="train_parity",
+                       layers=TRAIN_SHORT_LAYERS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, attn_leaves=("wq", "wk", "wv")):
     """One train step's loss and gradients (``compute_grads``, TRAIN_MICRO
-    micro-steps) of llama3.2-1b at full width and TRAIN_SHORT_LAYERS
-    layers with the kernels and with the plain versions on the card
-    (``backend="torch"``), on the same params and batch.  Every leaf gets
-    a gradient in both (``compute_grads`` raises otherwise); each leaf
-    within TRAIN_PARITY_RTOL of its largest magnitude, the loss within
-    TRAIN_LOSS_RTOL.  The attention weights' gradients are nonzero."""
+    micro-steps) of ``cfg`` at full width and ``layers`` layers
+    (llama3.2-1b at TRAIN_SHORT_LAYERS; ``train_mla_parity``: DeepSeek-V3
+    at one layer, 1 x 512 tokens a micro-step) with the kernels and with
+    the plain versions on the card (``backend="torch"``), on the same
+    params and batch.  Every leaf gets a gradient in both
+    (``compute_grads`` raises otherwise); each leaf within
+    TRAIN_PARITY_RTOL of its largest magnitude, the loss within
+    TRAIN_LOSS_RTOL.  The ``attn_leaves`` gradients are nonzero."""
     from repro_torch.training import train as train_mod
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_bwd)
-    cfg = short_config(cfg)
-    model, params, data = train_setup(torch, cfg, seed=1)
-    batch = train_batch(torch, data, cfg, 0)
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    model, params, data = train_setup(torch, cfg, seed=1, batch=batch,
+                                      seq=seq)
+    batch = train_batch(torch, data, cfg, 0, batch)
     runs = {}
     for backend in ("cuda", "torch"):
         before = flash_prefill_bwd.launches, flash_prefill.launches
@@ -2647,9 +2799,12 @@ def phase_train_parity(torch, card, cfg):
         leaves["/".join(path)] = {"max_abs": scale, "gap_over_max": rel}
         worst = max(worst, rel)
     attn_scale = min(leaves[f"layers/attn/{w}"]["max_abs"]
-                     for w in ("wq", "wk", "wv"))
-    emit({"phase": "train_parity", "card": card, "model": cfg.name,
-          "layers": cfg.n_layers, "loss_kernels": lk, "loss_plain": lp,
+                     for w in attn_leaves)
+    emit({"phase": phase, "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "tokens_a_micro_step": [
+              batch["tokens"].shape[0] // TRAIN_MICRO,
+              batch["tokens"].shape[1]],
+          "loss_kernels": lk, "loss_plain": lp,
           "loss_rel_gap": abs(lk - lp) / abs(lp), "loss_rtol": TRAIN_LOSS_RTOL,
           "grad_rtol": TRAIN_PARITY_RTOL, "worst_gap_over_max": worst,
           "launches_kernels_run": {"flash_prefill_bwd": nk[0],
@@ -2658,13 +2813,15 @@ def phase_train_parity(torch, card, cfg):
                                  "flash_prefill": np_[1]},
           "leaves": leaves})
     if not abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp):
-        raise AssertionError(f"train_parity: loss {lk} vs {lp}")
+        raise AssertionError(f"{phase}: loss {lk} vs {lp}")
     if not worst <= TRAIN_PARITY_RTOL:
-        raise AssertionError(f"train_parity: a gradient leaf is "
+        raise AssertionError(f"{phase}: a gradient leaf is "
                              f"{worst} of its magnitude apart")
     if not (attn_scale > 0 and nk[0] > 0 and np_ == (0, 0)):
-        raise AssertionError(f"train_parity: attention grads {attn_scale}, "
+        raise AssertionError(f"{phase}: attention grads {attn_scale}, "
                              f"launches {nk} / {np_}")
+    del params, runs, gk, gp
+    torch.cuda.empty_cache()
 
 
 def phase_train_resume(torch, card, cfg):
@@ -3281,6 +3438,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--mla-depth-probe"]:
+        return probe_mla_depth(torch, int(sys.argv[2]))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_prefill import (flash_prefill,
@@ -3424,6 +3583,15 @@ def main() -> int:
     for name, counts in phase_train_families(torch, kernel_fns,
                                              smi).items():
         by_path[f"train_families:{name}"] = counts
+    # MLA trains in the non-absorbed form: kernel 7 and its backward at
+    # Q/K 192 over V 128
+    by_path["train_mla"] = phase_train(
+        torch, kernel_fns, smi,
+        dataclasses.replace(mla_cfg, n_layers=TRAIN_MLA_LAYERS),
+        phase="train_mla", batch=TRAIN_MLA_BATCH, reference=None)
+    phase_train_parity(torch, smi, mla_cfg, phase="train_mla_parity",
+                       layers=1, batch=TRAIN_MLA_PARITY_BATCH,
+                       seq=TRAIN_MLA_PARITY_SEQ, attn_leaves=MLA_ATTN_LEAVES)
 
     phase_replay(torch, kernel_fns, smi)
     full = replay_full_config()

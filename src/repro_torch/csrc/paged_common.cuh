@@ -48,37 +48,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Views into the block's dynamic shared memory.
+// Views into the block's dynamic shared memory.  `dv` is the value (and
+// output) width where it differs from the query / key width hd (flash
+// prefill at MLA's Q/K 192 over V 128); 0 means hd.
 struct Tile {
   float* q;      // [R][hd]
-  float* acc;    // [R][hd]
+  float* acc;    // [R][dv]
   float* m;      // [R]
   float* l;      // [R]
   float* alpha;  // [R]
   float* k;      // [KT][hd + 1]  (padded row: conflict-free score loop)
-  float* v;      // [KT][hd]
+  float* v;      // [KT][dv]
   float* s;      // [R][KT]
 };
 
-__host__ __device__ inline size_t tile_floats(int R, int KT, int hd) {
-  return (size_t)2 * R * hd + 3 * (size_t)R + (size_t)KT * (hd + 1) +
-         (size_t)KT * hd + (size_t)R * KT;
+__host__ __device__ inline size_t tile_floats(int R, int KT, int hd,
+                                              int dv = 0) {
+  if (dv == 0) dv = hd;
+  return (size_t)R * (hd + dv) + 3 * (size_t)R + (size_t)KT * (hd + 1) +
+         (size_t)KT * dv + (size_t)R * KT;
 }
 
-__device__ inline Tile carve_tile(float* smem, int R, int KT, int hd) {
+__device__ inline Tile carve_tile(float* smem, int R, int KT, int hd,
+                                  int dv = 0) {
+  if (dv == 0) dv = hd;
   Tile t;
   t.q = smem;
   t.acc = t.q + R * hd;
-  t.m = t.acc + R * hd;
+  t.m = t.acc + R * dv;
   t.l = t.m + R;
   t.alpha = t.l + R;
   t.k = t.alpha + R;
   t.v = t.k + KT * (hd + 1);
-  t.s = t.v + KT * hd;
+  t.s = t.v + KT * dv;
   return t;
 }
 
-// Zero acc, set m = NEG_INF and l = 0.
+// Zero acc, set m = NEG_INF and l = 0 (`hd`: the accumulator's width).
 __device__ inline void tile_init(Tile& t, int R, int hd) {
   for (int i = threadIdx.x; i < R * hd; i += blockDim.x) t.acc[i] = 0.f;
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
@@ -108,6 +114,7 @@ __device__ inline void tile_scores(Tile& t, int R, int KT, int hd,
 
 // Fold one tile of masked scores into (m, l, acc).  Masked entries add
 // nothing, so a row with no valid key so far keeps l = 0 and acc = 0.
+// `hd` here is the value width (acc and v rows).
 __device__ inline void tile_update(Tile& t, int R, int KT, int hd) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;

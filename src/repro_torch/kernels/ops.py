@@ -78,9 +78,10 @@ def mla_prefill_seg(q_lat, q_rope, lat_chunk, latent_pages, block_tables,
 
 
 def flash_causal(q, k, v, backend: str | None = None):
-    """Causal prefill attention. q [B,S,Hq,hd], k/v [B,S,Hkv,hd]
-    -> [B,S,Hq,hd]; any S.  When autograd records and an input requires
-    grad (training), through ``FlashCausal``: the forward kernel with its
+    """Causal prefill attention. q [B,S,Hq,dk], k [B,S,Hkv,dk], v
+    [B,S,Hkv,dv] -> [B,S,Hq,dv] (dv == dk, or MLA's 192 / 128 on the
+    card); any S.  When autograd records and an input requires grad
+    (training), through ``FlashCausal``: the forward kernel with its
     ``lse``, then the backward kernel."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -100,8 +100,8 @@ def causal_mask(sq: int, sk: int, q_offset: int, device) -> torch.Tensor:
 
 
 def flash_prefill(q, k, v):
-    """q [B,S,Hq,hd]; k/v [B,S,Hkv,hd] -> [B,S,Hq,hd]: causal attention,
-    query i attends keys j <= i, for any S."""
+    """q [B,S,Hq,dk]; k [B,S,Hkv,dk]; v [B,S,Hkv,dv] -> [B,S,Hq,dv]:
+    causal attention, query i attends keys j <= i, for any S."""
     b, s = q.shape[:2]
     return _attend(q, k, v, causal_mask(s, s, 0, q.device).expand(b, s, s))
 
@@ -125,16 +125,18 @@ def flash_prefill_lse(q, k):
 
 def flash_prefill_bwd(q, k, v, o, do):
     """The gradients of causal attention (``flash_prefill``) given its
-    output o and the output's cotangent do, all [B,S,H,hd]: (dq, dk, dv)
-    in the inputs' dtypes, computed analytically in float32 for any S and
-    any G = Hq/Hkv: P = softmax(scale QK^T) over keys j <= i,
-    dV = P^T dO, dS = P o (dO V^T - rowsum(dO o O)), dQ = scale dS K,
-    dK = scale dS^T Q (each KV head summed over its G query heads)."""
+    output o and the output's cotangent do (q [B,S,Hq,dk], k [B,S,Hkv,dk],
+    v [B,S,Hkv,dv], o and do [B,S,Hq,dv]): (dq, dk, dv) in the inputs'
+    dtypes, computed analytically in float32 for any S, any G = Hq/Hkv
+    and any widths: P = softmax(scale QK^T) over keys j <= i (scale
+    1/sqrt(dk)), dV = P^T dO, dS = P o (dO V^T - rowsum(dO o O)),
+    dQ = scale dS K, dK = scale dS^T Q (each KV head summed over its G
+    query heads)."""
     b, s, hq, hd = q.shape
-    hkv = k.shape[2]
+    hkv, dv_w = k.shape[2], v.shape[3]
     scale = 1.0 / math.sqrt(hd)
-    qg, og, dog = (t.reshape(b, s, hkv, hq // hkv, hd).float()
-                   for t in (q, o, do))
+    qg = q.reshape(b, s, hkv, hq // hkv, hd).float()
+    og, dog = (t.reshape(b, s, hkv, hq // hkv, dv_w).float() for t in (o, do))
     kf, vf = k.float(), v.float()
     p = torch.softmax(_causal_scores(q, k), dim=-1)
     dv = torch.einsum("bhgij,bihgd->bjhd", p, dog)

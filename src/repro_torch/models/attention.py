@@ -13,15 +13,19 @@ queries start at position 0), ``decode_attention`` over a slot cache
 [B,S,Hkv,hd] seen as pages (the paged decode kernels, bf16 or int8 with
 ``quantize_kv`` scales) and the in-place ``cache_write``.
 
-MLA runs in the absorbed form (``mla_absorbed``): ``W_uk`` folded into
-the query, the MLA kernels attend in latent space, then ``W_uv`` and the
-output projection, at the softmax scale ``1/sqrt(hd + dr)``.  Its dense
-layout: ``mla_attention_prefill`` (a whole prompt from position 0
-through the MLA chunk prefill kernel at offset 0) and
+MLA serves in the absorbed form (``mla_absorbed``): ``W_uk`` folded
+into the query, the MLA kernels attend in latent space, then ``W_uv``
+and the output projection, at the softmax scale ``1/sqrt(hd + dr)``.
+Its dense layout: ``mla_attention_prefill`` (a whole prompt from
+position 0 through the MLA chunk prefill kernel at offset 0) and
 ``mla_attention_decode`` (the MLA decode kernel over the latent slot
 cache [B,S,dl+dr] seen as pages).  The JAX package's
 ``mla_attention_prefill`` runs the non-absorbed form instead; both
-compute the same function.
+compute the same function.  MLA trains in that non-absorbed form, as
+the JAX package does (``mla_attention_train``): keys and values
+expanded per head (``mla_expand``, shared with ``mla_attention_suffix``)
+and causal attention at Q/K hd + dr over V hd through the flash prefill
+kernel and its backward.
 """
 from __future__ import annotations
 
@@ -99,8 +103,9 @@ def out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      *, q_offset: int = 0,
                      backend: Optional[str] = None) -> torch.Tensor:
-    """q [B,Sq,Hq,hd] at positions q_offset + i; k/v [B,Sk,Hkv,hd]
-    -> [B,Sq,Hq,hd]: query i attends keys t <= q_offset + i.
+    """q [B,Sq,Hq,hd] at positions q_offset + i; k [B,Sk,Hkv,hd]; v
+    [B,Sk,Hkv,dv] -> [B,Sq,Hq,dv]: query i attends keys t <= q_offset + i
+    (dv == hd but for MLA's non-absorbed form, Q/K hd + dr over V hd).
 
     With no offset over its own keys (Sq == Sk) this is the flash
     prefill kernel (``ops.flash_causal``: the CUDA kernel on the card,
@@ -293,25 +298,52 @@ def mla_attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
             backend=backend))
 
 
-def mla_attention_suffix(p: Dict, x: torch.Tensor, prefix: torch.Tensor,
-                         q_offset: int, cfg: ModelConfig):
-    """A prompt suffix x [B,S,D] at positions q_offset + i after its
-    cached prefix latent [B,q_offset,dl+dr], in the non-absorbed form of
-    the JAX package's ``prefill_suffix``: keys and values expanded per
-    head from [prefix ; suffix] latents, the shared RoPE key folded into
-    every head, plain attention (``ref._attend``, Q/K 192 wide over V
-    128 at DeepSeek-V3 width) on both devices.  Returns (out [B,S,D],
-    the suffix latent [B,S,dl+dr])."""
+def mla_expand(p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
+               latent: torch.Tensor, cfg: ModelConfig):
+    """The non-absorbed form's per-head tensors: q [B,Sq,H,hd+dr] =
+    [q_nope ; q_rope]; from latent [B,Sk,dl+dr] = [c_kv ; k_rope], k
+    [B,Sk,H,hd+dr] = [c_kv W_uk ; k_rope] (the shared RoPE key copied
+    into every head, as JAX's ``broadcast_to``) and v [B,Sk,H,hd] = c_kv
+    W_uv.  q and k are contiguous."""
     dl, dr = cfg.d_latent, cfg.d_rope
-    positions = q_offset + torch.arange(x.shape[1], device=x.device)[None, :]
-    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
-    full = torch.cat([prefix.to(latent.dtype), latent], dim=1)
-    c_kv, k_rope = full[..., :dl], full[..., dl:]
+    c_kv, k_rope = latent[..., :dl], latent[..., dl:]
     k = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
     v = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k, k_rope[:, :, None, :].expand(k.shape[:3] + (dr,))],
                   dim=-1)
+    return q, k, v
+
+
+def mla_attention_train(p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                        cfg: ModelConfig,
+                        backend: Optional[str] = None) -> torch.Tensor:
+    """Causal MLA over x [B,S,D] from position 0 in the non-absorbed
+    form the JAX package trains (its ``mla_attention_prefill``): project,
+    expand keys and values per head (``mla_expand``), then
+    ``causal_attention`` at Q/K hd + dr over V hd (192 / 128 at
+    DeepSeek-V3 width; scale 1/sqrt(hd + dr) = ``mla_scale``), so under
+    grad ``FlashCausal`` (the flash prefill kernel with ``lse`` and its
+    backward on the card, the plain versions on the CPU).  Returns out
+    [B,S,D]; the gradient of the shared RoPE key sums over the heads."""
+    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
+    q, k, v = mla_expand(p, q_nope, q_rope, latent, cfg)
+    return out_proj(causal_attention(q, k, v, backend=backend), p["wo"])
+
+
+def mla_attention_suffix(p: Dict, x: torch.Tensor, prefix: torch.Tensor,
+                         q_offset: int, cfg: ModelConfig):
+    """A prompt suffix x [B,S,D] at positions q_offset + i after its
+    cached prefix latent [B,q_offset,dl+dr], in the non-absorbed form of
+    the JAX package's ``prefill_suffix``: keys and values expanded per
+    head from [prefix ; suffix] latents (``mla_expand``), plain attention
+    (``ref._attend``, Q/K 192 wide over V 128 at DeepSeek-V3 width) on
+    both devices.  Returns (out [B,S,D], the suffix latent
+    [B,S,dl+dr])."""
+    positions = q_offset + torch.arange(x.shape[1], device=x.device)[None, :]
+    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
+    full = torch.cat([prefix.to(latent.dtype), latent], dim=1)
+    q, k, v = mla_expand(p, q_nope, q_rope, full, cfg)
     sq, sk = q.shape[1], k.shape[1]
     mask = ref.causal_mask(sq, sk, q_offset, x.device)
     o = ref._attend(q, k, v, mask.expand(q.shape[0], sq, sk))

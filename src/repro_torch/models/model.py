@@ -58,15 +58,19 @@ The decode steps write the new token's KV into the pool or the slot
 cache IN PLACE instead of returning new arrays: the returned state
 holds the same cache tensors.
 
-Every family but MLA has ``train_loss(params, batch) -> (loss,
-metrics)``, the JAX package's: the logits of every position, its
-cross-entropy with z-loss (plus the MoE aux term), each layer under
-``remat`` (non-reentrant ``torch.utils.checkpoint``, the counterpart of
+Every family has ``train_loss(params, batch) -> (loss, metrics)``, the
+JAX package's: the logits of every position, its cross-entropy with
+z-loss (plus the MoE aux term), each layer under ``remat``
+(non-reentrant ``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint``; the VLM's cross groups too) and causal
 self-attention through ``FlashCausal`` (the flash prefill kernel with
-its log-sum-exp, then its backward kernel).  The params are plain
-leaves that require grad; the decode paths' in-place writes stay off
-this path.  MLA raises until kernel 5 has a backward.
+its log-sum-exp, then its backward kernel).  MLA trains in the
+non-absorbed form, as the JAX package does
+(``attention.mla_attention_train``: per-head keys [c_kv W_uk ; k_rope]
+at hd + dr over values c_kv W_uv at hd, through the same kernels), with
+a dense or an MoE FFN; its serving paths keep the latent kernels.  The
+params are plain leaves that require grad; the decode paths' in-place
+writes stay off this path.
 
 The cross-attention families have the dense layout's ``prefill`` and
 ``decode_step`` only (no paged or chunked entry point, as in the JAX
@@ -338,13 +342,17 @@ class DecoderModel(Model):
         return x, tuple(torch.stack(c) for c in zip(*per_layer))
 
     def _train_layer(self, lp, x, positions, backend=None):
-        """One GQA layer of the training forward -> (x, MoE aux or
-        None)."""
+        """One layer of the training forward (GQA, or MLA in the
+        non-absorbed form) -> (x, MoE aux or None)."""
         h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)
-        q, k, v = attn.project_qkv(lp["attn"], h, positions, self.cfg)
-        o = attn.causal_attention(q, k, v, backend=backend)
-        return self._ffn_residual(lp, x + self._attn_out(lp, o),
-                                  with_aux=True)
+        if self.mla:
+            o = attn.mla_attention_train(lp["attn"], h, positions, self.cfg,
+                                         backend=backend)
+        else:
+            q, k, v = attn.project_qkv(lp["attn"], h, positions, self.cfg)
+            o = self._attn_out(lp, attn.causal_attention(q, k, v,
+                                                         backend=backend))
+        return self._ffn_residual(lp, x + o, with_aux=True)
 
     def _train_layers(self, params, batch, x, positions, backend):
         """Every layer under ``remat`` -> (x before the final norm, the
@@ -359,14 +367,10 @@ class DecoderModel(Model):
     def train_loss(self, params, batch, backend=None):
         """The JAX package's: the mean cross-entropy over every position,
         plus ``router_aux_weight`` times the layers' mean MoE aux loss
-        (``metrics["aux_loss"]``).  MLA raises: its forward runs the MLA
-        chunk prefill kernel, which has no backward yet."""
+        (``metrics["aux_loss"]``).  MLA attends in the non-absorbed form
+        (``attention.mla_attention_train``), as the JAX package trains
+        it."""
         cfg = self.cfg
-        if self.mla:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA training needs a backward of the MLA "
-                f"chunk prefill kernel (kernel 5, csrc/mla_paged_prefill.cu"
-                f"), which the port does not have yet")
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         x, auxes = self._train_layers(params, batch,

@@ -396,15 +396,18 @@ BWD_SHAPES = [(4, 1024, 32, 8, 64, torch.bfloat16),
 BWD_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
 
 
-def bwd_inputs(b, s, hq, hkv, hd, dtype, seed):
+def bwd_inputs(b, s, hq, hkv, hd, dtype, seed, dv=None):
+    """q, k [.., hd], v [.., dv] (hd when None), o and lse from the
+    forward kernel, and dO."""
     from repro_torch.kernels.flash_prefill import flash_prefill
     g = torch.Generator(device="cuda").manual_seed(seed)
+    dv = hd if dv is None else dv
 
     def rn(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
-    q, k, v = rn(b, s, hq, hd), rn(b, s, hkv, hd), rn(b, s, hkv, hd)
+    q, k, v = rn(b, s, hq, hd), rn(b, s, hkv, hd), rn(b, s, hkv, dv)
     o, lse = flash_prefill(q, k, v, with_lse=True)
-    return q, k, v, o, rn(b, s, hq, hd), lse
+    return q, k, v, o, rn(b, s, hq, dv), lse
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,hd,dtype", BWD_SHAPES)
@@ -416,8 +419,8 @@ def test_flash_prefill_bwd_kernel(cuda, b, s, hq, hkv, hd, dtype):
     from repro_torch.kernels.flash_prefill import (bwd_tensor_core,
                                                    flash_prefill_bwd)
     from repro_torch.kernels.paged_attention import DTYPE_CODES
-    assert bwd_tensor_core(hd, DTYPE_CODES[dtype]) == (dtype
-                                                       == torch.bfloat16)
+    assert bwd_tensor_core(hd, hd, DTYPE_CODES[dtype]) == (dtype
+                                                           == torch.bfloat16)
     q, k, v, o, do, lse = bwd_inputs(b, s, hq, hkv, hd, dtype, seed=s)
     before = flash_prefill_bwd.launches
     grads = flash_prefill_bwd(q, k, v, o, do, lse)
@@ -469,6 +472,104 @@ def test_flash_prefill_bwd_rejects_bad_inputs(cuda):
         flash_prefill_bwd(q, k, v, o, do)
     with pytest.raises(ValueError, match="dtype"):
         flash_prefill_bwd(q, k, v, o.float(), do, lse)
+    # a (dk, dv) pair the kernels do not take, for both wrappers
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    q, k, v, o, do, lse = bwd_inputs(1, 20, 4, 4, 128, torch.bfloat16, 0)
+    v96, do96 = v[..., :96].contiguous(), do[..., :96].contiguous()
+    with pytest.raises(ValueError, match="192, 128"):
+        flash_prefill(q, k, v96)
+    with pytest.raises(ValueError, match="192, 128"):
+        flash_prefill_bwd(q, k, v96, do96, do96, lse)
+
+
+# MLA's training widths, Q/K 192 over V 128 (DeepSeek-V3's non-absorbed
+# form): (B, S, Hq, Hkv, dtype) of the chip_smoke micro-step (2 x 1024,
+# 128 / 128 heads), S 63 / 64 / 65 at the tiles' edges, a split dK/dV walk
+# (1 x 256 at 8 heads: chunks of 2 of the 4 query tiles), a GQA case and
+# float32 on the CUDA-core bodies
+MLA_FLASH_SHAPES = [(2, 1024, 128, 128, torch.bfloat16),
+                    (1, 63, 128, 128, torch.bfloat16),
+                    (1, 64, 128, 128, torch.bfloat16),
+                    (1, 65, 128, 128, torch.bfloat16),
+                    (1, 256, 8, 8, torch.bfloat16),
+                    (2, 100, 8, 2, torch.bfloat16),
+                    (1, 256, 16, 16, torch.float32),
+                    (1, 65, 8, 8, torch.float32)]
+MLA_DK, MLA_DV = 192, 128
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,dtype", MLA_FLASH_SHAPES)
+def test_flash_prefill_kernel_mla_widths(cuda, b, s, hq, hkv, dtype):
+    """The forward kernel at Q/K 192 over V 128 against the plain
+    version (output and lse), one launch, the body by type, and a second
+    call equal bit for bit."""
+    from repro_torch.kernels.flash_prefill import flash_prefill, tensor_core
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
+    assert tensor_core(MLA_DK, MLA_DV, DTYPE_CODES[dtype]) == \
+        (dtype == torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(s)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    args = (rn(b, s, hq, MLA_DK), rn(b, s, hkv, MLA_DK), rn(b, s, hkv, MLA_DV))
+    before = flash_prefill.launches
+    out, lse = flash_prefill(*args, with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    plain_out, plain_lse = flash_prefill(*args, backend="torch",
+                                         with_lse=True)
+    assert out.shape == (b, s, hq, MLA_DV) and out.dtype == dtype
+    assert bool(torch.isfinite(out).all())
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _err(out, plain_out) <= tol
+    assert _err(lse, plain_lse) <= F32_TOL * float(plain_lse.abs().max())
+    assert torch.equal(out, flash_prefill(*args))
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,dtype", MLA_FLASH_SHAPES)
+def test_flash_prefill_bwd_kernel_mla_widths(cuda, b, s, hq, hkv, dtype):
+    """dq, dk, dv of the backward at Q/K 192 over V 128 against the
+    plain version on the forward kernel's own o and lse, each within
+    BWD_RTOL of its largest magnitude; one launch a call, two calls
+    equal bit for bit; bf16 on the tensor cores (the warp-pair dK/dV
+    kernel), float32 on the CUDA cores."""
+    from repro_torch.kernels.flash_prefill import (bwd_tensor_core,
+                                                   flash_prefill_bwd)
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
+    assert bwd_tensor_core(MLA_DK, MLA_DV, DTYPE_CODES[dtype]) == \
+        (dtype == torch.bfloat16)
+    q, k, v, o, do, lse = bwd_inputs(b, s, hq, hkv, MLA_DK, dtype, seed=s,
+                                     dv=MLA_DV)
+    before = flash_prefill_bwd.launches
+    grads = flash_prefill_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert flash_prefill_bwd.launches == before + 1
+    plain = flash_prefill_bwd(q, k, v, o, do, backend="torch")
+    for got, want, t in zip(grads, plain, (q, k, v)):
+        assert got.shape == t.shape and got.dtype == dtype
+        assert bool(torch.isfinite(got).all())
+        assert _err(got, want) <= BWD_RTOL[dtype] * max(
+            1.0, float(want.float().abs().max()))
+    again = flash_prefill_bwd(q, k, v, o, do, lse)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def test_flash_causal_mla_gradient_on_card_matches_cpu(cuda):
+    """float32 FlashCausal at Q/K 192 over V 128 on the card against the
+    same function on the CPU, through a loss that reaches every output."""
+    rs = np.random.RandomState(4)
+    b, s, h = 1, 70, 4
+    host = [torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+            for shape in ((b, s, h, MLA_DK), (b, s, h, MLA_DK),
+                          (b, s, h, MLA_DV), (b, s, h, MLA_DV))]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        q, k, v = (t.detach().to(dev).requires_grad_(True)
+                   for t in host[:3])
+        (cuda.flash_causal(q, k, v) * host[3].to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in (q, k, v)]
+    for a, c in zip(grads["cuda"], grads["cpu"]):
+        assert _err(a, c) <= F32_TOL * float(c.abs().max())
 
 
 def _int8_inputs(b, hq, hkv, hd, page, pages, seed=0):
@@ -759,13 +860,14 @@ def test_tensor_core_dispatch(cuda):
 
     from repro_torch.kernels import build
     flash = build.entry("flash_prefill", "flash_prefill_tensor_core",
-                        [ctypes.c_int] * 2)
-    assert [flash(hd, 1) for hd in (16, 32, 64, 128, 256)] == [1] * 4 + [0]
-    assert [flash(hd, 0) for hd in (16, 32, 64, 128, 256)] == [0] * 5
+                        [ctypes.c_int] * 3)
+    assert [flash(hd, hd, 1) for hd in (16, 32, 64, 128, 256)] == \
+        [1] * 4 + [0]
+    assert [flash(hd, hd, 0) for hd in (16, 32, 64, 128, 256)] == [0] * 5
     bwd = build.entry("flash_prefill_bwd", "flash_prefill_bwd_tensor_core",
-                      [ctypes.c_int] * 2)
-    assert [bwd(hd, 1) for hd in (32, 64, 128, 256)] == [0, 1, 1, 0]
-    assert [bwd(hd, 0) for hd in (32, 64, 128, 256)] == [0] * 4
+                      [ctypes.c_int] * 3)
+    assert [bwd(hd, hd, 1) for hd in (32, 64, 128, 256)] == [0, 1, 1, 0]
+    assert [bwd(hd, hd, 0) for hd in (32, 64, 128, 256)] == [0] * 4
     mla = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
                       [ctypes.c_int] * 5)
     for _, dl, dr in MLA_WIDTHS:

@@ -3,8 +3,9 @@ flash prefill backward (``FlashCausal`` with its plain backward) against
 ``jax.vjp`` of JAX ``causal_attention``; every non-MLA family's
 ``train_loss`` value and gradients against ``jax.value_and_grad`` on
 float32 params from the JAX ``init_params`` tree crossed through numpy
-(``tests/test_torch_train_loss.py`` holds every family); MLA's
-``train_loss`` refusing; one AdamW step against
+(``tests/test_torch_train_loss.py`` holds every family; MLA is in
+``tests/test_torch_mla_train.py``); MLA's ``train_loss`` attending
+through ``FlashCausal``; one AdamW step against
 ``apply_updates``; ``lr_schedule``; ``compress_int8`` bit for bit.
 Tolerance 1e-4 (the port's CPU parity bar) unless a test states
 another."""
@@ -147,15 +148,36 @@ def test_serving_attention_builds_no_graph():
                             x.detach()[:, :, :1]).grad_fn is None
 
 
-def test_mla_train_loss_raises():
-    """MLA's forward runs kernel 5, which has no backward yet."""
+def test_mla_train_loss_attends_through_flash_causal(monkeypatch):
+    """MLA's ``train_loss`` attends in the non-absorbed form through
+    ``FlashCausal`` (the flash prefill kernel and its backward on the
+    card): every layer's attention output carries its backward node
+    (twice a layer: the forward, then its recompute under remat), at
+    Q/K hd + dr over V hd, and no MLA latent kernel runs."""
     from repro_torch.configs.paper_models import DEEPSEEK_V3
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import attention as tattn
     cfg = t_reduce(DEEPSEEK_V3)
     model = build_model(cfg)
     params = model.init_params(0, device="cpu", dtype=torch.float32)
+    for t in flat(params).values():
+        t.requires_grad_(True)
+    outs = []
+
+    def record(q, k, v, **kw):
+        o = ops.flash_causal(q, k, v, backend=kw.get("backend"))
+        outs.append((q.shape[-1], v.shape[-1], o.grad_fn))
+        return o
+    monkeypatch.setattr(tattn, "causal_attention", record)
+    monkeypatch.setattr(ops, "mla_prefill", None)
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        model.train_loss(params, {"tokens": toks, "labels": toks})
+    loss, _ = model.train_loss(params, {"tokens": toks, "labels": toks})
+    loss.backward()
+    assert len(outs) == 2 * cfg.n_layers
+    for dk, dv, fn in outs:
+        assert (dk, dv) == (cfg.hd + cfg.d_rope, cfg.hd)
+        assert type(fn).__name__ == fp.FlashCausal.__name__ + "Backward"
+    assert float(params["layers"]["attn"]["w_uk"].grad.abs().max()) > 0
 
 
 def test_cross_entropy_matches_jax():
