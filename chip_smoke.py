@@ -185,6 +185,22 @@ check raises and the script exits non-zero with no result line:
   train_mla_parity  train_parity for DeepSeek-V3 at one layer, 1 x 512
            tokens a micro-step; the attention weights' gradients (wq,
            w_dkv, w_kr, w_uk, w_uv, wo) nonzero;
+  dryrun   ``python -m repro_torch.launch.dryrun`` in four subprocesses
+           off the card (meta tensors over a fake 256- or 512-rank
+           process group): llama3.2-1b's train_4k, prefill_32k and
+           decode_32k on 16x16, rwkv6-1.6b's long_500k on 2x16x16,
+           granite-moe-3b-a800m's train_4k with expert parallelism and
+           llama3.2-1b's with sequence parallelism; per cell the
+           per-device flops, HBM and wire bytes, the bottleneck, the
+           step-time bound at the H100's rates, the roofline fraction
+           and the estimated peak memory;
+  dryrun_card  llama3.2-1b at full width and depth on a (1, 1) mesh:
+           each of the three shapes at its cut batch (CARD_BATCH), the
+           dry run's estimate, then the entry point on the card through the
+           kernels (the train step: kernels 7 and 7b; prefill: 7;
+           decode over the dense slots at a full 32k window: 1), side
+           by side: estimated and measured peak (within PEAK_BAND),
+           step-time bound and measured step, roofline fraction;
   replay   the live-engine trace replay (``traces/serving_replay.py``)
            of the reduced llama3.2-1b at 32-token blocks and pages, four
            cells (lmsys and agentic whole-prefix, sharegpt and lmsys with
@@ -235,9 +251,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# the package's cost formulas and H100 constants (kernels/cost.py,
+# launch/mesh.py), bound in main() once src/ is on the path
+cost = h100 = None
 
-H100_HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-H100_BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 # Kernel vs plain version, bf16 outputs: both accumulate in float32 and
 # round once to bf16, so another summation order can move an output by
 # one bf16 step (2^-8 relative); the outputs are convex combinations of
@@ -360,11 +377,6 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> dict:
     return {"ms": (both - flushes) / iters, "flush_ms": flushes / iters}
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S
-    t_ops = flops / H100_BF16_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -482,31 +494,8 @@ def make_kernel_inputs(torch, gen, page=64, offset=320, B=64, Hq=32):
     return dec, pre, seg
 
 
-def decode_cost(a):
-    q, kp, lengths = a["q"], a["k_pages"], a["lengths"]
-    B, Hq, hd = q.shape
-    Hkv = kp.shape[2]
-    el = kp.element_size()
-    toks = int(lengths.clamp_min(0).sum())
-    nbytes = (2 * q.numel() * q.element_size() + 2 * toks * Hkv * hd * el
-              + a["block_tables"].numel() * 4 + B * 4)
-    flops = 4 * toks * Hq * hd
-    return nbytes, flops
 
 
-def prefill_cost(a, attended_pool, causal_pairs):
-    """attended_pool: pool tokens read; causal_pairs: sum over queries of
-    (pool keys + chunk keys) attended."""
-    q, kp = a["q"], a["k_pages"]
-    _, C, Hq, hd = q.shape
-    Hkv = kp.shape[2]
-    el = kp.element_size()
-    nbytes = (2 * q.numel() * q.element_size()
-              + 2 * a["k_chunk"].numel() * a["k_chunk"].element_size()
-              + 2 * attended_pool * Hkv * hd * el
-              + a["block_tables"].numel() * 4 + 4 * C)
-    flops = 4 * causal_pairs * Hq * hd
-    return nbytes, flops
 
 
 def kernel_body(name, a) -> str:
@@ -574,7 +563,7 @@ def check_and_time(torch, cases, card, phase):
                                  f"{finite}")
         kt = time_ms(torch, lambda: fn(**args, backend="cuda"))
         pt = time_ms(torch, lambda: fn(**args, backend="torch"))
-        bound_ms, bound_by = bound(nbytes, flops)
+        bound_ms, bound_by = cost.bound(nbytes, flops)
         rows[name] = {"body": kernel_body(name, args),
                       "max_abs_err": err, "tol": KERNEL_ATOL,
                       "ms": kt["ms"], "plain_ms": pt["ms"],
@@ -637,19 +626,19 @@ def phase_kernels(torch, ops, card):
                                              dec["block_tables"].shape[1]
                                              * dec["k_pages"].shape[1]))
     cases = [
-        ("paged_decode", ops.paged_decode, dec, decode_cost(dec), None,
+        ("paged_decode", ops.paged_decode, dec, cost.decode_cost(dec), None,
          plan),
-        ("paged_decode_full", ops.paged_decode, full, decode_cost(full),
+        ("paged_decode_full", ops.paged_decode, full, cost.decode_cost(full),
          None, plan),
         ("paged_prefill", ops.paged_prefill, pre,
-         prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
+         cost.prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
          prefill_plan(pre)),
         ("paged_prefill_long", ops.paged_prefill, pre_long,
-         prefill_cost(pre_long, long_off,
+         cost.prefill_cost(pre_long, long_off,
                       C * long_off + C * (C + 1) // 2), None,
          prefill_plan(pre_long)),
         ("paged_prefill_seg", ops.paged_prefill_seg, seg,
-         prefill_cost(seg, seg_pool, seg_pairs), None, prefill_plan(seg)),
+         cost.prefill_cost(seg, seg_pool, seg_pairs), None, prefill_plan(seg)),
     ]
     cases += page32_cases(torch, gen, ops)
     cases += g3_cases(torch, gen, ops)
@@ -693,13 +682,13 @@ def page32_cases(torch, gen, ops):
     off = int(pre["offsets"][0])
     B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
     return [
-        ("paged_decode_page32", ops.paged_decode, dec, decode_cost(dec),
+        ("paged_decode_page32", ops.paged_decode, dec, cost.decode_cost(dec),
          None, {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}),
         ("paged_prefill_page32", ops.paged_prefill, pre,
-         prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
+         cost.prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
          prefill_plan(pre)),
         ("paged_prefill_seg_page32", ops.paged_prefill_seg, seg,
-         prefill_cost(seg, *seg_counts([int(x) for x in cpos[0]])), None,
+         cost.prefill_cost(seg, *seg_counts([int(x) for x in cpos[0]])), None,
          prefill_plan(seg)),
     ]
 
@@ -713,13 +702,13 @@ def g3_cases(torch, gen, ops):
     off = int(pre["offsets"][0])
     B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
     return [
-        ("paged_decode_g3", ops.paged_decode, dec, decode_cost(dec), None,
+        ("paged_decode_g3", ops.paged_decode, dec, cost.decode_cost(dec), None,
          {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}),
         ("paged_prefill_g3", ops.paged_prefill, pre,
-         prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
+         cost.prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
          prefill_plan(pre)),
         ("paged_prefill_seg_g3", ops.paged_prefill_seg, seg,
-         prefill_cost(seg, *seg_counts(
+         cost.prefill_cost(seg, *seg_counts(
              [int(x) for x in seg["chunk_positions"][0]])), None,
          prefill_plan(seg)),
     ]
@@ -787,20 +776,6 @@ def make_mla_kernel_inputs(torch, gen, cfg):
     return dec, pre, seg
 
 
-def mla_cost(a, pool_tokens, pairs):
-    """Bytes (each input read once, the context written once) and flops
-    of one MLA call: per attended (query, key) pair, Hq * (2*dk + 2*dl)
-    flops (scores over dl + dr, then the context over dl)."""
-    q_lat, q_rope, lat = a["q_lat"], a["q_rope"], a["latent_pages"]
-    Hq, dl = q_lat.shape[-2:]
-    dk = dl + q_rope.shape[-1]
-    eq = q_lat.element_size()
-    ints = a.get("lengths", a.get("offsets", a.get("chunk_positions")))
-    nbytes = ((2 * q_lat.numel() + q_rope.numel()) * eq
-              + pool_tokens * dk * lat.element_size()
-              + (a["lat_chunk"].numel() * eq if "lat_chunk" in a else 0)
-              + (a["block_tables"].numel() + ints.numel()) * 4)
-    return nbytes, pairs * Hq * (2 * dk + 2 * dl)
 
 
 def mla_decode_plan(a) -> dict:
@@ -848,14 +823,14 @@ def phase_mla_kernels(torch, ops, card, cfg):
                                    device="cuda"))
     cases = [
         ("mla_paged_decode", ops.mla_decode, dec,
-         mla_cost(dec, dec_tokens, dec_tokens), None, mla_decode_plan(dec)),
+         cost.mla_cost(dec, dec_tokens, dec_tokens), None, mla_decode_plan(dec)),
         ("mla_paged_decode_long", ops.mla_decode, long,
-         mla_cost(long, B8 * window, B8 * window), None,
+         cost.mla_cost(long, B8 * window, B8 * window), None,
          mla_decode_plan(long)),
         ("mla_paged_prefill", ops.mla_prefill, pre,
-         mla_cost(pre, off, C * off + C * (C + 1) // 2)),
+         cost.mla_cost(pre, off, C * off + C * (C + 1) // 2)),
         ("mla_paged_prefill_seg", ops.mla_prefill_seg, seg,
-         mla_cost(seg, seg_pool, seg_pairs)),
+         cost.mla_cost(seg, seg_pool, seg_pairs)),
     ]
     cases += mla_dense_cases(torch, gen, cfg, ops)
     rows = check_and_time(torch, cases, card, "mla_kernels")
@@ -902,25 +877,15 @@ def mla_dense_cases(torch, gen, cfg, ops):
     toks = int(lengths.sum())
     return [
         ("mla_paged_prefill_offset0", ops.mla_prefill, pre,
-         mla_cost(pre, 0, C * (C + 1) // 2)),
+         cost.mla_cost(pre, 0, C * (C + 1) // 2)),
         ("mla_paged_decode_slots", ops.mla_decode, dec,
-         mla_cost(dec, toks, toks), None, mla_decode_plan(dec)),
+         cost.mla_cost(dec, toks, toks), None, mla_decode_plan(dec)),
     ]
 
 
 # ---------------------------------------------------------------------------
 # the dense layout: causal flash prefill and int8 decode over slot pages
 # ---------------------------------------------------------------------------
-def flash_cost(a):
-    """Bytes (q, k, v read once, the output written once) and flops
-    (2 (dk + dv) per attended (query, key) pair and query head: QK^T over
-    dk, PV over dv) of one causal prefill."""
-    q, k, v = a["q"], a["k"], a["v"]
-    B, S, Hq, dk = q.shape
-    dv = v.shape[-1]
-    el = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + B * S * Hq * dv) * el
-    return nbytes, 2 * B * (S * (S + 1) // 2) * Hq * (dk + dv)
 
 
 def make_int8_decode_inputs(torch, gen, attn, lengths=None):
@@ -950,19 +915,6 @@ def make_int8_decode_inputs(torch, gen, attn, lengths=None):
                 block_tables=tables, lengths=lengths)
 
 
-def int8_decode_cost(a):
-    """Each attended token's int8 K and V of every KV head plus their
-    bf16 scales, q read and the output written once; flops as bf16
-    decode."""
-    q, kp, lengths = a["q"], a["k_pages"], a["lengths"]
-    B, Hq, hd = q.shape
-    Hkv = kp.shape[2]
-    toks = int(lengths.clamp_min(0).sum())
-    nbytes = (2 * q.numel() * q.element_size()
-              + 2 * toks * Hkv * (hd * kp.element_size()
-                                  + a["k_scales"].element_size())
-              + a["block_tables"].numel() * 4 + B * 4)
-    return nbytes, 4 * toks * Hq * hd
 
 
 def flash_case(torch, gen, ops, name, S, Hq, Hkv, hd):
@@ -981,7 +933,7 @@ def flash_case(torch, gen, ops, name, S, Hq, Hkv, hd):
     def sdpa():
         return F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
-    return (name, ops.flash_causal, a, flash_cost(a), sdpa)
+    return (name, ops.flash_causal, a, cost.flash_cost(a), sdpa)
 
 
 def slot_decode_case(torch, gen, ops, attn, name, S, Hq, Hkv, hd, lengths):
@@ -997,7 +949,7 @@ def slot_decode_case(torch, gen, ops, attn, name, S, Hq, Hkv, hd, lengths):
              k_pages=kp, v_pages=vp, block_tables=tables,
              lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
     # one block per (row, KV head) walks the row; nothing to combine
-    return (name, ops.paged_decode, a, decode_cost(a), None,
+    return (name, ops.paged_decode, a, cost.decode_cost(a), None,
             {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0})
 
 
@@ -1048,7 +1000,7 @@ def phase_dense_kernels(torch, ops, card):
         # one block per (row, KV head) walks the row; nothing to combine
         plan = {"splits": 1, "blocks": a["q"].shape[0]
                 * a["k_pages"].shape[2], "partial_bytes": 0}
-        cases.append((name, ops.paged_decode_int8, a, int8_decode_cost(a),
+        cases.append((name, ops.paged_decode_int8, a, cost.int8_decode_cost(a),
                       None, plan))
     cases += cross_cases(torch, gen, ops, attn)
     rows = check_and_time(torch, cases, card, "kernels")
@@ -1405,7 +1357,7 @@ def phase_moe_parity(torch, params, cfg, card, rows):
     cap = moe.capacity(rows, cfg)
     flops = 3 * 2 * cfg.n_experts * cap * cfg.d_model * cfg.moe_ff
     nbytes = weights + 2 * h.numel() * hb.element_size()
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = cost.bound(nbytes, flops)
     keep = cpu_route[2]
     emit({"phase": "moe_layer", "card": card, "rows": rows,
           "capacity": cap, "routing_identical": same,
@@ -2320,7 +2272,6 @@ def phase_recurrent_checks(torch, card, cfg, params, phase):
 # training: the flash prefill backward, the train step, its parity,
 # resume and the other families' train_loss
 # ---------------------------------------------------------------------------
-H100_F32_FLOPS = 67e12               # float32 outside the tensor cores
 # Backward kernel vs plain version: both recompute the softmax and sum in
 # float32 (another order), so a bf16 gradient may round to a neighbouring
 # bf16 value: each of dq, dk, dv is held to two bf16 steps of its largest
@@ -2394,21 +2345,6 @@ TRAIN_FAMILIES = (("zamba2-1.2b", 6, 2, 512), ("rwkv6-1.6b", 4, 2, 512),
                   ("llama-3.2-vision-11b", 10, 1, 512))
 
 
-def bwd_cost(a):
-    """Bytes (q, k, v, o, dO and lse read once, dq, dk, dv written once)
-    and flops (2 (3 dk + 2 dv) per attended (query, key) pair and query
-    head: the QK^T recompute, dK and dQ over dk, dO V^T and dV over dv;
-    10 hd when dk = dv = hd) of one backward, and the peak rate of the
-    inputs' type."""
-    q, k, v = a["q"], a["k"], a["v"]
-    B, S, Hq, dk = q.shape
-    dv = v.shape[-1]
-    el = q.element_size()
-    nbytes = (2 * (q.numel() + k.numel() + v.numel() + a["o"].numel())
-              * el + a["lse"].numel() * 4)
-    peak = H100_BF16_FLOPS if q.dtype != a["lse"].dtype else H100_F32_FLOPS
-    return (nbytes, 2 * B * (S * (S + 1) // 2) * Hq * (3 * dk + 2 * dv),
-            peak)
 
 
 def kernel_split_ms(torch, fn, calls: int = 5) -> dict:
@@ -2529,9 +2465,9 @@ def lse_row(torch, gen, name, B, S, Hq, Hkv, dk, dv):
     if not lib_err <= LIBRARY_ATOL:
         raise AssertionError(f"{name}: the library yardstick differs from "
                              f"the plain version by {lib_err}")
-    nbytes, flops = flash_cost({"q": q, "k": k, "v": v})
+    nbytes, flops = cost.flash_cost({"q": q, "k": k, "v": v})
     nbytes += lse.numel() * 4
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = cost.bound(nbytes, flops)
     kt = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda",
                                               with_lse=True))
     no_lse = time_ms(torch, lambda: flash_prefill(q, k, v, backend="cuda"))
@@ -2584,12 +2520,12 @@ def phase_train_kernels(torch, card):
                                  f"from the plain version by {lib_err} of "
                                  f"the largest magnitude")
         del got, plain, lib
-        nbytes, flops, peak = bwd_cost(a)
+        nbytes, flops, peak = cost.bwd_cost(a)
         kt = time_ms(torch, lambda: flash_prefill_bwd(**a, backend="cuda"))
         pt = time_ms(torch, lambda: flash_prefill_bwd(**a, backend="torch"),
                      iters=5)
         lt = time_ms(torch, library)
-        t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, flops / peak
+        t_bytes, t_ops = nbytes / h100.HBM_BW, flops / peak
         rows[name] = {
             "body": kernel_body(name, a), "shape": list(case[1:7]),
             "dtype": case[-1], "kv_chunk": bwd_kv_chunk(*case[1:5]),
@@ -3422,6 +3358,243 @@ DENSE_PATH = ("flash_prefill", "paged_decode")
 MLA_DENSE_PATH = ("mla_paged_prefill", "mla_paged_decode")
 
 
+# ---------------------------------------------------------------------------
+# distribution and launch analysis: the dry run, and its estimates held to
+# the card
+# ---------------------------------------------------------------------------
+# (label, arguments of ``python -m repro_torch.launch.dryrun``): llama's
+# three shapes on 16x16, RWKV's 500k-token decode on 2x16x16 (the long-
+# context rules), granite's train step with expert parallelism, llama's
+# with sequence parallelism
+DRYRUN_JOBS = (
+    ("llama3.2-1b", ["--arch", "llama3.2-1b"]),
+    ("rwkv6-1.6b_long", ["--arch", "rwkv6-1.6b", "--shape", "long_500k",
+                         "--multi-pod"]),
+    ("granite-moe-3b-a800m_ep", ["--arch", "granite-moe-3b-a800m",
+                                 "--shape", "train_4k", "--ep"]),
+    ("llama3.2-1b_sp", ["--arch", "llama3.2-1b", "--shape", "train_4k",
+                        "--sp"]),
+)
+DRYRUN_TIMEOUT_S = 420
+# dryrun_card: each shape's global batch cut to the largest power of
+# two whose estimated peak (the dry run's peak_hint at --mesh 1x1) stays
+# under 70 GB and whose step stays under about 5 s on the card.  The
+# readings (H100 80GB HBM3, 700 W): train_4k's peak_hint is 57.21 GB at
+# 8 and at 16 (2 and 4 micro-batches of 4 rows), its step 1.19 / 2.31 s,
+# so 32 takes ~4.6 s and 64 ~9 s; prefill_32k 22.87 GB / 2.09 s at 4,
+# 43.28 GB / 4.16 s at 8 (16 about twice that); decode_32k 36.84 GB at
+# 32, whose K/V state alone doubles past 70 GB at 64.  The estimate of
+# the peak must be within PEAK_BAND of max_memory_allocated.
+CARD_BATCH = {"train_4k": 32, "prefill_32k": 8, "decode_32k": 32}
+PEAK_BAND = 0.20
+CARD_SHAPES = tuple(CARD_BATCH)
+
+
+def run_dryruns(jobs, out_dir: Path) -> dict:
+    """Each job's dry run in its own process, all at once, off the card
+    (its fake process group never meets this process) -> {label: the
+    results of its --out file}.  Raises if one exits non-zero."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(__import__("os").environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(SRC))
+    procs = {}
+    try:
+        for label, args in jobs:
+            out = out_dir / f"{label}.json"
+            log = open(out_dir / f"{label}.log", "w")
+            procs[label] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", str(out)], env=env, stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(ROOT)), out, log)
+        results = {}
+        for label, (proc, out, log) in procs.items():
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+            log.close()
+            if rc != 0:
+                tail = (out_dir / f"{label}.log").read_text()[-2000:]
+                raise AssertionError(f"dry run {label} exited {rc}: {tail}")
+            results[label] = json.loads(out.read_text())["results"]
+        return results
+    finally:
+        for proc, _, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def phase_dryrun(card) -> None:
+    """The dry run's cells (DRYRUN_JOBS) traced on meta tensors over a
+    fake 256- or 512-rank process group, one line a cell: per-device
+    flops, HBM bytes and wire bytes, the bottleneck, the step-time bound
+    at the H100's rates, the roofline fraction and the peak estimate."""
+    t0 = time.time()
+    results = run_dryruns(DRYRUN_JOBS, ROOT / "build" / "dryrun")
+    n = 0
+    for label, cells in results.items():
+        for r in cells:
+            n += 1
+            emit({"phase": "dryrun", "card": card, "job": label,
+                  "cell": f"{r['arch']} x {r['shape']}", "mesh": r["mesh"],
+                  "entry": r["entry"], "n_micro": r["n_micro"],
+                  "flops_per_dev": r["flops_per_dev"],
+                  "bytes_per_dev": r["bytes_per_dev"],
+                  "wire_bytes_per_dev": r["wire_bytes_per_dev"],
+                  "bottleneck": r["bottleneck"],
+                  "step_time_bound_s": r["step_time_bound"],
+                  "roofline_frac": r["roofline_frac"],
+                  "peak_hint_bytes": r["mem"]["peak_hint"],
+                  "kernels": {k: v["calls"] for k, v in r["kernels"].items()},
+                  "trace_s": r["trace_s"]})
+    if n != 6:
+        raise AssertionError(f"dryrun: {n} cells, expected 6")
+    emit({"phase": "dryrun", "card": card, "cells": n,
+          "wall_s": time.time() - t0})
+
+
+def card_inputs(torch, model, cfg, shape, batch):
+    """The arguments of a dryrun_card cell's entry point on the card at
+    ``batch`` rows: seeded tokens; the decode state at a full window
+    (each row attends all ``seq_len`` slots, the dry run's decode)."""
+    from repro_torch.training import optimizer as opt_mod
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tok = lambda *s: torch.randint(0, cfg.vocab_size, s, generator=gen,  # noqa: E731
+                                   device="cuda", dtype=torch.int32)
+    if shape.kind == "train":
+        return {"tokens": tok(batch, shape.seq_len),
+                "labels": tok(batch, shape.seq_len)}, opt_mod
+    if shape.kind == "prefill":
+        return {"tokens": tok(batch, shape.seq_len)}, None
+    state = model.init_decode_state(batch, shape.seq_len, device="cuda")
+    state["lengths"].fill_(shape.seq_len - 1)
+    return {"state": state, "tokens": tok(batch)}, None
+
+
+def phase_dryrun_card(torch, kernel_fns, card) -> dict:
+    """llama3.2-1b at full width and depth on a (1, 1) mesh on the card:
+    for train_4k, prefill_32k and decode_32k, the dry run's estimate at
+    the cut batch (CARD_BATCH), then the entry point itself
+    through the kernels (the train step: kernels 7 and 7b; prefill:
+    kernel 7; decode over the dense slots: kernel 1), every count zeroed
+    just before the timed call.  Printed side by side: the estimated
+    peak (peak_hint, plus the bytes resident on the card beside the
+    arguments, by name) and max_memory_allocated (reset just before the
+    call), the step-time bound and the measured step, and the roofline
+    fraction at the measured time.  Fails if an estimate of the peak is
+    off the measured one by more than PEAK_BAND."""
+    import torch.distributed as dist
+    import torch.utils._pytree as pytree
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshSharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train as train_mod
+    jobs = [(s, ["--arch", "llama3.2-1b", "--shape", s, "--mesh", "1x1",
+                 "--global-batch", str(b)]) for s, b in CARD_BATCH.items()]
+    est = {s: r[0] for s, r in run_dryruns(
+        jobs, ROOT / "build" / "dryrun_card").items()}
+    cfg = get_config("llama3.2-1b")
+    with socket_port() as port:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+    counts, rows = {}, []
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        model = build_model(cfg, MeshSharding(mesh))
+        params = model.init_params(0, device="cuda")
+        check_held(torch, params, "dryrun_card")
+        for sname in CARD_SHAPES:
+            e = est[sname]
+            shape = dataclasses.replace(SHAPES[sname],
+                                        global_batch=e["global_batch"])
+            args, opt_mod = card_inputs(torch, model, cfg, shape,
+                                        shape.global_batch)
+            if shape.kind == "train":
+                opt_state = opt_mod.init_state(params)
+                fn = train_mod.make_train_step(model, n_micro=e["n_micro"])
+                call = (lambda: fn(params, opt_state, args))
+                held = (params, opt_state, args)
+            elif shape.kind == "prefill":
+                call = (lambda: model.prefill(params, args))
+                held = (params, args)
+            else:
+                call = (lambda: model.decode_step(params, args["state"],
+                                                  args["tokens"]))
+                held = (params, args)
+            out = call()                       # warm-up
+            del out
+            torch.cuda.synchronize()
+            for k in kernel_fns.values():
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            arg_bytes = sum(t.nbytes for t in pytree.tree_leaves(held)
+                            if isinstance(t, torch.Tensor))
+            resident = torch.cuda.memory_allocated() - arg_bytes
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts[sname] = {n: k.launches for n, k in kernel_fns.items()}
+            del out
+            estimate = e["mem"]["peak_hint"] + resident
+            err = (estimate - peak) / peak
+            row = {"phase": "dryrun_card", "card": card, "cell": sname,
+                   "mesh": "1x1", "global_batch": shape.global_batch,
+                   "cut_from": SHAPES[sname].global_batch,
+                   "n_micro": e["n_micro"],
+                   "argument_bytes_est": e["mem"]["argument_bytes"],
+                   "argument_bytes_card": arg_bytes,
+                   "peak_hint_bytes": e["mem"]["peak_hint"],
+                   "resident_bytes": resident,
+                   "peak_estimate_bytes": estimate,
+                   "max_memory_allocated": peak, "peak_rel_err": err,
+                   "step_time_bound_s": e["step_time_bound"],
+                   "step_s": step_s,
+                   "roofline_frac_est": e["roofline_frac"],
+                   "roofline_frac_measured": e["model_flops_per_dev"]
+                   / h100.PEAK_FLOPS_BF16 / step_s,
+                   "launches": {n: c for n, c in counts[sname].items()
+                                if c}}
+            emit(row)
+            rows.append(row)
+            del args, held, call
+            if shape.kind == "train":
+                del opt_state, fn
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    need = {"train_4k": ("flash_prefill", "flash_prefill_bwd"),
+            "prefill_32k": ("flash_prefill",),
+            "decode_32k": ("paged_decode",)}
+    for sname, names in need.items():
+        for n in names:
+            if not counts[sname][n]:
+                raise AssertionError(f"dryrun_card {sname}: kernel {n} was "
+                                     f"not launched")
+    for row in rows:
+        if not abs(row["peak_rel_err"]) <= PEAK_BAND:
+            raise AssertionError(
+                f"dryrun_card {row['cell']}: estimated peak "
+                f"{row['peak_estimate_bytes'] / 1e9:.3f} GB vs "
+                f"max_memory_allocated {row['max_memory_allocated'] / 1e9:.3f}"
+                f" GB ({row['peak_rel_err']:+.1%}, band {PEAK_BAND:.0%})")
+    return counts
+
+
+@contextlib.contextmanager
+def socket_port():
+    """A free localhost port, released on entry to the block."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    yield port
+
+
 def main() -> int:
     try:
         import torch
@@ -3436,6 +3609,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
+    global cost, h100
+    from repro_torch.kernels import cost
+    from repro_torch.launch import mesh as h100
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--mla-depth-probe"]:
@@ -3592,6 +3768,12 @@ def main() -> int:
     phase_train_parity(torch, smi, mla_cfg, phase="train_mla_parity",
                        layers=1, batch=TRAIN_MLA_PARITY_BATCH,
                        seq=TRAIN_MLA_PARITY_SEQ, attn_leaves=MLA_ATTN_LEAVES)
+
+    # distribution and launch analysis: the dry run's cells, then its
+    # estimates held to llama3.2-1b's entry points on the card
+    phase_dryrun(smi)
+    for sname, counts in phase_dryrun_card(torch, kernel_fns, smi).items():
+        by_path[f"dryrun_card:{sname}"] = counts
 
     phase_replay(torch, kernel_fns, smi)
     full = replay_full_config()

@@ -9,7 +9,10 @@ Two backends:
 
 Resolution order: an explicit ``backend=`` argument, then the device of
 the input.  A CUDA tensor resolves to ``cuda`` and a CPU tensor to
-``torch``.  ``cuda`` on a CPU tensor raises.  ``torch`` on a CUDA tensor
+``torch``.  A meta tensor (the dry run's, DTensors over meta shards too)
+resolves to ``abstract``: the op returns empty outputs of the kernel's
+shapes and dtypes and records the kernel's cost (``kernels/cost.py``);
+no backend can be named for it.  ``cuda`` on a CPU tensor raises.  ``torch`` on a CUDA tensor
 runs only when the caller names it explicitly (the reference comparison
 in ``chip_smoke.py``).  There is no environment override and no silent
 fall back from a failed kernel to the plain version.
@@ -25,6 +28,8 @@ BACKENDS = ("cuda", "torch")
 
 def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
     """The backend one op call runs on, given its first tensor ``x``."""
+    if x.device.type == "meta":
+        return "abstract"
     if backend is not None:
         name = backend.strip().lower()
         if name not in BACKENDS:

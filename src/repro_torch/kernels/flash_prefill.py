@@ -40,7 +40,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.kernels import abstract, build, ref
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.paged_attention import DTYPE_CODES, stream_ptr
 
@@ -135,8 +136,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   backend: str | None = None, with_lse: bool = False):
     """q [B,S,Hq,dk]; k [B,S,Hkv,dk]; v [B,S,Hkv,dv] -> [B,S,Hq,dv] in
     q's dtype; with ``with_lse`` also the rows' log-sum-exp [B,Hq,S]
-    float32."""
-    if resolve_backend(backend, q) == "torch":
+    float32.  DTensors run shard by shard (``abstract.sharded_flash``)."""
+    if is_dtensor(q):
+        return abstract.sharded_flash(flash_prefill, q, k, v, backend,
+                                      with_lse)
+    be = resolve_backend(backend, q)
+    if be == "abstract":
+        return abstract.flash_prefill(q, k, v, with_lse)
+    if be == "torch":
         out = ref.flash_prefill(q, k, v)
         return (out, ref.flash_prefill_lse(q, k)) if with_lse else out
     _check_qkv("flash_prefill", q, k, v)
@@ -168,7 +175,13 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cotangent do.  The kernel needs the forward's ``lse`` [B,Hq,S]
     float32 and takes the (dk, dv) pairs of BWD_WIDTHS; the plain version
     recomputes the softmax itself."""
-    if resolve_backend(backend, q) == "torch":
+    if is_dtensor(q):
+        return abstract.sharded_flash_bwd(flash_prefill_bwd, q, k, v, o, do,
+                                          lse, backend)
+    be = resolve_backend(backend, q)
+    if be == "abstract":
+        return abstract.flash_prefill_bwd(q, k, v, o, do, lse)
+    if be == "torch":
         return ref.flash_prefill_bwd(q, k, v, o, do)
     _check_qkv("flash_prefill_bwd", q, k, v, o, do)
     b, s, hq, hd = q.shape
@@ -207,7 +220,8 @@ class FlashCausal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, backend=None):
-        if resolve_backend(backend, q) == "torch":
+        if (not is_dtensor(q)
+                and resolve_backend(backend, q) == "torch"):
             out, lse = ref.flash_prefill(q, k, v), None
         else:
             out, lse = flash_prefill(q, k, v, backend=backend, with_lse=True)

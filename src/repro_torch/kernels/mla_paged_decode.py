@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import abstract, build, ref
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.paged_attention import (DTYPE_CODES, FLT, INT, PTR,
                                                  SUPPORTED, stream_ptr)
@@ -101,7 +101,11 @@ def mla_paged_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     """q_lat [B,Hq,dl]; q_rope [B,Hq,dr]; latent_pages [N,page,dl+dr];
     block_tables [B,P] int32; lengths [B] int32 -> ctx [B,Hq,dl] in
     q_lat's dtype.  ``scale=None`` is ``1/sqrt(dl//4 + dr)``."""
-    if resolve_backend(backend, q_lat) == "torch":
+    be = resolve_backend(backend, q_lat)
+    if be == "abstract":
+        return abstract.mla("mla_paged_decode", q_lat, q_rope, latent_pages,
+                            block_tables, lengths)
+    if be == "torch":
         return ref.mla_paged_decode(q_lat, q_rope, latent_pages,
                                     block_tables, lengths, d_latent, scale)
     check_mla_args("mla_paged_decode", q_lat, q_rope, latent_pages,

@@ -24,11 +24,13 @@ from repro_torch.kernels.paged_prefill import (mla_paged_prefill,
 
 
 def paged_decode(q, k_pages, v_pages, block_tables, lengths,
-                 backend: str | None = None):
+                 backend: str | None = None, with_lse: bool = False):
     """Paged decode attention (GQA/MHA/MQA): q [B,Hq,hd] over block-table
-    indirected KV pages -> [B,Hq,hd]."""
+    indirected KV pages -> [B,Hq,hd] (and with ``with_lse`` each head's
+    log-sum-exp [B,Hq] float32)."""
     return paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                  lengths, backend=backend)
+                                  lengths, backend=backend,
+                                  with_lse=with_lse)
 
 
 def paged_prefill(q, k_chunk, v_chunk, k_pages, v_pages, block_tables,
@@ -90,9 +92,11 @@ def flash_causal(q, k, v, backend: str | None = None):
 
 
 def paged_decode_int8(q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                      lengths, backend: str | None = None):
+                      lengths, backend: str | None = None,
+                      with_lse: bool = False):
     """int8-paged decode (per-token-head scales, applied to the scores
-    and the probabilities): q [B,Hq,hd] -> [B,Hq,hd]."""
+    and the probabilities): q [B,Hq,hd] -> [B,Hq,hd] (``with_lse`` as
+    in ``paged_decode``)."""
     return paged_decode_attention_int8(q, k_pages, v_pages, k_scales,
                                        v_scales, block_tables, lengths,
-                                       backend=backend)
+                                       backend=backend, with_lse=with_lse)

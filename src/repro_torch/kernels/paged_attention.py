@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import abstract, build, ref
 from repro_torch.kernels.backend import resolve_backend
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,15 +69,35 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def no_lse(name: str, with_lse: bool) -> None:
+    """The decode kernels write no log-sum-exp yet: a split decode over a
+    sequence-split slot cache cannot run on the card, and is refused
+    rather than scored again in plain PyTorch beside the kernel."""
+    if with_lse:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no log-sum-exp output, which the "
+            f"split decode over a sequence-split cache merges by")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor,
-                           backend: str | None = None) -> torch.Tensor:
+                           backend: str | None = None,
+                           with_lse: bool = False) -> torch.Tensor:
     """q [B,Hq,hd]; k/v_pages [N,page,Hkv,hd]; block_tables [B,P] int32;
-    lengths [B] int32 -> [B,Hq,hd] in q's dtype."""
-    if resolve_backend(backend, q) == "torch":
-        return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                          lengths)
+    lengths [B] int32 -> [B,Hq,hd] in q's dtype; with ``with_lse`` also
+    each head's log-sum-exp [B,Hq] float32 (the split decode's merge
+    weights), which the CUDA kernel does not write yet."""
+    be = resolve_backend(backend, q)
+    if be == "abstract":
+        return abstract.paged_decode(q, k_pages, v_pages, block_tables,
+                                     lengths, with_lse=with_lse)
+    if be == "torch":
+        out = ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                         lengths)
+        return (out, ref.paged_decode_lse(q, k_pages, block_tables,
+                                          lengths)) if with_lse else out
+    no_lse("paged_decode", with_lse)
     check_args("paged_decode", q, k_pages, v_pages, block_tables, lengths)
     b, hq, hd = q.shape
     n, page, hkv, _ = k_pages.shape
@@ -108,15 +128,25 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_scales: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 lengths: torch.Tensor,
-                                backend: str | None = None) -> torch.Tensor:
+                                backend: str | None = None,
+                                with_lse: bool = False) -> torch.Tensor:
     """q [B,Hq,hd]; k/v_pages int8 [N,page,Hkv,hd]; k/v_scales bf16
     [N,page,Hkv,1]; block_tables [B,P] int32; lengths [B] int32 ->
-    [B,Hq,hd] in q's dtype."""
-    if resolve_backend(backend, q) == "torch":
-        return ref.paged_decode_attention_int8(q, k_pages, v_pages, k_scales,
-                                               v_scales, block_tables,
-                                               lengths)
+    [B,Hq,hd] in q's dtype; ``with_lse`` as in
+    ``paged_decode_attention``."""
+    be = resolve_backend(backend, q)
+    if be == "abstract":
+        return abstract.paged_decode_int8(q, k_pages, v_pages, k_scales,
+                                          v_scales, block_tables, lengths,
+                                          with_lse=with_lse)
+    if be == "torch":
+        out = ref.paged_decode_attention_int8(q, k_pages, v_pages, k_scales,
+                                              v_scales, block_tables,
+                                              lengths)
+        return (out, ref.paged_decode_lse(q, k_pages, block_tables, lengths,
+                                          k_scales)) if with_lse else out
     name = "paged_decode_int8"
+    no_lse(name, with_lse)
     for t in (q, k_pages, v_pages, k_scales, v_scales, block_tables,
               lengths):
         if t.device != q.device:

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import abstract, build, ref
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.mla_paged_decode import check_mla_args
 from repro_torch.kernels.paged_attention import (DTYPE_CODES, FLT, INT,
@@ -61,7 +61,11 @@ def paged_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
     block_tables [B,P] int32; offsets [B] int32 -> [B,C,Hq,hd].  Query i
     of row b sits at offsets[b] + i: it attends pool tokens < offsets[b]
     plus chunk tokens j <= i."""
-    if resolve_backend(backend, q) == "torch":
+    be = resolve_backend(backend, q)
+    if be == "abstract":
+        return abstract.paged_prefill("paged_prefill", q, k_chunk, k_pages,
+                                      block_tables)
+    if be == "torch":
         return ref.paged_prefill_attention(q, k_chunk, v_chunk, k_pages,
                                            v_pages, block_tables, offsets)
     check_args("paged_prefill", q, k_pages, v_pages, block_tables, offsets,
@@ -84,7 +88,11 @@ def paged_prefill_segments(q: torch.Tensor, k_chunk: torch.Tensor,
     negative = padding): query i attends pool tokens below its own
     position except the slots the chunk will fill, plus chunk tokens
     j <= i.  The row's page walk stops at ``ref.pool_limits``."""
-    if resolve_backend(backend, q) == "torch":
+    be = resolve_backend(backend, q)
+    if be == "abstract":
+        return abstract.paged_prefill("paged_prefill_seg", q, k_chunk,
+                                      k_pages, block_tables)
+    if be == "torch":
         return ref.paged_prefill_segments(q, k_chunk, v_chunk, k_pages,
                                           v_pages, block_tables,
                                           chunk_positions)
@@ -132,7 +140,11 @@ def mla_paged_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor,
     latent_pages [N,page,dl+dr]; block_tables [B,P] int32; offsets [B]
     int32 -> ctx [B,C,Hq,dl].  Query i of row b sits at offsets[b] + i:
     it attends pool tokens < offsets[b] plus chunk tokens j <= i."""
-    if resolve_backend(backend, q_lat) == "torch":
+    be = resolve_backend(backend, q_lat)
+    if be == "abstract":
+        return abstract.mla("mla_paged_prefill", q_lat, q_rope,
+                            latent_pages, block_tables, offsets, lat_chunk)
+    if be == "torch":
         return ref.mla_paged_prefill(q_lat, q_rope, lat_chunk, latent_pages,
                                      block_tables, offsets, d_latent, scale)
     check_mla_args("mla_paged_prefill", q_lat, q_rope, latent_pages,
@@ -155,7 +167,12 @@ def mla_paged_prefill_segments(q_lat: torch.Tensor, q_rope: torch.Tensor,
     """As ``mla_paged_prefill`` with per-query absolute positions
     (``chunk_positions`` [B,C] int32, ascending among valid entries,
     negative = padding), the semantics of ``paged_prefill_segments``."""
-    if resolve_backend(backend, q_lat) == "torch":
+    be = resolve_backend(backend, q_lat)
+    if be == "abstract":
+        return abstract.mla("mla_paged_prefill_seg", q_lat, q_rope,
+                            latent_pages, block_tables, chunk_positions,
+                            lat_chunk)
+    if be == "torch":
         return ref.mla_paged_prefill_segments(
             q_lat, q_rope, lat_chunk, latent_pages, block_tables,
             chunk_positions, d_latent, scale)

@@ -92,6 +92,24 @@ def paged_decode_attention_int8(q, k_pages, v_pages, k_scales, v_scales,
     return _attend(q[:, None], k, v, _length_mask(lengths, k.shape[1]))[:, 0]
 
 
+def paged_decode_lse(q, k_pages, block_tables, lengths, k_scales=None):
+    """Each query head's log-sum-exp of its scaled scores over the row's
+    pool tokens < length, [B,Hq] float32 (natural-log units; a row with
+    no attendable key gives about NEG_INF): what the split decode merges
+    its slices by.  With ``k_scales``, the int8 pages dequantized as
+    ``paged_decode_attention_int8`` does."""
+    k = _gather(k_pages, block_tables).float()
+    if k_scales is not None:
+        k = k * _gather(k_scales, block_tables).float()
+    b, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k) / math.sqrt(hd)
+    s = s.masked_fill(~_length_mask(lengths, k.shape[1])[:, :, None, :],
+                      NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(b, hq)
+
+
 def causal_mask(sq: int, sk: int, q_offset: int, device) -> torch.Tensor:
     """[1,Sq,Sk]: query i (at position q_offset + i) attends keys
     t <= q_offset + i."""

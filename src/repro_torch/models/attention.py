@@ -35,8 +35,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops, ref
-from repro_torch.models.common import PSpec, apply_rope
+from repro_torch.distributed.sharding import is_dtensor, per_shard
+from repro_torch.kernels import abstract, ops, ref
+from repro_torch.models.common import NOSHARD, PSpec, apply_rope
 
 
 def head_mask(cfg: ModelConfig, dtype=torch.bfloat16,
@@ -80,11 +81,16 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def project_qkv(p: Dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *, rope: bool = True):
-    """x [B,S,D] -> q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (RoPE applied)."""
+                cfg: ModelConfig, *, rope: bool = True, shd=NOSHARD):
+    """x [B,S,D] -> q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (RoPE applied).
+    Under a mesh q is split over heads; k/v keep the placement their
+    weights give them, as in the JAX package; x enters whole along the
+    sequence (a sequence-parallel residual is gathered)."""
+    x = shd(x, "batch", "seq", None)
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = shd(q, "batch", "seq", "heads", None)
     if rope and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -97,12 +103,46 @@ def out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return torch.matmul(o.flatten(-2), wo.reshape(h * k, d))
 
 
+class RepeatHeads(torch.autograd.Function):
+    """K/V [B,S,Hkv,d] -> [B,S,Hkv*g,d], each head repeated g times in
+    place (``repeat_interleave``).  The backward sums each group's
+    gradients: shard by shard where the head split cuts whole groups
+    (Hkv divides it), else after gathering the heads."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.repeat_interleave(g, dim=2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        def fold(t):
+            b, s, h, d = t.shape
+            return t.reshape(b, s, h // ctx.g, ctx.g, d).sum(3)
+
+        if not is_dtensor(dy):
+            return fold(dy), None
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        mesh = dy.device_mesh
+        split = [i for i, p in enumerate(dy.placements)
+                 if isinstance(p, Shard) and p.dim == 2]
+        hkv = dy.shape[2] // ctx.g
+        if split and hkv % math.prod(mesh.size(i) for i in split) == 0:
+            pl = list(dy.placements)
+            return local_map(fold, out_placements=pl, in_placements=(pl,),
+                             device_mesh=mesh)(dy), None
+        return fold(dy.redistribute(mesh, [
+            Replicate() if i in split else p
+            for i, p in enumerate(dy.placements)])), None
+
+
 # ---------------------------------------------------------------------------
 # Exact causal attention (monolithic prefill)
 # ---------------------------------------------------------------------------
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     *, q_offset: int = 0,
-                     backend: Optional[str] = None) -> torch.Tensor:
+                     *, q_offset: int = 0, backend: Optional[str] = None,
+                     shd=NOSHARD) -> torch.Tensor:
     """q [B,Sq,Hq,hd] at positions q_offset + i; k [B,Sk,Hkv,hd]; v
     [B,Sk,Hkv,dv] -> [B,Sq,Hq,dv]: query i attends keys t <= q_offset + i
     (dv == hd but for MLA's non-absorbed form, Q/K hd + dr over V hd).
@@ -111,8 +151,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     prefill kernel (``ops.flash_causal``: the CUDA kernel on the card,
     its plain version on the CPU).  A suffix after a cached prefix
     (q_offset > 0) runs plain PyTorch on both devices, as the JAX
-    package runs it in ``jnp``: float32 softmax and accumulation."""
+    package runs it in ``jnp``: float32 softmax and accumulation.
+
+    Under a mesh (``shd.active``) GQA keys and values are first repeated
+    to the query heads and split over heads with them, as the JAX
+    package orders it, so each head shard holds whole groups."""
     sq, sk = q.shape[1], k.shape[1]
+    hq, hkv = q.shape[2], k.shape[2]
+    if shd.active and hkv != hq:
+        k, v = (shd(RepeatHeads.apply(t, hq // hkv), "batch", "seq",
+                    "heads", None) for t in (k, v))
     if q_offset == 0 and sq == sk:
         return ops.flash_causal(q.contiguous(), k.contiguous(),
                                 v.contiguous(), backend=backend)
@@ -135,6 +183,15 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     product with V."""
     b, sq, hq, hd = q.shape
     hkv = k.shape[2]
+    if is_dtensor(q):
+        # as causal_attention under a mesh: K/V repeated to the query
+        # heads, so a head split of q never cuts a group; then each
+        # rank's rows and heads on their own
+        if hkv != hq:
+            k, v = (RepeatHeads.apply(t, hq // hkv) for t in (k, v))
+        return per_shard(full_attention, (q, k, v, kv_mask),
+                         ((0, 2), (0, 2), (0, 2),
+                          None if kv_mask is None else (0, None)), ((0, 2),))
     qg = q.reshape(b, sq, hkv, hq // hkv, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(hd)
     if kv_mask is not None:
@@ -166,8 +223,10 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor,
     (the JAX package returns a new array): cache [B,S,...], new
     [B,1,...], lengths [B].  A length past the cache clamps to its last
     slot, as ``dynamic_update_slice`` clamps its start."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
     pos = lengths.long().clamp(0, cache.shape[1] - 1)
+    if is_dtensor(cache):
+        return abstract.cache_write(cache, new, pos)
+    rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, pos] = new[:, 0].to(cache.dtype)
     return cache
 
@@ -190,22 +249,40 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     backend: Optional[str] = None) -> torch.Tensor:
+                     backend: Optional[str] = None,
+                     with_lse: bool = False) -> torch.Tensor:
     """q [B,1,Hq,hd]; caches [B,S,Hkv,hd]; lengths [B] int32 = valid
-    tokens (the new one included) -> [B,1,Hq,hd].
+    tokens (the new one included) -> [B,1,Hq,hd] (with ``with_lse``
+    also each head's log-sum-exp [B,Hq] float32).
 
     Runs the paged decode kernel over the caches seen as pages
     (``slot_pages``); with int8 caches and their bf16 scales
-    [B,S,Hkv,1], the int8 kernel."""
+    [B,S,Hkv,1], the int8 kernel.  DTensor caches split over the
+    sequence (the ``kv_seq`` rule) run the split decode
+    (``kernels/abstract.split_decode``): each slice through the same
+    kernel with its log-sum-exp, merged by them."""
     scales = () if k_scale is None else (k_scale, v_scale)
+    if is_dtensor(k_cache):
+        return abstract.split_decode(
+            q, k_cache, v_cache, lengths, k_scale, v_scale,
+            attend=lambda q1, k, v, n, *sc, with_lse=False: _squeeze(
+                decode_attention(q1[:, None], k, v, n, *sc,
+                                 backend=backend, with_lse=with_lse)))
     (kp, vp, *sp), tables = slot_pages(k_cache, v_cache, *scales)
     q1 = q[:, 0].contiguous()
     if k_scale is None:
-        o = ops.paged_decode(q1, kp, vp, tables, lengths, backend=backend)
+        o = ops.paged_decode(q1, kp, vp, tables, lengths, backend=backend,
+                             with_lse=with_lse)
     else:
         o = ops.paged_decode_int8(q1, kp, vp, *sp, tables, lengths,
-                                  backend=backend)
-    return o[:, None]
+                                  backend=backend, with_lse=with_lse)
+    return (o[0][:, None], o[1]) if with_lse else o[:, None]
+
+
+def _squeeze(o):
+    """decode_attention's [B,1,Hq,hd] output (or (output, lse)) with the
+    query dim dropped."""
+    return (o[0][:, 0], o[1]) if isinstance(o, tuple) else o[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -246,10 +323,11 @@ def mla_pspecs(cfg: ModelConfig) -> Dict[str, PSpec]:
 
 
 def mla_project(p: Dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, shd=NOSHARD):
     """x [B,S,D] -> q_nope [B,S,H,hd], q_rope [B,S,H,dr] (RoPE applied)
     and the cached latent [B,S,dl+dr] = [c_kv ; RoPE(k_rope)]."""
     dr = cfg.d_rope
+    x = shd(x, "batch", "seq", None)
     q = _proj(x, p["wq"])
     q_nope, q_rope = q[..., :-dr], q[..., -dr:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -257,7 +335,8 @@ def mla_project(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     k_rope = torch.matmul(x, p["w_kr"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
-    return q_nope, q_rope, torch.cat([c_kv, k_rope], dim=-1)
+    return q_nope, q_rope, shd(torch.cat([c_kv, k_rope], dim=-1), "batch",
+                               "seq", None)
 
 
 def mla_scale(cfg: ModelConfig) -> float:
@@ -267,12 +346,12 @@ def mla_scale(cfg: ModelConfig) -> float:
 
 
 def mla_absorbed(p: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, attend):
+                 cfg: ModelConfig, attend, shd=NOSHARD):
     """One absorbed-MLA attention sublayer: project, fold W_uk into the
     query, ``attend(q_lat, q_rope, latent) -> ctx`` runs a kernel in
     latent space, then W_uv and the output projection.  Returns (out
     [B,S,D], latent [B,S,dl+dr])."""
-    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
+    q_nope, q_rope, latent = mla_project(p, x, positions, cfg, shd)
     q_lat = torch.einsum("...hk,lhk->...hl", q_nope, p["w_uk"]).contiguous()
     ctx = attend(q_lat, q_rope.contiguous(), latent)
     out = torch.einsum("...hl,lhk->...hk", ctx, p["w_uv"])
@@ -280,7 +359,7 @@ def mla_absorbed(p: Dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def mla_attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                          backend: Optional[str] = None):
+                          backend: Optional[str] = None, shd=NOSHARD):
     """Causal MLA over whole prompts x [B,S,D] from position 0; returns
     (out [B,S,D], latent [B,S,dl+dr]).  The MLA chunk prefill kernel
     (``ops.mla_prefill``) at offset 0 with the whole prompt as the
@@ -295,7 +374,7 @@ def mla_attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         lambda q_lat, q_rope, latent: ops.mla_prefill(
             q_lat, q_rope, latent, empty,
             tables, offsets, d_latent=cfg.d_latent, scale=mla_scale(cfg),
-            backend=backend))
+            backend=backend), shd)
 
 
 def mla_expand(p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
@@ -316,8 +395,8 @@ def mla_expand(p: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
 
 
 def mla_attention_train(p: Dict, x: torch.Tensor, positions: torch.Tensor,
-                        cfg: ModelConfig,
-                        backend: Optional[str] = None) -> torch.Tensor:
+                        cfg: ModelConfig, backend: Optional[str] = None,
+                        shd=NOSHARD) -> torch.Tensor:
     """Causal MLA over x [B,S,D] from position 0 in the non-absorbed
     form the JAX package trains (its ``mla_attention_prefill``): project,
     expand keys and values per head (``mla_expand``), then
@@ -326,13 +405,14 @@ def mla_attention_train(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     grad ``FlashCausal`` (the flash prefill kernel with ``lse`` and its
     backward on the card, the plain versions on the CPU).  Returns out
     [B,S,D]; the gradient of the shared RoPE key sums over the heads."""
-    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
+    q_nope, q_rope, latent = mla_project(p, x, positions, cfg, shd)
     q, k, v = mla_expand(p, q_nope, q_rope, latent, cfg)
-    return out_proj(causal_attention(q, k, v, backend=backend), p["wo"])
+    return out_proj(causal_attention(q, k, v, backend=backend, shd=shd),
+                    p["wo"])
 
 
 def mla_attention_suffix(p: Dict, x: torch.Tensor, prefix: torch.Tensor,
-                         q_offset: int, cfg: ModelConfig):
+                         q_offset: int, cfg: ModelConfig, shd=NOSHARD):
     """A prompt suffix x [B,S,D] at positions q_offset + i after its
     cached prefix latent [B,q_offset,dl+dr], in the non-absorbed form of
     the JAX package's ``prefill_suffix``: keys and values expanded per
@@ -341,7 +421,7 @@ def mla_attention_suffix(p: Dict, x: torch.Tensor, prefix: torch.Tensor,
     both devices.  Returns (out [B,S,D], the suffix latent
     [B,S,dl+dr])."""
     positions = q_offset + torch.arange(x.shape[1], device=x.device)[None, :]
-    q_nope, q_rope, latent = mla_project(p, x, positions, cfg)
+    q_nope, q_rope, latent = mla_project(p, x, positions, cfg, shd)
     full = torch.cat([prefix.to(latent.dtype), latent], dim=1)
     q, k, v = mla_expand(p, q_nope, q_rope, full, cfg)
     sq, sk = q.shape[1], k.shape[1]
@@ -352,7 +432,8 @@ def mla_attention_suffix(p: Dict, x: torch.Tensor, prefix: torch.Tensor,
 
 def mla_attention_decode(p: Dict, x: torch.Tensor,
                          latent_cache: torch.Tensor, lengths: torch.Tensor,
-                         cfg: ModelConfig, backend: Optional[str] = None):
+                         cfg: ModelConfig, backend: Optional[str] = None,
+                         shd=NOSHARD):
     """Absorbed-form decode of x [B,1,D] over the latent slot cache
     [B,S,dl+dr]: the new token's latent is written at ``lengths - 1``
     (in place), then the MLA decode kernel (``ops.mla_decode``) reads
@@ -365,5 +446,5 @@ def mla_attention_decode(p: Dict, x: torch.Tensor,
         return ops.mla_decode(q_lat[:, 0], q_rope[:, 0], pages, tables,
                               lengths, d_latent=cfg.d_latent,
                               scale=mla_scale(cfg), backend=backend)[:, None]
-    out, _ = mla_absorbed(p, x, (lengths - 1)[:, None], cfg, attend)
+    out, _ = mla_absorbed(p, x, (lengths - 1)[:, None], cfg, attend, shd)
     return out, latent_cache

@@ -93,6 +93,33 @@ def materialize(tree: ParamTree, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# Sharding hook: models call shd(x, *logical_axes) on activations.
+# distributed/sharding.py supplies a real implementation; default no-op.
+# ---------------------------------------------------------------------------
+class NoSharding:
+    active = False            # whether tensors are split over a mesh
+
+    def __call__(self, x, *axes):
+        return x
+
+    def grad_layout(self, x, *axes):
+        return x
+
+    def embed_lookup(self, emb, tokens):
+        return F.embedding(tokens.long(), emb)
+
+    def vocab_gather(self, x, labels):
+        """x [..., V] at ``labels`` [...] -> [...]."""
+        return x.gather(-1, labels.long()[..., None])[..., 0]
+
+    def dp_size(self) -> int:
+        return 1
+
+
+NOSHARD = NoSharding()
+
+
+# ---------------------------------------------------------------------------
 # Norms / activations
 # ---------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -124,10 +151,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """silu in float32, cast to x's dtype, then times the up projection."""
-    g = torch.matmul(x, w_gate)
-    u = torch.matmul(x, w_up)
+           w_down: torch.Tensor, shd=NOSHARD) -> torch.Tensor:
+    """silu in float32, cast to x's dtype, then times the up projection.
+    Under a mesh x enters whole along the sequence (a sequence-parallel
+    residual is gathered, as GSPMD gathers it for the product)."""
+    x = shd(x, "batch", "seq", None)
+    g = shd(torch.matmul(x, w_gate), "batch", "seq", "mlp")
+    u = shd(torch.matmul(x, w_up), "batch", "seq", "mlp")
     h = F.silu(g.float()).to(x.dtype) * u
     return torch.matmul(h, w_down)
 
@@ -193,16 +223,19 @@ def sinusoid_at(positions: torch.Tensor, dim: int,
 # ---------------------------------------------------------------------------
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  z_loss: float = 1e-4) -> torch.Tensor:
+                  z_loss: float = 1e-4, shd=NOSHARD) -> torch.Tensor:
     """logits [..., V] in any dtype, labels [...] integer -> the mean
     negative log-likelihood in float32, plus ``z_loss`` times the square
     of each row's log-sum-exp of its max-shifted logits, as the JAX
     package computes it (the max is detached, as ``stop_gradient``
-    does).  With ``mask`` [...], the masked mean."""
+    does).  With ``mask`` [...], the masked mean.  Under a mesh the
+    vocab sums are all-reduced into the rows' layout and each vocab shard
+    gathers its own gold logits (``shd.vocab_gather``)."""
     lg = logits.float()
     shifted = lg - lg.amax(dim=-1, keepdim=True).detach()
-    logz = torch.log(torch.exp(shifted).sum(dim=-1))
-    gold = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    rows = ("batch", "seq")[:logits.dim() - 1]
+    logz = torch.log(shd(torch.exp(shifted).sum(dim=-1), *rows))
+    gold = shd.vocab_gather(shifted, labels)
     nll = logz - gold
     if z_loss:
         nll = nll + z_loss * torch.square(logz)

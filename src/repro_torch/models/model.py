@@ -104,14 +104,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (FAMILY_DECODER, FAMILY_ENCDEC,
                                 FAMILY_HYBRID, FAMILY_MOE, FAMILY_RWKV,
-                                FAMILY_VLM, MLA, ModelConfig)
+                                FAMILY_VLM, KIND_DECODE, KIND_PREFILL,
+                                KIND_TRAIN, MLA, ModelConfig, ShapeConfig)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rwkv, ssm
-from repro_torch.models.common import (PSpec, cross_entropy, materialize,
-                                       resolve_device, layer_norm, rms_norm,
+from repro_torch.models.common import (NOSHARD, PSpec, cross_entropy,
+                                       materialize, resolve_device,
+                                       layer_norm, rms_norm,
                                        sinusoid_at, stack_specs, swiglu,
-                                       tree_map)
+                                       tree_leaves, tree_map)
 
 Params = Any
 KV_DTYPES = ("bfloat16", "int8")
@@ -142,10 +144,32 @@ def layer_params(params: Params, i: int, stack: str = "layers") -> Params:
     return take(params[stack])
 
 
+def unstack(params: Params, stack: str = "layers") -> list:
+    """Every layer's slice of the stacked ``[L, ...]`` tree
+    ``params[stack]``, by one ``unbind`` a leaf: the gradient flows back
+    through one ``stack`` instead of a zero-padded stack-sized gradient
+    for every ``layer_params`` index (the training paths)."""
+    parts = tree_map(lambda t: t.unbind(0), params[stack])
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda u: u[i], parts) for i in range(n)]
+
+
 def remat(fn, *args):
     """``fn(*args)`` whose activations are recomputed in the backward
     pass instead of kept: ``jax.checkpoint``'s counterpart."""
     return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _abstract(specs: Params) -> Params:
+    """A spec tree's leaves as meta tensors (bf16 unless a spec names its
+    dtype): the counterpart of ``jax.ShapeDtypeStruct`` trees."""
+    return tree_map(lambda p: _meta(p.shape,
+                                    getattr(torch, p.dtype or "bfloat16")),
+                    specs)
 
 
 class Model:
@@ -153,8 +177,9 @@ class Model:
     weights, the zeroed dense slot state, the embedding lookup and the
     logits.  Only the decoder-only family has the paged entry points."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, shd=NOSHARD):
         self.cfg = cfg
+        self.shd = shd                # activation sharding hook
         self.specs = self.param_specs()
 
     def param_specs(self) -> Params:
@@ -190,15 +215,45 @@ class Model:
                                   dtype=getattr(torch, p.dtype or "bfloat16")),
             self.decode_state_specs(batch, max_len))
 
+    # -- dry-run stand-ins: meta tensors with the JAX shapes and dtypes ------
+    def abstract_params(self) -> Params:
+        return _abstract(self.specs)
+
+    def abstract_decode_state(self, batch: int, max_len: int) -> Params:
+        return _abstract(self.decode_state_specs(batch, max_len))
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """Meta stand-ins for every input of the shape's entry point."""
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == KIND_TRAIN:
+            out = {"tokens": _meta((b, s), torch.int32),
+                   "labels": _meta((b, s), torch.int32)}
+        elif shape.kind == KIND_PREFILL:
+            out = {"tokens": _meta((b, s), torch.int32)}
+        else:
+            out = {"tokens": _meta((b,), torch.int32)}
+        self._add_aux_specs(out, shape)
+        return out
+
+    def _add_aux_specs(self, out: Dict, shape: ShapeConfig) -> None:
+        pass
+
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         # an embedding lookup, whose backward on the card sums each row's
-        # gradients in a fixed order (an indexed read's does not)
-        return F.embedding(tokens.long(), params["embed"])
+        # gradients in a fixed order (an indexed read's does not); against
+        # a vocab-sharded table, each shard's rows summed over the shards
+        return self.shd(self.shd.embed_lookup(params["embed"], tokens),
+                        "batch", "seq", None)
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = self._residual(x, "seq")   # a sequence-parallel stream whole
         if self.cfg.tie_embeddings:
-            return torch.matmul(x, params["embed"].t())
-        return torch.matmul(x, params["head"])
+            lg = torch.matmul(x, params["embed"].t())
+        else:
+            lg = torch.matmul(x, params["head"])
+        axes = (("batch", "vocab") if lg.dim() == 2
+                else ("batch", "seq", "vocab"))
+        return self.shd(lg, *axes)
 
     # -- training -------------------------------------------------------------
     def train_loss(self, params: Params, batch: Dict,
@@ -211,19 +266,33 @@ class Model:
         raise NotImplementedError
 
     def _loss_from_logits(self, logits, labels):
-        loss = cross_entropy(logits, labels)
+        loss = cross_entropy(logits, labels, shd=self.shd)
         return loss, {"loss": loss}
+
+    def _residual(self, x: torch.Tensor, seq: str = "seq") -> torch.Tensor:
+        """The residual stream [B,S,D] or [B,D] in its layout: rows over
+        the data axes, the model dim whole.  Under a mesh this is where a
+        row-parallel product's partial sums are all-reduced."""
+        axes = ("batch", seq, None) if x.dim() == 3 else ("batch", None)
+        return self.shd(x, *axes)
+
+    def _kv_state(self, c: torch.Tensor) -> torch.Tensor:
+        """A stacked cache [L,B,S,...] in the state's layout (sequence
+        over ``kv_seq``)."""
+        return self.shd(c, None, "batch", "kv_seq",
+                        *(None,) * (c.dim() - 3))
 
 
 class DecoderModel(Model):
-    def __init__(self, cfg: ModelConfig, kv_dtype: str = "bfloat16"):
+    def __init__(self, cfg: ModelConfig, shd=NOSHARD,
+                 kv_dtype: str = "bfloat16"):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r}: expected one of "
                              f"{KV_DTYPES}")
         self.kv_dtype = kv_dtype      # the dense slot cache's values
         self.mla = cfg.attention_variant == MLA
         self.mla_scale = attn.mla_scale(cfg)
-        super().__init__(cfg)
+        super().__init__(cfg, shd)
 
     # -- params -------------------------------------------------------------
     def _layer_specs(self) -> Dict[str, Any]:
@@ -282,6 +351,9 @@ class DecoderModel(Model):
             o = o * mask              # zero padded layout heads
         return attn.out_proj(o, lp["attn"]["wo"])
 
+    def _residual(self, x: torch.Tensor, seq: str = "seq_res"):
+        return super()._residual(x, seq)
+
     def _ffn_residual(self, lp: Params, x: torch.Tensor,
                       with_aux: bool = False):
         """x + FFN(ln2(x)): the SwiGLU FFN, or the MoE FFN, whose aux
@@ -290,9 +362,11 @@ class DecoderModel(Model):
         h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
         f = lp["ffn"]
         if self.cfg.n_experts > 0:
-            y, aux = moe.moe_ffn(f, h, self.cfg)
+            y, aux = moe.moe_ffn(f, h, self.cfg, self.shd)
         else:
-            y, aux = swiglu(h, f["w_gate"], f["w_up"], f["w_down"]), None
+            y, aux = swiglu(h, f["w_gate"], f["w_up"], f["w_down"],
+                            self.shd), None
+        y = self.shd.grad_layout(y, "batch", "seq", None)
         return (x + y, aux) if with_aux else x + y
 
     # -- monolithic prefill and dense decode -----------------------------------
@@ -306,22 +380,24 @@ class DecoderModel(Model):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if self.mla:
             if prefix is None:
-                o, latent = attn.mla_attention_prefill(lp["attn"], h, cfg,
-                                                       backend=backend)
+                o, latent = attn.mla_attention_prefill(
+                    lp["attn"], h, cfg, backend=backend, shd=self.shd)
             else:
                 o, latent = attn.mla_attention_suffix(lp["attn"], h,
                                                       prefix[0], q_offset,
-                                                      cfg)
-            return self._ffn_residual(lp, x + o), (latent,)
-        q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg)
+                                                      cfg, self.shd)
+            x = self._residual(x + o)
+            return self._residual(self._ffn_residual(lp, x)), (latent,)
+        q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg,
+                                   shd=self.shd)
         kf, vf = k, v
         if prefix is not None:
             kf = torch.cat([prefix[0].to(k.dtype), k], dim=1)
             vf = torch.cat([prefix[1].to(v.dtype), v], dim=1)
         o = attn.causal_attention(q, kf, vf, q_offset=q_offset,
-                                  backend=backend)
-        x = x + self._attn_out(lp, o)
-        return self._ffn_residual(lp, x), (k, v)
+                                  backend=backend, shd=self.shd)
+        x = self._residual(x + self._attn_out(lp, o))
+        return self._residual(self._ffn_residual(lp, x)), (k, v)
 
     def _forward_layers(self, params, tokens, positions, backend=None,
                         prefix_kv=None, q_offset: int = 0):
@@ -347,20 +423,22 @@ class DecoderModel(Model):
         h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)
         if self.mla:
             o = attn.mla_attention_train(lp["attn"], h, positions, self.cfg,
-                                         backend=backend)
+                                         backend=backend, shd=self.shd)
         else:
-            q, k, v = attn.project_qkv(lp["attn"], h, positions, self.cfg)
-            o = self._attn_out(lp, attn.causal_attention(q, k, v,
-                                                         backend=backend))
-        return self._ffn_residual(lp, x + o, with_aux=True)
+            q, k, v = attn.project_qkv(lp["attn"], h, positions, self.cfg,
+                                       shd=self.shd)
+            o = self._attn_out(lp, attn.causal_attention(
+                q, k, v, backend=backend, shd=self.shd))
+        o = self.shd.grad_layout(o, "batch", "seq", None)
+        x, aux = self._ffn_residual(lp, self._residual(x + o), with_aux=True)
+        return self._residual(x), aux
 
     def _train_layers(self, params, batch, x, positions, backend):
         """Every layer under ``remat`` -> (x before the final norm, the
         per-layer MoE aux losses)."""
         auxes = []
-        for i in range(self.cfg.n_layers):
-            x, aux = remat(self._train_layer, layer_params(params, i), x,
-                           positions, backend)
+        for lp in unstack(params):
+            x, aux = remat(self._train_layer, lp, x, positions, backend)
             auxes.append(aux)
         return x, auxes
 
@@ -399,8 +477,9 @@ class DecoderModel(Model):
         lengths = torch.full((b,), s, dtype=torch.int32,
                              device=tokens.device)
         keys = ("latent",) if self.mla else ("k", "v")
-        return self._logits(params, x[:, -1]), {"lengths": lengths,
-                                                **dict(zip(keys, cache))}
+        return self._logits(params, x[:, -1]), {
+            "lengths": lengths, **{key: self._kv_state(c)
+                                   for key, c in zip(keys, cache)}}
 
     def prefill_suffix(self, params, batch, prefix_kv, q_offset: int,
                        backend=None):
@@ -429,8 +508,10 @@ class DecoderModel(Model):
         if self.mla:
             o, _ = attn.mla_attention_decode(lp["attn"], h,
                                              state["latent"][i], new_len,
-                                             cfg, backend=backend)
-            return self._ffn_residual(lp, x + o)
+                                             cfg, backend=backend,
+                                             shd=self.shd)
+            x = self._residual(x + o)
+            return self._residual(self._ffn_residual(lp, x))
         int8 = self.kv_dtype == "int8"
         q, k_new, v_new = attn.project_qkv(lp["attn"], h, lengths[:, None],
                                            cfg)
@@ -444,7 +525,8 @@ class DecoderModel(Model):
             attn.cache_write(cache, new, lengths)
         o = attn.decode_attention(q, k_c, v_c, new_len, *scales,
                                   backend=backend)
-        return self._ffn_residual(lp, x + self._attn_out(lp, o))
+        x = self._residual(x + self._attn_out(lp, o))
+        return self._residual(self._ffn_residual(lp, x))
 
     def _decode_out(self, params, x, state):
         """The final norm and logits of a decode step: (logits [B,V],
@@ -457,7 +539,7 @@ class DecoderModel(Model):
         """One batched decode step over the dense slot cache
         (``_self_block_decode`` in every layer).  Returns (logits [B,V],
         state with lengths + 1)."""
-        x = self._embed(params, tokens)[:, None, :]
+        x = self.shd.embed_lookup(params["embed"], tokens)[:, None, :]
         for i in range(self.cfg.n_layers):
             x = self._self_block_decode(layer_params(params, i), x, state, i,
                                         backend)
@@ -475,7 +557,7 @@ class DecoderModel(Model):
         inactive rows).  Returns (logits [B, V], state with lengths + 1)."""
         cfg = self.cfg
         b = tokens.shape[0]
-        x = self._embed(params, tokens)[:, None, :]
+        x = self.shd.embed_lookup(params["embed"], tokens)[:, None, :]
         lengths = state["lengths"]
         bt = state["block_tables"]
         pool0 = state["latent_pages" if self.mla else "k_pages"]
@@ -591,7 +673,8 @@ class VLMModel(DecoderModel):
     layer ids of ``cfg.cross_attn_layer_ids()``, place the blocks).
     ``prefill`` and ``decode_step`` on the dense slot state only."""
 
-    def __init__(self, cfg: ModelConfig, kv_dtype: str = "bfloat16"):
+    def __init__(self, cfg: ModelConfig, shd=NOSHARD,
+                 kv_dtype: str = "bfloat16"):
         self.n_cross = len(cfg.cross_attn_layer_ids())
         if (kv_dtype != "bfloat16" or cfg.attention_variant == MLA
                 or self.n_cross == 0 or cfg.n_layers % self.n_cross):
@@ -600,7 +683,7 @@ class VLMModel(DecoderModel):
                 f"cache and n_layers ({cfg.n_layers}) a multiple of its "
                 f"{self.n_cross} cross-attention blocks")
         self.per = cfg.n_layers // self.n_cross
-        super().__init__(cfg, kv_dtype)
+        super().__init__(cfg, shd, kv_dtype)
 
     def param_specs(self) -> Params:
         cfg = self.cfg
@@ -636,25 +719,29 @@ class VLMModel(DecoderModel):
         out["xv"] = xkv
         return out
 
+    def _add_aux_specs(self, out, shape):
+        if shape.kind != KIND_DECODE:
+            out["patches"] = _meta((shape.global_batch, self.cfg.n_patches,
+                                    self.cfg.d_model), torch.bfloat16)
+
     def _cross_block(self, cp, x, xk, xv):
         """x + tanh(gate) * cross-attention of ln(x) over xk/xv (the gate
         in float32, cast to x's dtype)."""
         h = rms_norm(x, cp["ln"], self.cfg.norm_eps)
         o = attn.cross_attention(cp["attn"], h, xk, xv)
-        return x + torch.tanh(cp["gate"].float()).to(x.dtype) * o
+        return self._residual(
+            x + torch.tanh(cp["gate"].float()).to(x.dtype) * o)
 
     def _group(self, g: int) -> range:
         return range(g * self.per, (g + 1) * self.per)
 
-    def _train_group(self, params, g, x, mem, positions, backend):
-        """Cross group ``g`` of the training forward: its cross block over
-        the projected patches ``mem``, then its self layers, each under
-        ``remat``."""
-        cp = layer_params(params, g, "cross")
+    def _train_group(self, cp, lps, x, mem, positions, backend):
+        """A cross group of the training forward: its cross block (params
+        ``cp``) over the projected patches ``mem``, then its self layers
+        ``lps``, each under ``remat``."""
         x = self._cross_block(cp, x, *attn.cross_kv(cp["attn"], mem))
-        for i in self._group(g):
-            x, _ = remat(self._train_layer, layer_params(params, i), x,
-                         positions, backend)
+        for lp in lps:
+            x, _ = remat(self._train_layer, lp, x, positions, backend)
         return x
 
     def _train_layers(self, params, batch, x, positions, backend):
@@ -662,8 +749,10 @@ class VLMModel(DecoderModel):
         projected once, then each group (its cross block and its self
         layers) under ``remat`` too."""
         mem = torch.matmul(batch["patches"], params["patch_proj"])
+        cross, layers = unstack(params, "cross"), unstack(params)
         for g in range(self.n_cross):
-            x = remat(self._train_group, params, g, x, mem, positions,
+            x = remat(self._train_group, cross[g],
+                      [layers[i] for i in self._group(g)], x, mem, positions,
                       backend)
         return x, []
 
@@ -695,14 +784,15 @@ class VLMModel(DecoderModel):
         lengths = torch.full((b,), s, dtype=torch.int32,
                              device=tokens.device)
         return self._logits(params, x[:, -1]), {
-            "lengths": lengths, "k": k, "v": v, "xk": xk, "xv": xv}
+            "lengths": lengths, "k": self._kv_state(k),
+            "v": self._kv_state(v), "xk": xk, "xv": xv}
 
     def decode_step(self, params, state, tokens, backend=None):
         """One batched decode step over the dense slot state: each group's
         cross block over the cached "xk"/"xv", then its self layers
         (``_self_block_decode``: the paged decode kernel over the slots
         seen as pages).  Returns (logits [B,V], state with lengths + 1)."""
-        x = self._embed(params, tokens)[:, None, :]
+        x = self.shd.embed_lookup(params["embed"], tokens)[:, None, :]
         for g in range(self.n_cross):
             x = self._cross_block(layer_params(params, g, "cross"), x,
                                   state["xk"][g], state["xv"][g])
@@ -754,10 +844,16 @@ class EncDecModel(Model):
                 "lengths": PSpec((batch,), ("batch",), init="zeros",
                                  dtype="int32")}
 
-    def _ffn_residual(self, lp, x, ln: str):
+    def _ffn_residual(self, lp, x, ln: str, shd=NOSHARD):
         h = rms_norm(x, lp[ln], self.cfg.norm_eps)
         f = lp["ffn"]
-        return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+        return self._residual(
+            x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"], shd))
+
+    def _add_aux_specs(self, out, shape):
+        if shape.kind != KIND_DECODE:
+            out["frames"] = _meta((shape.global_batch, self.cfg.enc_len,
+                                   self.cfg.d_model), torch.bfloat16)
 
     def encode(self, params, frames):
         """frames [B,enc_len,D] (precomputed: the conv frontend is a stub)
@@ -767,22 +863,30 @@ class EncDecModel(Model):
         s = frames.shape[1]
         x = frames + sinusoid_at(torch.arange(s, device=frames.device),
                                  cfg.d_model, frames.dtype)[None]
-        for i in range(cfg.n_enc_layers):
-            lp = layer_params(params, i, "enc_layers")
+        for lp in unstack(params, "enc_layers"):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn.project_qkv(lp["attn"], h, None, cfg, rope=False)
-            x = x + attn.out_proj(attn.full_attention(q, k, v),
-                                  lp["attn"]["wo"])
-            x = self._ffn_residual(lp, x, "ln2")
+            q, k, v = attn.project_qkv(lp["attn"], h, None, cfg, rope=False,
+                                       shd=self.shd)
+            x = self._residual(x + attn.out_proj(
+                attn.full_attention(q, k, v), lp["attn"]["wo"]))
+            x = self._ffn_residual(lp, x, "ln2", self.shd)
         return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
     def _embed_dec(self, params, tokens, positions):
-        x = self._embed(params, tokens)
+        """The decoder's token embedding plus sinusoidal positions; a
+        decode step's single token through ``shd.embed_lookup``, as the
+        JAX package looks it up."""
+        if tokens.shape[-1] == 1:
+            x = self.shd.embed_lookup(params["embed"],
+                                      tokens[:, 0])[:, None, :]
+        else:
+            x = F.embedding(tokens.long(), params["embed"])
         return x + sinusoid_at(positions, self.cfg.d_model, x.dtype)
 
     def _cross(self, lp, x, xk, xv):
         h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
-        return x + attn.cross_attention(lp["xattn"], h, xk, xv)
+        return self._residual(
+            x + attn.cross_attention(lp["xattn"], h, xk, xv))
 
     def _dec_layer(self, lp, x, enc_out, backend=None):
         """One decoder layer over a whole prompt from position 0: causal
@@ -790,11 +894,13 @@ class EncDecModel(Model):
         its keys and values of ``enc_out``, the FFN -> (x, (k, v, xk,
         xv))."""
         h = rms_norm(x, lp["ln1"], self.cfg.norm_eps)
-        q, k, v = attn.project_qkv(lp["attn"], h, None, self.cfg, rope=False)
-        o = attn.causal_attention(q, k, v, backend=backend)
-        x = x + attn.out_proj(o, lp["attn"]["wo"])
+        q, k, v = attn.project_qkv(lp["attn"], h, None, self.cfg, rope=False,
+                                   shd=self.shd)
+        o = attn.causal_attention(q, k, v, backend=backend, shd=self.shd)
+        x = self._residual(x + attn.out_proj(o, lp["attn"]["wo"]))
         xk, xv = attn.cross_kv(lp["xattn"], enc_out)
-        x = self._ffn_residual(lp, self._cross(lp, x, xk, xv), "ln3")
+        x = self._ffn_residual(lp, self._cross(lp, x, xk, xv), "ln3",
+                               self.shd)
         return x, (k, v, xk, xv)
 
     def train_loss(self, params, batch, backend=None):
@@ -806,9 +912,8 @@ class EncDecModel(Model):
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         x = self._embed_dec(params, tokens, positions)
-        for i in range(cfg.n_layers):
-            x = remat(self._dec_layer, layer_params(params, i, "dec_layers"),
-                      x, enc_out, backend)[0]
+        for lp in unstack(params, "dec_layers"):
+            x = remat(self._dec_layer, lp, x, enc_out, backend)[0]
         x = rms_norm(x, params["ln_dec"], cfg.norm_eps)
         return self._loss_from_logits(self._logits(params, x),
                                       batch["labels"])
@@ -836,7 +941,8 @@ class EncDecModel(Model):
         lengths = torch.full((b,), s, dtype=torch.int32,
                              device=tokens.device)
         return self._logits(params, x[:, -1]), {
-            "k": k, "v": v, "xk": xk, "xv": xv, "lengths": lengths}
+            "k": self._kv_state(k), "v": self._kv_state(v), "xk": xk,
+            "xv": xv, "lengths": lengths}
 
     def decode_step(self, params, state, tokens, backend=None):
         """One batched decoder step over the dense slot state at sinusoidal
@@ -858,7 +964,7 @@ class EncDecModel(Model):
             attn.cache_write(v_c, v_new, lengths)
             o = attn.decode_attention(q, k_c, v_c, lengths + 1,
                                       backend=backend)
-            x = x + attn.out_proj(o, lp["attn"]["wo"])
+            x = self._residual(x + attn.out_proj(o, lp["attn"]["wo"]))
             x = self._cross(lp, x, state["xk"][i], state["xv"][i])
             x = self._ffn_residual(lp, x, "ln3")
         x = rms_norm(x[:, 0], params["ln_dec"], cfg.norm_eps)
@@ -914,21 +1020,23 @@ class HybridModel(Model):
     def _shared_ffn(self, sp, x):
         h = rms_norm(x, sp["ln2"], self.cfg.norm_eps)
         f = sp["ffn"]
-        return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+        return self._residual(
+            x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"], self.shd))
 
     def _shared_block(self, sp, x, positions, backend=None):
         """The shared attention block over a whole prompt from position 0
         (the flash prefill kernel) -> (x, (k, v))."""
         h = rms_norm(x, sp["ln1"], self.cfg.norm_eps)
-        q, k, v = attn.project_qkv(sp["attn"], h, positions, self.cfg)
-        o = attn.causal_attention(q, k, v, backend=backend)
+        q, k, v = attn.project_qkv(sp["attn"], h, positions, self.cfg,
+                                   shd=self.shd)
+        o = attn.causal_attention(q, k, v, backend=backend, shd=self.shd)
         return self._shared_ffn(sp, x + attn.out_proj(o, sp["attn"]["wo"])), \
             (k, v)
 
     def _mamba_layer(self, lp, x):
-        return x + ssm.mamba_block(lp["mamba"],
-                                   rms_norm(x, lp["ln"], self.cfg.norm_eps),
-                                   self.cfg)
+        return self._residual(x + ssm.mamba_block(
+            lp["mamba"], rms_norm(x, lp["ln"], self.cfg.norm_eps), self.cfg,
+            self.shd))
 
     def train_loss(self, params, batch, backend=None):
         """The JAX package's: each Mamba2 layer under ``remat``, the
@@ -937,9 +1045,10 @@ class HybridModel(Model):
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         x = self._embed(params, tokens)
+        layers = unstack(params)
         for lo, hi, has_attn in self._segments():
             for i in range(lo, hi):
-                x = remat(self._mamba_layer, layer_params(params, i), x)
+                x = remat(self._mamba_layer, layers[i], x)
             if has_attn:
                 x, _ = self._shared_block(params["shared"], x, positions,
                                           backend)
@@ -963,8 +1072,9 @@ class HybridModel(Model):
             for i in range(lo, hi):
                 lp = layer_params(params, i)
                 y, st = ssm.mamba_block_with_state(
-                    lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
-                x = x + y
+                    lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                    self.shd)
+                x = self._residual(x + y)
                 mamba.append(st)
             if has_attn:
                 x, c = self._shared_block(sp, x, positions, backend)
@@ -976,7 +1086,8 @@ class HybridModel(Model):
         return self._logits(params, x[:, -1]), {
             "mamba": {key: torch.stack([st[key] for st in mamba])
                       for key in mamba[0]},
-            "k": k, "v": v, "lengths": lengths}
+            "k": self._kv_state(k), "v": self._kv_state(v),
+            "lengths": lengths}
 
     def decode_step(self, params, state, tokens, backend=None):
         """One batched decode step over the dense per-row state: each
@@ -988,7 +1099,7 @@ class HybridModel(Model):
         cfg = self.cfg
         lengths = state["lengths"]
         sp = params["shared"]
-        x = self._embed(params, tokens)                         # [B, D]
+        x = self.shd.embed_lookup(params["embed"], tokens)      # [B, D]
         ai = 0
         for lo, hi, has_attn in self._segments():
             for i in range(lo, hi):
@@ -997,7 +1108,7 @@ class HybridModel(Model):
                 y, new = ssm.mamba_decode_step(
                     lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), st,
                     cfg)
-                x = x + y
+                x = self._residual(x + y)
                 for key, t in new.items():
                     st[key].copy_(t)
             if has_attn:
@@ -1010,8 +1121,8 @@ class HybridModel(Model):
                 attn.cache_write(v_c, v_new, lengths)
                 o = attn.decode_attention(q, k_c, v_c, lengths + 1,
                                           backend=backend)
-                x = self._shared_ffn(
-                    sp, xs + attn.out_proj(o, sp["attn"]["wo"]))[:, 0]
+                x = self._shared_ffn(sp, self._residual(
+                    xs + attn.out_proj(o, sp["attn"]["wo"])))[:, 0]
                 ai += 1
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._logits(params, x), {**state, "lengths": lengths + 1}
@@ -1058,10 +1169,10 @@ class RWKVModel(Model):
                                                  params["ln_f"])))
 
     def _train_layer(self, lp, x):
-        x = x + rwkv.time_mix(lp, self._ln(x, lp["ln1_g"], lp["ln1_b"]),
-                              self.cfg)
-        return x + rwkv.channel_mix(lp, self._ln(x, lp["ln2_g"],
-                                                 lp["ln2_b"]))
+        x = self._residual(x + rwkv.time_mix(
+            lp, self._ln(x, lp["ln1_g"], lp["ln1_b"]), self.cfg, self.shd))
+        return self._residual(x + rwkv.channel_mix(
+            lp, self._ln(x, lp["ln2_g"], lp["ln2_b"]), shd=self.shd))
 
     def train_loss(self, params, batch, backend=None):
         """The JAX package's: each layer under ``remat``, the
@@ -1069,8 +1180,8 @@ class RWKVModel(Model):
         is accepted for a uniform signature)."""
         x = self._ln(self._embed(params, batch["tokens"]), params["ln0_g"],
                      params["ln0_b"])
-        for i in range(self.cfg.n_layers):
-            x = remat(self._train_layer, layer_params(params, i), x)
+        for lp in unstack(params):
+            x = remat(self._train_layer, lp, x)
         return self._loss_from_logits(self._final(params, x),
                                       batch["labels"])
 
@@ -1088,9 +1199,9 @@ class RWKVModel(Model):
             lp = layer_params(params, i)
             h = self._ln(x, lp["ln1_g"], lp["ln1_b"])
             out, wkv = rwkv.time_mix_with_state(lp, h, self.cfg)
-            x = x + out
+            x = self._residual(x + out)
             h2 = self._ln(x, lp["ln2_g"], lp["ln2_b"])
-            x = x + rwkv.channel_mix(lp, h2)
+            x = self._residual(x + rwkv.channel_mix(lp, h2, shd=self.shd))
             states.append({"wkv": wkv.to(torch.bfloat16), "tm_x": h[:, -1],
                            "cm_x": h2[:, -1]})
         state = {key: torch.stack([st[key] for st in states])
@@ -1102,31 +1213,34 @@ class RWKVModel(Model):
     def decode_step(self, params, state, tokens):
         """One batched decode step: every layer's state overwritten in
         place.  Returns (logits [B,V], state with lengths + 1)."""
-        x = self._ln(self._embed(params, tokens), params["ln0_g"],
-                     params["ln0_b"])
+        x = self._ln(self.shd.embed_lookup(params["embed"], tokens),
+                     params["ln0_g"], params["ln0_b"])
         for i in range(self.cfg.n_layers):
             lp = layer_params(params, i)
             st = {key: state[key][i] for key in ("wkv", "tm_x", "cm_x")}
             h = self._ln(x, lp["ln1_g"], lp["ln1_b"])
             out, new = rwkv.rwkv_decode_step(lp, h, st, self.cfg)
-            x = x + out
+            x = self._residual(x + out)
             h2 = self._ln(x, lp["ln2_g"], lp["ln2_b"])
             out, new = rwkv.channel_mix_step(lp, h2, new)
-            x = x + out
+            x = self._residual(x + out)
             for key, t in st.items():
                 t.copy_(new[key])
         return self._final(params, x), {**state,
                                         "lengths": state["lengths"] + 1}
 
 
-def build_model(cfg: ModelConfig, kv_dtype: str = "bfloat16") -> Model:
+def build_model(cfg: ModelConfig, shd=NOSHARD,
+                kv_dtype: str = "bfloat16") -> Model:
     """The decoder-only model (GQA/MHA/MQA or MLA attention, dense or MoE
     FFN) with a bf16 or int8 dense slot cache; the VLM, the
-    encoder-decoder and the hybrid with bf16 slots; RWKV6."""
+    encoder-decoder and the hybrid with bf16 slots; RWKV6.  ``shd`` is
+    the activation sharding hook (``distributed/sharding.MeshSharding``;
+    the default changes nothing)."""
     if cfg.family in (FAMILY_DECODER, FAMILY_MOE):
-        return DecoderModel(cfg, kv_dtype=kv_dtype)
+        return DecoderModel(cfg, shd, kv_dtype=kv_dtype)
     if cfg.family == FAMILY_VLM:
-        return VLMModel(cfg, kv_dtype=kv_dtype)
+        return VLMModel(cfg, shd, kv_dtype=kv_dtype)
     families = {FAMILY_ENCDEC: EncDecModel, FAMILY_HYBRID: HybridModel,
                 FAMILY_RWKV: RWKVModel}
     if cfg.family not in families:
@@ -1135,4 +1249,4 @@ def build_model(cfg: ModelConfig, kv_dtype: str = "bfloat16") -> Model:
     if kv_dtype != "bfloat16":
         raise ValueError(f"{cfg.name}: the {cfg.family} family keeps a "
                          f"bf16 state")
-    return families[cfg.family](cfg)
+    return families[cfg.family](cfg, shd)

@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.common import PSpec
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.models.common import NOSHARD, PSpec
 
 GROUP = 256          # tokens per dispatch group
 
@@ -99,32 +100,103 @@ def route(p: Dict, xg: torch.Tensor, cfg: ModelConfig):
     return probs, top_p, top_i, pos, pos < cap
 
 
-def moe_ffn(p: Dict, x: torch.Tensor,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _dispatch(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig):
+    """Route the groups xg [G,t,D] and scatter the kept assignments into
+    the expert batch.  Returns (xin [E, G*C, D], top_i [G,t,k], the row
+    of y.view(E*G*C, D) that holds each assignment's output [G,t,k]
+    (dropped ones clamped to a kept slot), its combine weight [G,t,k]
+    float32 (zero when dropped), probs [G,t,E])."""
+    ng, group, d = xg.shape
+    e, k = cfg.layout_n_experts, cfg.top_k
+    cap = capacity(group, cfg)
+    probs, top_p, top_i, pos, keep = route({"router": router}, xg, cfg)
+    # kept assignment (g, t, j) -> row e*G*C + g*C + pos of the expert
+    # batch; dropped ones write a spare last row
+    g_idx = torch.arange(ng, device=xg.device)[:, None, None]
+    rows = (top_i * ng + g_idx) * cap + pos.clamp_max(cap - 1)
+    n = e * ng * cap
+    xin = xg.new_zeros((n + 1, d))
+    xin.index_copy_(0, torch.where(keep, rows, n).reshape(-1),
+                    xg[:, :, None, :].expand(ng, group, k, d).reshape(-1, d))
+    w = (top_p * keep).to(xg.dtype).float()            # [G,t,k]
+    return xin[:n].view(e, ng * cap, d), top_i, rows, w, probs
+
+
+def _sharded_moe(p, xg, cfg, shd, dtype):
+    """The FFN over DTensor groups: routing, dispatch and combine run per
+    data shard of the groups (``local_map``: a group never crosses
+    shards), the expert products on the DTensors, so their split over
+    ``model`` (the hidden dim, or the experts under EP) is the rule's.
+    The combine is linear in y, so a y that is a partial sum over
+    ``model`` (hidden dim split) or split by expert (EP) gives a partial
+    sum of tokens, summed by one all-reduce in token space."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xg.device_mesh
+    g_pl = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+            else Replicate() for pl in xg.placements]
+    slot_pl = [Shard(1) if isinstance(pl, Shard) else pl for pl in g_pl]
+    rep = [Replicate()] * mesh.ndim
+    xin, top_i, rows, w, probs = local_map(
+        lambda r, x: _dispatch(r, x, cfg),
+        out_placements=(slot_pl, g_pl, g_pl, g_pl, g_pl),
+        in_placements=(rep, g_pl), device_mesh=mesh,
+        redistribute_inputs=True)(p["router"], xg)
+    xin = shd(xin, "experts", "moe_groups", None)
+    h = F.silu(torch.bmm(xin, p["w_gate"]).float()).to(dtype)
+    h = shd(h * torch.bmm(xin, p["w_up"]), "experts", "moe_groups", "mlp")
+    y = torch.bmm(h, p["w_down"])
+    y_pl, out_pl = [], []
+    for i, pl in enumerate(y.placements):
+        if isinstance(g_pl[i], Shard):             # a data axis: groups
+            y_pl.append(slot_pl[i])
+            out_pl.append(g_pl[i])
+        elif isinstance(pl, Partial) or (isinstance(pl, Shard)
+                                         and pl.dim == 0):
+            y_pl.append(pl)                        # hidden dim or experts
+            out_pl.append(Partial())
+        else:
+            y_pl.append(Replicate())
+            out_pl.append(Replicate())
+    e_loc = y.shape[0] // math.prod(
+        mesh.shape[i] for i, pl in enumerate(y_pl)
+        if isinstance(pl, Shard) and pl.dim == 0)
+
+    def combine(y, rows, w):
+        # y holds experts e_lo .. e_lo + E' - 1: rows of other experts'
+        # assignments fall outside it and add nothing
+        e_lo = 0
+        for i, pl in enumerate(y_pl):
+            if isinstance(pl, Shard) and pl.dim == 0:
+                e_lo = mesh.get_local_rank(i) * e_loc
+        n, d = y.shape[0] * y.shape[1], y.shape[2]
+        local = rows - e_lo * y.shape[1]
+        mine = (local >= 0) & (local < n)
+        yr = y.reshape(n, d)[local.clamp(0, n - 1)].float()
+        return ((w * mine)[..., None] * yr).sum(dim=2).to(dtype)
+
+    out = local_map(combine, out_placements=out_pl,
+                    in_placements=(y_pl, g_pl, g_pl),
+                    device_mesh=mesh, redistribute_inputs=True)(y, rows, w)
+    return out, top_i, probs
+
+
+def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+            shd=NOSHARD) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> (out [B,S,D], aux loss)."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.layout_n_experts, cfg.top_k
-    ng = _n_groups(t)
-    group = t // ng
-    cap = capacity(group, cfg)
-    xg = x.reshape(ng, group, d)
-    probs, top_p, top_i, pos, keep = route(p, xg, cfg)
-
-    # kept assignment (g, t, j) -> row e*G*C + g*C + pos of the expert
-    # batch; dropped ones write a spare last row
-    g_idx = torch.arange(ng, device=x.device)[:, None, None]
-    rows = (top_i * ng + g_idx) * cap + pos.clamp_max(cap - 1)
-    n = e * ng * cap
-    xin = x.new_zeros((n + 1, d))
-    xin.index_copy_(0, torch.where(keep, rows, n).reshape(-1),
-                    xg[:, :, None, :].expand(ng, group, k, d).reshape(-1, d))
-    xin = xin[:n].view(e, ng * cap, d)
-    h = F.silu(torch.bmm(xin, p["w_gate"]).float()).to(x.dtype)
-    h = h * torch.bmm(xin, p["w_up"])
-    y = torch.bmm(h, p["w_down"]).view(n, d)
-    w = (top_p * keep).to(x.dtype).float()            # [G,t,k]
-    out = (w[..., None] * y[rows].float()).sum(dim=2).to(x.dtype)
+    ng = _n_groups(t, shd.dp_size())
+    xg = shd(x.reshape(ng, t // ng, d), "moe_groups", None, None)
+    if shd.active and is_dtensor(xg):
+        out, top_i, probs = _sharded_moe(p, xg, cfg, shd, x.dtype)
+    else:
+        xin, top_i, rows, w, probs = _dispatch(p["router"], xg, cfg)
+        h = F.silu(torch.bmm(xin, p["w_gate"]).float()).to(x.dtype)
+        h = h * torch.bmm(xin, p["w_up"])
+        y = torch.bmm(h, p["w_down"]).view(-1, d)
+        out = (w[..., None] * y[rows].float()).sum(dim=2).to(x.dtype)
     # load-balance auxiliary loss (Switch eq. 4)
     frac_tokens = (top_i[..., None] == torch.arange(e, device=x.device)
                    ).float().sum(dim=2).mean(dim=(0, 1))

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import _proj, out_proj
-from repro_torch.models.common import PSpec, chunked_scan, softplus
+from repro_torch.distributed.sharding import is_dtensor, per_shard
+from repro_torch.models.common import NOSHARD, PSpec, chunked_scan, softplus
 
 CHUNK = 16
 LOG_CLAMP = 5.0       # CHUNK * LOG_CLAMP = 80 < 88 (float32 exp range)
@@ -72,7 +73,7 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None
     """Token shift: x_{t-1} (zeros, or the carried ``last``, at t = 0).
     x [B,S,D]."""
     if last is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     return torch.cat([last[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
 
 
@@ -135,7 +136,14 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (y [B,S,H,K], final state [B,H,K,K] = the decayed sum of
     k (x) v), both float32.  The full chunks first, then one remainder
-    chunk of S mod chunk tokens."""
+    chunk of S mod chunk tokens.  DTensors: each rank's rows and heads on
+    their own."""
+    if is_dtensor(r):
+        return per_shard(
+            lambda *t: wkv_chunked(*t[:5], chunk=chunk, init_state=t[5]),
+            (r, k, v, logw, u, init_state),
+            ((0, 2), (0, 2), (0, 2), (0, 2), (None, 0),
+             None if init_state is None else (0, 1)), ((0, 2), (0, 1)))
     bsz, s, h, dk = r.shape
     state = (torch.zeros((bsz, h, dk, dk), dtype=torch.float32,
                          device=r.device) if init_state is None
@@ -148,7 +156,12 @@ def wkv_step(state: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O(1) decode, float32: state [B,H,K,V]; r/k/v [B,H,K]; logw
-    [B,H,K] -> (new state, y [B,H,V])."""
+    [B,H,K] -> (new state, y [B,H,V]).  DTensors: each rank's rows and
+    heads on their own."""
+    if is_dtensor(state):
+        return per_shard(wkv_step, (state, r, k, v, logw, u),
+                         ((0, 1), (0, 1), (0, 1), (0, 1), (0, 1), (None, 0)),
+                         ((0, 1), (0, 1)))
     sf = state.float()
     rf, kf, vf = (t.float() for t in (r, k, v))
     kv = kf[..., :, None] * vf[..., None, :]       # [B,H,K,V]
@@ -171,12 +184,14 @@ def _group_norm(y: torch.Tensor, gamma: torch.Tensor,
     return ((yf - mu) * torch.rsqrt(var + eps)) * gamma.float()
 
 
-def _time_mix_inputs(p: Dict, x: torch.Tensor, xprev: torch.Tensor):
+def _time_mix_inputs(p: Dict, x: torch.Tensor, xprev: torch.Tensor,
+                     shd=NOSHARD):
     """r, k, v (x's dtype), the gate g (float32) and the log-decay of x
     and its shifted xprev."""
     xr, xk, xv, xw, xg = (_mix(x, xprev, p[m]) for m in
                           ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"))
-    r, k, v = _proj(xr, p["w_r"]), _proj(xk, p["w_k"]), _proj(xv, p["w_v"])
+    r, k, v = (shd(_proj(a, p[w]), "batch", "seq", "heads", None)
+               for a, w in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
     g = F.silu(_proj(xg, p["w_g"]).float())
     return r, k, v, g, _log_decay(p, xw)
 
@@ -187,26 +202,29 @@ def _time_mix_out(p: Dict, y: torch.Tensor, g: torch.Tensor,
                     p["w_o"])
 
 
-def time_mix_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def time_mix_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                        shd=NOSHARD) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill of x [B,S,D] from an empty state -> (out [B,S,D], the
     final wkv state [B,H,K,K] float32)."""
-    r, k, v, g, logw = _time_mix_inputs(p, x, _shift(x))
+    r, k, v, g, logw = _time_mix_inputs(p, x, _shift(x), shd)
     y, final = wkv_chunked(r, k, v, logw, p["bonus_u"])
     return _time_mix_out(p, y, g, x.dtype, cfg), final
 
 
-def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return time_mix_with_state(p, x, cfg)[0]
+def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+             shd=NOSHARD) -> torch.Tensor:
+    return time_mix_with_state(p, x, cfg, shd)[0]
 
 
 def channel_mix(p: Dict, x: torch.Tensor,
-                last: Optional[torch.Tensor] = None) -> torch.Tensor:
+                last: Optional[torch.Tensor] = None,
+                shd=NOSHARD) -> torch.Tensor:
     xprev = _shift(x, last)
     xk = _mix(x, xprev, p["cmu_k"])
     xr = _mix(x, xprev, p["cmu_r"])
     k = torch.matmul(xk, p["cw_k"])
-    k = torch.square(torch.relu(k.float())).to(x.dtype)
+    k = shd(torch.square(torch.relu(k.float())).to(x.dtype),
+            "batch", "seq", "mlp")
     kv = torch.matmul(k, p["cw_v"])
     return torch.sigmoid(torch.matmul(xr, p["cw_r"]).float()).to(x.dtype) \
         * kv

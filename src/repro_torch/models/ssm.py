@@ -27,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.common import (PSpec, chunked_scan, rms_norm,
-                                       softplus)
+from repro_torch.distributed.sharding import is_dtensor, per_shard
+from repro_torch.models.common import (NOSHARD, PSpec, chunked_scan,
+                                       rms_norm, softplus)
 
 CHUNK = 64
 
@@ -61,7 +62,8 @@ def _causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """x [B,S,C], kernel [K,C] -> causal depthwise conv [B,S,C]: the K
     shifted products summed in order, each in x's dtype."""
     k, s = kernel.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    pad = torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1)
+    xp = torch.cat([pad, x], dim=1)
     return sum(xp[:, i:i + s, :] * kernel[i] for i in range(k))
 
 
@@ -71,6 +73,8 @@ def _conv_step(state: torch.Tensor, xt: torch.Tensor,
     of the operands' dtypes, as ``jnp`` promotes them."""
     window = torch.cat([state, xt[:, None, :]], dim=1)
     dt = torch.promote_types(window.dtype, kernel.dtype)
+    if is_dtensor(window):        # no contraction rule splits it: per tap
+        return window[:, 1:, :], (window.to(dt) * kernel.to(dt)).sum(dim=1)
     y = torch.einsum("bkc,kc->bc", window.to(dt), kernel.to(dt))
     return window[:, 1:, :], y
 
@@ -122,7 +126,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     Returns (y [B,S,H,P], final_state [B,H,P,N]), both in x's dtype.
     The full chunks first, then one remainder chunk of S mod chunk
-    tokens, the state carried between them in float32."""
+    tokens, the state carried between them in float32.  DTensors: each
+    rank's rows and heads on their own."""
+    if is_dtensor(x):
+        return per_shard(
+            lambda *t: ssd_chunked(*t[:5], chunk=chunk, init_state=t[5]),
+            (x, dt, a, b_in, c_in, init_state),
+            ((0, 2), (0, 2), (None, 0), (0, None), (0, None),
+             None if init_state is None else (0, 1)), ((0, 2), (0, 1)))
     bsz, s, h, p = x.shape
     state = (torch.zeros((bsz, h, p, b_in.shape[-1]), dtype=torch.float32,
                          device=x.device) if init_state is None
@@ -137,7 +148,12 @@ def ssd_step(state: torch.Tensor, xt: torch.Tensor, dt: torch.Tensor,
              a: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O(1) decode, float32: state [B,H,P,N], xt [B,H,P], dt [B,H],
-    bt/ct [B,N] -> (new_state, y [B,H,P])."""
+    bt/ct [B,N] -> (new_state, y [B,H,P]).  DTensors: each rank's rows
+    and heads on their own."""
+    if is_dtensor(state):
+        return per_shard(ssd_step, (state, xt, dt, a, bt, ct),
+                         ((0, 1), (0, 1), (0, 1), (None, 0), (0, None),
+                          (0, None)), ((0, 1), (0, 1)))
     state, xt, dt, bt, ct = (t.float() for t in (state, xt, dt, bt, ct))
     dec = torch.exp(dt * a.float())                          # [B,H]
     upd = (dt[:, :, None] * xt)[..., None] * bt[:, None, None, :]
@@ -149,7 +165,7 @@ def ssd_step(state: torch.Tensor, xt: torch.Tensor, dt: torch.Tensor,
 # ---------------------------------------------------------------------------
 # full block
 # ---------------------------------------------------------------------------
-def _mamba_inputs(p: Dict, x: torch.Tensor, cfg: ModelConfig):
+def _mamba_inputs(p: Dict, x: torch.Tensor, cfg: ModelConfig, shd=NOSHARD):
     """The projections of a prompt x [B,S,D]: z, the conv inputs
     (x_pre, b_pre, c_pre: the raw projections a conv state keeps) and
     the SSD operands."""
@@ -157,7 +173,8 @@ def _mamba_inputs(p: Dict, x: torch.Tensor, cfg: ModelConfig):
     x_pre = torch.matmul(x, p["w_x"])
     b_pre = torch.matmul(x, p["w_B"])
     c_pre = torch.matmul(x, p["w_C"])
-    xs = F.silu(_causal_conv(x_pre, p["conv_x"]).float()).to(x.dtype)
+    xs = shd(F.silu(_causal_conv(x_pre, p["conv_x"]).float()).to(x.dtype),
+             "batch", "seq", "inner")
     b_in = F.silu(_causal_conv(b_pre, p["conv_B"]).float())
     c_in = F.silu(_causal_conv(c_pre, p["conv_C"]).float())
     dt = softplus(torch.matmul(x, p["w_dt"]).float() + p["dt_bias"].float())
@@ -171,7 +188,8 @@ def _mamba_out(p: Dict, y: torch.Tensor, z: torch.Tensor,
     return torch.matmul(y, p["w_out"])
 
 
-def mamba_block_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
+def mamba_block_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                           shd=NOSHARD
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill of x [B,S,D] -> (out [B,S,D], the decode state after the
     prompt: {"ssm" [B,H,P,N], "conv_x" [B,K-1,di], "conv_B"/"conv_C"
@@ -183,7 +201,7 @@ def mamba_block_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
         raise ValueError(f"{cfg.name}: a Mamba prefill needs at least "
                          f"{k - 1} tokens (the conv state), got {s}")
     h, hd = cfg.n_ssm_heads, cfg.ssm_head_dim
-    z, pre, xs, b_in, c_in, dt = _mamba_inputs(p, x, cfg)
+    z, pre, xs, b_in, c_in, dt = _mamba_inputs(p, x, cfg, shd)
     a = -torch.exp(p["A_log"].float())
     xh = xs.reshape(bsz, s, h, hd)
     y, final = ssd_chunked(xh, dt, a, b_in, c_in)
@@ -195,9 +213,10 @@ def mamba_block_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig
     return out, state
 
 
-def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                shd=NOSHARD) -> torch.Tensor:
     """Prefill path. x [B,S,D] -> [B,S,D]."""
-    return mamba_block_with_state(p, x, cfg)[0]
+    return mamba_block_with_state(p, x, cfg, shd)[0]
 
 
 def mamba_decode_step(p: Dict, xt: torch.Tensor, state: Dict,

@@ -53,10 +53,10 @@ def init_state(params: Any) -> AdamWState:
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=leaf.device),
         master=tree_map(lambda p: p.detach().float().clone(), params),
-        m=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params),
-        v=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params))
+        m=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                   params),
+        v=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                   params))
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -70,7 +70,13 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
     """grads float32, params bf16 -> (new params bf16, new state,
     {"lr", "grad_norm"}): the clipped global norm, bias-corrected
     moments and decoupled weight decay ``wd * master`` inside the lr
-    term, as the JAX package updates."""
+    term, as the JAX package updates.
+
+    DTensor grads are first moved to their moments' placements (ZeRO-1:
+    a reduce-scatter of a data-parallel partial sum), the update runs
+    on the shards, and each new param is gathered back to its param's
+    placements."""
+    grads = tree_map(_like, grads, state.m)
     step = state.step + 1
     lr = lr_schedule(cfg, state.step)
     gnorm = global_norm(grads)
@@ -91,9 +97,20 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
 
     out = tree_map(upd, grads, state.m, state.v, state.master)
     m, v, master = _pick(out, 0), _pick(out, 1), _pick(out, 2)
-    new_params = tree_map(lambda mast: mast.to(torch.bfloat16), master)
+    new_params = tree_map(lambda mast, p: _like(mast.to(torch.bfloat16), p),
+                          master, params)
     return new_params, AdamWState(step=step, master=master, m=m, v=v), \
         {"lr": lr, "grad_norm": gnorm}
+
+
+def _like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed to ``ref``'s placements when both are
+    DTensors; else ``x``."""
+    from torch.distributed.tensor import DTensor
+    if (isinstance(x, DTensor) and isinstance(ref, DTensor)
+            and x.placements != ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
 
 
 def _pick(tree: Any, i: int) -> Any:

@@ -7,18 +7,24 @@ batch) -> (params, opt_state, metrics)`` with the same three ways to
 accumulate microbatch gradients.  Gradients come from autograd over
 ``model.train_loss`` (its layers under ``remat``, causal attention
 through ``FlashCausal``); bf16 param grads are cast to float32 before
-the update, as JAX casts them.  The sharded parts of the JAX module
-(``train_shardings``, ``abstract_opt_state``: ZeRO-1 over a device mesh)
-wait for the port's distribution slice (ROADMAP.md §1, "Distribution
-and launch analysis").
+the update, as JAX casts them.
+
+Over a device mesh the params, optimizer state and batch are DTensors
+placed by ``train_shardings`` (the rules of ``distributed/sharding.py``,
+the optimizer state ZeRO-1 sharded over the data axis): the step is the
+same code, each rank holding its shards.  A microbatch is the same
+slice of every rank's batch shard, as a data-parallel trainer cuts it.
+``abstract_opt_state`` gives the state's meta stand-ins for the dry run.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.model import Model, remat
 from repro_torch.training import optimizer as opt_mod
@@ -63,10 +69,23 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
+def _micro(v: torch.Tensor, n_micro: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n_micro`` of one batch leaf: the i-th equal
+    cut of its leading dim; of a DTensor, the i-th cut of every rank's
+    shard."""
+    if not shlib.is_dtensor(v):
+        return v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])[i]
+    from torch.distributed.tensor import DTensor
+    loc = v.to_local()
+    n = loc.shape[0] // n_micro
+    return DTensor.from_local(loc[i * n:(i + 1) * n], v.device_mesh,
+                              v.placements, run_check=False)
+
+
 def _split(batch: Dict, n_micro: int) -> List[Dict]:
     """The batch's leading dim cut into ``n_micro`` equal microbatches."""
-    return [{k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(n_micro)]
+    return [{k: _micro(v, n_micro, i) for k, v in batch.items()}
+            for i in range(n_micro)]
 
 
 def _mean_metrics(metricses: List[Dict]) -> Dict:
@@ -119,8 +138,7 @@ def compute_grads(model: Model, params: Any, batch: Dict, *,
         return grads, _mean_metrics(metricses)
     if n_micro > 1:
         acc_dt = torch.bfloat16 if bf16_grad_sync else torch.float32
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                             device=p.device), params)
+        acc = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt), params)
         metricses = []
         for mb in _split(batch, n_micro):
             tree, leaves = _with_grad(params)
@@ -166,3 +184,44 @@ def make_train_step(model: Model, *, adamw: AdamWConfig = AdamWConfig(),
         return new_params, new_opt, {**metrics, **om}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# sharding assembly for the distributed step
+# ---------------------------------------------------------------------------
+@dataclass
+class TrainShardings:
+    params: Any
+    opt: Any
+    batch: Any
+    rules: Dict
+
+
+def train_shardings(model: Model, mesh, batch_spec: Dict[str, Any],
+                    *, zero1: bool = True,
+                    rules: Optional[Dict] = None) -> TrainShardings:
+    """Placement lists of the params (the rules), the optimizer state
+    (ZeRO-1 over the data axis on top, unless ``zero1=False``; the step
+    replicated) and the batch (leading dim over the data axes)."""
+    rules = rules or shlib.BASE_RULES
+    p_sh = shlib.tree_shardings(model.specs, mesh, rules)
+    state_sh = (shlib.zero1_shardings(model.specs, mesh, rules) if zero1
+                else p_sh)
+    opt_sh = AdamWState(step=shlib.to_placements(shlib.P(), mesh),
+                        master=state_sh, m=state_sh, v=state_sh)
+    b_axes = shlib._filter_axes(rules, mesh).get("batch")
+    batch_sh = tree_map(lambda s: shlib.to_placements(
+        shlib.P(*((b_axes,) + (None,) * (len(s.shape) - 1))), mesh),
+        batch_spec)
+    return TrainShardings(p_sh, opt_sh, batch_sh, rules)
+
+
+def abstract_opt_state(model: Model) -> AdamWState:
+    """Meta stand-ins of the optimizer state: float32 master, m and v of
+    the params' shapes and an int32 step."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      master=tree_map(f32, model.specs),
+                      m=tree_map(f32, model.specs),
+                      v=tree_map(f32, model.specs))

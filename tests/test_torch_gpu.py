@@ -275,6 +275,26 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
                           a["tables"], lengths)
 
 
+def test_decode_kernels_refuse_lse_output(cuda):
+    """Kernels 1 and 8 write no log-sum-exp: the split decode over a
+    sequence-split cache asks for one and is refused on the card, before
+    any launch, rather than scored in plain PyTorch beside the kernel."""
+    a = _inputs(torch.bfloat16)
+    q = a["q"][:, 0].contiguous()
+    lengths = torch.ones(5, dtype=torch.int32, device="cuda")
+    before = cuda.paged_decode_attention.launches
+    with pytest.raises(NotImplementedError, match="log-sum-exp"):
+        cuda.paged_decode(q, a["kp"], a["vp"], a["tables"], lengths,
+                          with_lse=True)
+    kp8 = a["kp"].to(torch.int8)
+    sc = torch.ones(kp8.shape[:3] + (1,), dtype=torch.bfloat16,
+                    device="cuda")
+    with pytest.raises(NotImplementedError, match="log-sum-exp"):
+        cuda.paged_decode_int8(q, kp8, kp8, sc, sc, a["tables"], lengths,
+                               with_lse=True)
+    assert cuda.paged_decode_attention.launches == before
+
+
 def test_engine_on_card_matches_cpu_engine(cuda):
     """Greedy tokens of the engine on the card (CUDA kernels) equal the
     same engine's on the CPU (plain versions), float32 weights."""
