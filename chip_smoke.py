@@ -156,6 +156,16 @@ check raises and the script exits non-zero with no result line:
            also at the ragged 1000 and in float32 at 1 x 256), SDPA on
            the first of its backends that takes V narrower than Q/K
            (``library_backend``);
+  decode_lse  kernels 1 and 8 with their log-sum-exp output (the split
+           decode's merge weights) at the kernels phase's paged_decode
+           and 64-slot paged_decode_int8 rows, on the bf16 tensor-core
+           bodies and with a float32 query on the CUDA-core bodies:
+           output and log-sum-exp against the plain versions, -1e30 on
+           every row of length 0, and each row's table cut into two
+           halves launched with their log-sum-exps and merged by the
+           split decode's ``merge_slices`` against the whole-row launch;
+           the tensor-core launch timed without and with the output in
+           turns (LSE_REPEATS each) beside the bound with its bytes;
   train    llama3.2-1b at full width and depth: 6 AdamW steps of 8 x 1024
            tokens in two micro-steps (``make_train_step``, every layer
            under remat, attention through the flash prefill kernel and
@@ -185,6 +195,15 @@ check raises and the script exits non-zero with no result line:
   train_mla_parity  train_parity for DeepSeek-V3 at one layer, 1 x 512
            tokens a micro-step; the attention weights' gradients (wq,
            w_dkv, w_kr, w_uk, w_uv, wo) nonzero;
+  train_launch  ``python -m repro_torch.launch.train`` on llama3.2-1b
+           at full width and depth (8 x 1024 tokens a step in two
+           micro-steps) under a one-rank nccl group (the variables
+           torchrun sets, a process of its own): 2 steps with a
+           checkpoint each under build/ and ``--crash-at 1`` (exit 17),
+           the relaunch resuming, then the same command's ``main`` with
+           no group in this process; the two final checkpoints equal
+           leaf for leaf (bit for bit); each run's group line, kernel
+           launches, step times and save / restore seconds;
   dryrun   ``python -m repro_torch.launch.dryrun`` in four subprocesses
            off the card (meta tensors over a fake 256- or 512-rank
            process group): llama3.2-1b's train_4k, prefill_32k and
@@ -243,6 +262,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -915,6 +935,99 @@ def make_int8_decode_inputs(torch, gen, attn, lengths=None):
                 block_tables=tables, lengths=lengths)
 
 
+
+
+# kernels 1 and 8 with their log-sum-exp: float32 log-sum-exps of the
+# same float32 scores summed in another order (tests/test_torch_gpu.py's
+# bound)
+LSE_ATOL = 1e-3
+# the decode_lse timings: without / with the output, in turns, each this
+# many times
+LSE_REPEATS = 3
+
+
+def lse_check(torch, ops, name, op, a):
+    """``op`` (kernel 1 or 8) on inputs ``a`` with its log-sum-exp,
+    against the plain versions (output within KERNEL_ATOL, log-sum-exp
+    within LSE_ATOL, -1e30 and finite on every row of length 0); then
+    each row's block table cut into two halves of pages, each half
+    launched with its log-sum-exp and the two merged by the split
+    decode's ``merge_slices``, against the whole-row launch.  Returns the
+    errors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.abstract import merge_slices
+    out, lse = op(**a, backend="cuda", with_lse=True)
+    torch.cuda.synchronize()
+    plain = op(**a, backend="torch")
+    ref_lse = ref.paged_decode_lse(a["q"], a["k_pages"], a["block_tables"],
+                                   a["lengths"], a.get("k_scales"))
+    empty = a["lengths"] == 0
+    err = {"max_abs_err": float((out.float() - plain.float()).abs().max()),
+           "lse_max_abs_err": float((lse - ref_lse).abs().max()),
+           "lse_finite": bool(torch.isfinite(lse).all()),
+           "empty_rows": int(empty.sum()),
+           "empty_rows_neg_1e30": bool((lse[empty] == -1e30).all())}
+    page = a["k_pages"].shape[1]
+    p1 = a["block_tables"].shape[1] // 2
+    parts = []
+    for tables, n in ((a["block_tables"][:, :p1],
+                       a["lengths"].clamp(max=p1 * page)),
+                      (a["block_tables"][:, p1:],
+                       (a["lengths"] - p1 * page).clamp(min=0))):
+        parts.append(op(**dict(a, block_tables=tables.contiguous(),
+                               lengths=n), backend="cuda", with_lse=True))
+    merged = merge_slices(torch.stack([o.float() for o, _ in parts]),
+                          torch.stack([x for _, x in parts]))
+    err["split_merge_max_abs_err"] = float(
+        (merged - out.float()).abs().max())
+    if not (err["max_abs_err"] <= KERNEL_ATOL
+            and err["lse_max_abs_err"] <= LSE_ATOL and err["lse_finite"]
+            and err["empty_rows_neg_1e30"]
+            and err["split_merge_max_abs_err"] <= KERNEL_ATOL
+            and bool(torch.isfinite(merged).all())):
+        raise AssertionError(f"{name}: log-sum-exp output {err}")
+    return err
+
+
+def phase_decode_lse(torch, ops, card):
+    """Kernels 1 and 8 with their log-sum-exp output (the split decode's
+    merge weights) at the kernels phase's main-path shapes: kernel 1's
+    ``paged_decode`` row (64 rows of llama3.2-1b over 512-token tables,
+    every 7th row of length 0) and kernel 8's 64-slot row, each on its
+    bf16 tensor-core body and with a float32 query on its CUDA-core body
+    (``lse_check``); then the tensor-core launch timed without and with
+    the output in turns, LSE_REPEATS times each, beside the bound with
+    the log-sum-exp's [B, Hq] float32 written once."""
+    from repro_torch.models import attention as attn
+    dec = make_kernel_inputs(torch, torch.Generator(
+        device="cuda").manual_seed(1234))[0]
+    i8 = make_int8_decode_inputs(torch, torch.Generator(
+        device="cuda").manual_seed(5678), attn)
+    rows = {}
+    for name, op, a, (nbytes, flops) in (
+            ("paged_decode", ops.paged_decode, dec, cost.decode_cost(dec)),
+            ("paged_decode_int8", ops.paged_decode_int8, i8,
+             cost.int8_decode_cost(i8))):
+        checks = {}
+        for q_dtype in ("bfloat16", "float32"):
+            b = dict(a, q=a["q"].to(getattr(torch, q_dtype)))
+            checks[q_dtype] = {"body": kernel_body(name, b),
+                               **lse_check(torch, ops, name, op, b)}
+        times = {"without": [], "with": []}
+        for turn in ("without", "with", "with", "without") * (
+                (LSE_REPEATS + 1) // 2):
+            if len(times[turn]) < LSE_REPEATS:
+                times[turn].append(time_ms(torch, lambda: op(
+                    **a, backend="cuda", with_lse=turn == "with"))["ms"])
+        lse_bytes = a["q"].shape[0] * a["q"].shape[1] * 4
+        bound_ms, bound_by = cost.bound(nbytes + lse_bytes, flops)
+        rows[name] = {"checks": checks, "ms_without_lse": times["without"],
+                      "ms_with_lse": times["with"], "lse_bytes": lse_bytes,
+                      "bound_ms_with_lse": bound_ms, "bound_by": bound_by,
+                      "bound_ms_without_lse": cost.bound(nbytes, flops)[0]}
+        emit({"phase": "decode_lse", "card": card, "kernel": name,
+              **rows[name]})
+    return rows
 
 
 def flash_case(torch, gen, ops, name, S, Hq, Hkv, hd):
@@ -2659,6 +2772,170 @@ def phase_train(torch, kernel_fns, card, cfg, phase="train",
     return launches
 
 
+# train_launch: the launcher at the train phase's llama3.2-1b (full width
+# and depth, TRAIN_BATCH x TRAIN_SEQ a step in TRAIN_MICRO micro-steps),
+# TRAIN_LAUNCH_STEPS steps; the crash run stops at step 1
+TRAIN_LAUNCH_STEPS = 2
+TRAIN_LAUNCH_TIMEOUT_S = 240
+
+
+def launcher_argv(ckpt: Path, extra=()) -> list:
+    """The launcher's arguments: llama3.2-1b at the train phase's shape,
+    its checkpoints in ``ckpt``."""
+    return ["--arch", "llama3.2-1b", "--steps", str(TRAIN_LAUNCH_STEPS),
+            "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            "--n-micro", str(TRAIN_MICRO), "--log-every", "1",
+            "--ckpt-dir", str(ckpt), *extra]
+
+
+def run_launcher(ckpt: Path, port, extra=()):
+    """``python -m repro_torch.launch.train`` in a process of its own
+    under a one-rank process group (the variables ``torchrun`` sets, on
+    ``port``).  Returns (exit code, output, wall seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), RANK="0", LOCAL_RANK="0",
+               WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *launcher_argv(ckpt, extra)], env=env,
+                       capture_output=True, text=True,
+                       timeout=TRAIN_LAUNCH_TIMEOUT_S, cwd=ROOT)
+    return r.returncode, r.stdout + r.stderr[-3000:], \
+        time.perf_counter() - t0
+
+
+def run_launcher_here(torch, ckpt: Path):
+    """The same command with no process group, in this process (its
+    ``main``), its output captured.  Returns (exit code, output, wall
+    seconds)."""
+    import io
+    from repro_torch.launch import train as launch_train
+    if "WORLD_SIZE" in os.environ:
+        raise AssertionError("train_launch: WORLD_SIZE is set here")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_train.main(launcher_argv(ckpt))
+    torch.cuda.empty_cache()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def launcher_report(out: str) -> dict:
+    """The numbers a launcher run printed: its process group line, each
+    step's loss and time since the loop began, checkpoint save and
+    restore seconds, its kernels' launches."""
+    rep = {"group": None, "steps": [], "save_s": [], "restore_s": None,
+           "launches": None}
+    for line in out.splitlines():
+        if line.startswith("process group:"):
+            rep["group"] = line
+        m = re.match(r"step\s+(\d+) loss (\S+) .*\((\S+)s\)$", line)
+        if m:
+            rep["steps"].append({"step": int(m.group(1)),
+                                 "loss": float(m.group(2)),
+                                 "since_start_s": float(m.group(3))})
+        m = re.search(r"\(save (\S+)s\)", line)
+        if m:
+            rep["save_s"].append(float(m.group(1)))
+        m = re.search(r"resumed from step \d+ \(restore (\S+)s\)", line)
+        if m:
+            rep["restore_s"] = float(m.group(1))
+        if line.startswith("kernel launches:"):
+            rep["launches"] = json.loads(line.split(":", 1)[1])
+    return rep
+
+
+def phase_train_launch(torch, kernel_fns, card, cfg):
+    """The train launcher under a one-rank ``nccl`` group on the card at
+    llama3.2-1b's full width, each run a process of its own:
+    TRAIN_LAUNCH_STEPS steps with a checkpoint every step and
+    ``--crash-at 1`` (exit 17 after the step-1 checkpoint), the relaunch
+    resuming from it; then the same command with no group, in this
+    process (every count zeroed just before it).  The resumed run's final
+    checkpoint must equal the no-group run's leaf for leaf (hash, dtype,
+    shape: bit for bit).  The grouped runs must say they formed an nccl
+    group over a (1, 1) mesh (a group that cannot form exits non-zero);
+    each run's kernels must launch 2 x layers x micro-steps (kernel 7)
+    and layers x micro-steps (its backward) a step (the grouped runs
+    print their own processes' counts).  The crash run's checkpoints are
+    cut to the latest before the no-group run writes its own (disk);
+    everything under build/ is removed afterwards."""
+    import shutil
+    from repro_torch.training import checkpoint as ckpt_mod
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    if held >= HELD_LIMIT_GB:
+        raise AssertionError(f"train_launch: {held:.2f} GB held before the "
+                             f"launcher needs the card")
+    root = ROOT / "build" / "train_launch"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs = {}
+    try:
+        with socket_port() as port:
+            crash = run_launcher(root / "group", port,
+                                 ("--ckpt-every", "1", "--crash-at", "1"))
+        with socket_port() as port:
+            resume = run_launcher(root / "group", port,
+                                  ("--ckpt-every", "1"))
+        ckpt_mod.CheckpointManager(str(root / "group"), keep=1)._gc()
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        plain = run_launcher_here(torch, root / "none")
+        counted = {name: fn.launches for name, fn in kernel_fns.items()}
+        for name, (rc, out, wall) in (("crash", crash), ("resume", resume),
+                                      ("no_group", plain)):
+            runs[name] = {"rc": rc, "wall_s": wall, **launcher_report(out)}
+            runs[name]["tail"] = out[-1500:] if rc not in (0, 17) else None
+        last = f"ckpt_{TRAIN_LAUNCH_STEPS:08d}.json"
+        got, want = ({} if not (root / d / last).exists() else
+                     json.loads((root / d / last).read_text())["leaves"]
+                     for d in ("group", "none"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k))
+    per_step = {"flash_prefill": 2 * cfg.n_layers * TRAIN_MICRO,
+                "flash_prefill_bwd": cfg.n_layers * TRAIN_MICRO}
+    steps_run = {"crash": 1, "resume": TRAIN_LAUNCH_STEPS - 1,
+                 "no_group": TRAIN_LAUNCH_STEPS}
+    emit({"phase": "train_launch", "card": card, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+          "n_micro": TRAIN_MICRO, "steps": TRAIN_LAUNCH_STEPS,
+          "runs": runs, "leaves": len(want),
+          "leaves_differing": differ[:10],
+          "n_differing": len(differ)})
+    want_rc = {"crash": 17, "resume": 0, "no_group": 0}
+    for name, r in runs.items():
+        if r["rc"] != want_rc[name]:
+            raise AssertionError(f"train_launch: the {name} run exited "
+                                 f"{r['rc']}: {r['tail']}")
+        grouped = name != "no_group"
+        if grouped != bool(r["group"] and "nccl" in r["group"]
+                           and "{'data': 1, 'model': 1}" in r["group"]):
+            raise AssertionError(f"train_launch: the {name} run's group: "
+                                 f"{r['group']}")
+        want_l = {k: v * steps_run[name] for k, v in per_step.items()}
+        if name == "no_group" and counted != {
+                k: want_l.get(k, 0) for k in kernel_fns}:
+            raise AssertionError(f"train_launch: the no-group run launched "
+                                 f"{counted}, not {want_l}")
+        if r["launches"] != want_l:
+            raise AssertionError(f"train_launch: the {name} run launched "
+                                 f"{r['launches']}, not {want_l}")
+        if not all(math.isfinite(x["loss"]) for x in r["steps"]):
+            raise AssertionError(f"train_launch: {name} losses "
+                                 f"{r['steps']}")
+    if runs["resume"]["restore_s"] is None:
+        raise AssertionError("train_launch: the relaunch did not resume")
+    if not want or differ:
+        raise AssertionError(f"train_launch: {len(differ)} of {len(want)} "
+                             f"leaves differ from the no-group run: "
+                             f"{differ[:10]}")
+    return runs
+
+
 def probe_mla_depth(torch, layers: int) -> int:
     """Two train_mla steps of DeepSeek-V3 at ``layers`` layers (as
     phase_train builds them) and one JSON line: the parameter count, the
@@ -3651,6 +3928,7 @@ def main() -> int:
     rows.update(phase_mla_kernels(torch, ops, smi, mla_cfg))
     rows.update(phase_dense_kernels(torch, ops, smi))
     rows.update(phase_train_kernels(torch, smi))
+    phase_decode_lse(torch, ops, smi)
 
     # each path is driven with every count zeroed just before it; a
     # kernel's launches are those of its own path (``by_path``: every
@@ -3768,6 +4046,13 @@ def main() -> int:
     phase_train_parity(torch, smi, mla_cfg, phase="train_mla_parity",
                        layers=1, batch=TRAIN_MLA_PARITY_BATCH,
                        seq=TRAIN_MLA_PARITY_SEQ, attn_leaves=MLA_ATTN_LEAVES)
+    # the launcher under a one-rank nccl group, crash and resume included,
+    # against the same command with no group (its own processes: their
+    # launches are their own counts, printed by each run)
+    for name, r in phase_train_launch(torch, kernel_fns, smi,
+                                      llama).items():
+        by_path[f"train_launch:{name}"] = {
+            k: r["launches"].get(k, 0) for k in kernel_fns}
 
     # distribution and launch analysis: the dry run's cells, then its
     # estimates held to llama3.2-1b's entry points on the card

@@ -100,13 +100,18 @@ __device__ __forceinline__ void warp_fold(float (&s)[2][4],
 // (float32: m [NW][RM], l [NW][RM], o [NW][RM][HD], which the ring holds
 // once every copy has landed): w_w = 2^(m_w - max m), value = sum w_w
 // o_w / max(sum w_w l_w, 1e-30), so a row with no valid key gets zeros.
-// store(r, d, value) for rows r < rows.
+// store(r, d, value) for rows r < rows.  A non-null `lse` receives row
+// r's log-sum-exp at lse[r], once a row, in natural-log units: (max m +
+// log2(sum w_w l_w)) ln 2 (m is in log2 units), NEG_INF = -1e30 for a
+// row with no valid key (never -inf or NaN, so a merge of slices by
+// their log-sum-exps gives such a slice zero weight).
 template <int HD, typename Store>
 __device__ __forceinline__ void merge_warps(float* scratch,
                                             const float (&m)[2],
                                             const float (&l)[2],
                                             const float (&o)[HD / 8][4],
-                                            int rows, Store store) {
+                                            int rows, Store store,
+                                            float* lse = nullptr) {
   constexpr int NW = NT / 32;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -144,6 +149,10 @@ __device__ __forceinline__ void merge_warps(float* scratch,
       acc += wt * co[(w * RM + r) * HD + d];
     }
     store(r, d, acc / fmaxf(den, 1e-30f));
+    if (lse != nullptr && d == 0)
+      lse[r] = mx == mma::neg_inf()
+                   ? -1e30f
+                   : (mx + log2f(den)) * 0.6931471805599453f;
   }
 }
 }  // namespace gqa_tc

@@ -63,9 +63,16 @@
 //   times their scales) and keeps the online-softmax state (m, l, acc)
 //   there.
 //
+// Every body also writes, when the caller passes an `lse` buffer, each
+// (row, query head)'s log-sum-exp of its scaled scores, float32 [B,Hq]
+// in natural-log units (NEG_INF = -1e30 for a row with no attendable
+// key): the weights by which the split decode over a sequence-split
+// cache merges its slices.  Once a row, after the walk; 4 bytes beside
+// the row's K/V reads.
+//
 // Layouts: q [B,Hq,hd]; k/v pages [N,page,Hkv,hd]; int8 scales
 // [N,page,Hkv,1] bf16; block tables [B,P] int32; lengths [B] int32;
-// out [B,Hq,hd] in q's type.
+// out [B,Hq,hd] in q's type; lse [B,Hq] float32 or null.
 #include "gqa_tc.cuh"
 #include "paged_common.cuh"
 
@@ -77,8 +84,9 @@ __global__ void paged_decode_kernel(const TQ* __restrict__ q,
                                     const __nv_bfloat16* __restrict__ v_scales,
                                     const int* __restrict__ tables,
                                     const int* __restrict__ lengths,
-                                    TQ* __restrict__ out, int Hq, int Hkv,
-                                    int hd, int N, int page, int P,
+                                    TQ* __restrict__ out,
+                                    float* __restrict__ lse, int Hq,
+                                    int Hkv, int hd, int N, int page, int P,
                                     float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y;
@@ -119,14 +127,19 @@ __global__ void paged_decode_kernel(const TQ* __restrict__ q,
     const int r = i / hd;
     out[q_base + i] = from_f<TQ>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
   }
+  // m is in natural-log units here (tile_update runs expf)
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < R; r += blockDim.x)
+      lse[(size_t)b * Hq + (size_t)h * G + r] =
+          t.l[r] > 0.f ? t.m[r] + logf(t.l[r]) : PAGED_NEG_INF;
 }
 
 template <typename TQ, typename TKV, bool SCALED>
 static int launch(const void* q, const void* kp, const void* vp,
                   const void* ks, const void* vs, const void* tables,
-                  const void* lengths, void* out, int B, int Hq, int Hkv,
-                  int hd, int N, int page, int P, float scale,
-                  cudaStream_t stream) {
+                  const void* lengths, void* out, float* lse, int B,
+                  int Hq, int Hkv, int hd, int N, int page, int P,
+                  float scale, cudaStream_t stream) {
   const int R = Hq / Hkv;
   const size_t smem = tile_floats(R, page, hd) * sizeof(float);
   auto kernel = paged_decode_kernel<TQ, TKV, SCALED>;
@@ -136,7 +149,7 @@ static int launch(const void* q, const void* kp, const void* vp,
   kernel<<<grid, 256, smem, stream>>>(
       (const TQ*)q, (const TKV*)kp, (const TKV*)vp,
       (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)tables,
-      (const int*)lengths, (TQ*)out, Hq, Hkv, hd, N, page, P, scale);
+      (const int*)lengths, (TQ*)out, lse, Hq, Hkv, hd, N, page, P, scale);
   return (int)cudaGetLastError();
 }
 
@@ -151,7 +164,8 @@ __global__ void __launch_bounds__(gqa_tc::NT, 4)
                     const __nv_bfloat16* __restrict__ v_pages,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int N,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int Hq, int Hkv, int N,
                     int page, int P, float scale_log2) {
   using namespace gqa_tc;
   using bf16 = __nv_bfloat16;
@@ -225,17 +239,19 @@ __global__ void __launch_bounds__(gqa_tc::NT, 4)
     gqa_tc::warp_fold<HD>(s, kt + KT * LD, k0, lane, m, l, o);
   }
 
-  gqa_tc::merge_warps<HD>(reinterpret_cast<float*>(ring), m, l, o, G,
-                          [&](int r, int d, float x) {
-                            out[q0 + r * HD + d] = __float2bfloat16(x);
-                          });
+  gqa_tc::merge_warps<HD>(
+      reinterpret_cast<float*>(ring), m, l, o, G,
+      [&](int r, int d, float x) {
+        out[q0 + r * HD + d] = __float2bfloat16(x);
+      },
+      lse == nullptr ? nullptr : lse + (size_t)b * Hq + (size_t)h * G);
 }
 
 template <int HD>
 static int launch_tc(const void* q, const void* kp, const void* vp,
                      const void* tables, const void* lengths, void* out,
-                     int B, int Hq, int Hkv, int N, int page, int P,
-                     float scale, cudaStream_t stream) {
+                     float* lse, int B, int Hq, int Hkv, int N, int page,
+                     int P, float scale, cudaStream_t stream) {
   const size_t smem = gqa_tc::ring_bytes(HD);
   auto kernel = paged_decode_tc<HD>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -243,28 +259,28 @@ static int launch_tc(const void* q, const void* kp, const void* vp,
   using bf16 = __nv_bfloat16;
   kernel<<<dim3(B, Hkv), gqa_tc::NT, smem, stream>>>(
       (const bf16*)q, (const bf16*)kp, (const bf16*)vp, (const int*)tables,
-      (const int*)lengths, (bf16*)out, Hq, Hkv, N, page, P,
+      (const int*)lengths, (bf16*)out, lse, Hq, Hkv, N, page, P,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 static int decode_tc(const void* q, const void* kp, const void* vp,
                      const void* tables, const void* lengths, void* out,
-                     int B, int Hq, int Hkv, int hd, int N, int page, int P,
-                     float scale, cudaStream_t st) {
+                     float* lse, int B, int Hq, int Hkv, int hd, int N,
+                     int page, int P, float scale, cudaStream_t st) {
   switch (hd) {
     case 16:
-      return launch_tc<16>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
-                           page, P, scale, st);
+      return launch_tc<16>(q, kp, vp, tables, lengths, out, lse, B, Hq, Hkv,
+                           N, page, P, scale, st);
     case 32:
-      return launch_tc<32>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
-                           page, P, scale, st);
+      return launch_tc<32>(q, kp, vp, tables, lengths, out, lse, B, Hq, Hkv,
+                           N, page, P, scale, st);
     case 64:
-      return launch_tc<64>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
-                           page, P, scale, st);
+      return launch_tc<64>(q, kp, vp, tables, lengths, out, lse, B, Hq, Hkv,
+                           N, page, P, scale, st);
     case 128:
-      return launch_tc<128>(q, kp, vp, tables, lengths, out, B, Hq, Hkv, N,
-                            page, P, scale, st);
+      return launch_tc<128>(q, kp, vp, tables, lengths, out, lse, B, Hq,
+                            Hkv, N, page, P, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -357,8 +373,9 @@ __global__ void __launch_bounds__(gqa_tc::NT, HD == 128 ? 2 : 4)
                          const unsigned short* __restrict__ v_scales,
                          const int* __restrict__ tables,
                          const int* __restrict__ lengths,
-                         __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
-                         int N, int page, int P, float scale_log2) {
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int Hq, int Hkv, int N,
+                         int page, int P, float scale_log2) {
   using namespace gqa_tc;
   using bf16 = __nv_bfloat16;
   constexpr int SC = int8_tc::SC, TILE = int8_tc::tile_bytes<HD>;
@@ -472,18 +489,20 @@ __global__ void __launch_bounds__(gqa_tc::NT, HD == 128 ? 2 : 4)
     for (int u = 0; u < SC; ++u) sc_next[u] = sc_after[u];
   }
 
-  gqa_tc::merge_warps<HD>(reinterpret_cast<float*>(ring), m, l, o, G,
-                          [&](int r, int d, float x) {
-                            out[q0 + r * HD + d] = __float2bfloat16(x);
-                          });
+  gqa_tc::merge_warps<HD>(
+      reinterpret_cast<float*>(ring), m, l, o, G,
+      [&](int r, int d, float x) {
+        out[q0 + r * HD + d] = __float2bfloat16(x);
+      },
+      lse == nullptr ? nullptr : lse + (size_t)b * Hq + (size_t)h * G);
 }
 
 template <int HD>
 static int launch_int8_tc(const void* q, const void* kp, const void* vp,
                           const void* ks, const void* vs, const void* tables,
-                          const void* lengths, void* out, int B, int Hq,
-                          int Hkv, int N, int page, int P, float scale,
-                          cudaStream_t stream) {
+                          const void* lengths, void* out, float* lse,
+                          int B, int Hq, int Hkv, int N, int page, int P,
+                          float scale, cudaStream_t stream) {
   const size_t smem = int8_tc::smem_bytes<HD>();
   auto kernel = paged_decode_int8_tc<HD>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -492,86 +511,89 @@ static int launch_int8_tc(const void* q, const void* kp, const void* vp,
   kernel<<<dim3(B, Hkv), gqa_tc::NT, smem, stream>>>(
       (const bf16*)q, (const int8_t*)kp, (const int8_t*)vp,
       (const unsigned short*)ks, (const unsigned short*)vs,
-      (const int*)tables, (const int*)lengths, (bf16*)out, Hq, Hkv, N, page,
-      P, scale * 1.4426950408889634f);
+      (const int*)tables, (const int*)lengths, (bf16*)out, lse, Hq, Hkv, N,
+      page, P, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 static int decode_int8_tc(const void* q, const void* kp, const void* vp,
                           const void* ks, const void* vs, const void* tables,
-                          const void* lengths, void* out, int B, int Hq,
-                          int Hkv, int hd, int N, int page, int P,
+                          const void* lengths, void* out, float* lse, int B,
+                          int Hq, int Hkv, int hd, int N, int page, int P,
                           float scale, cudaStream_t st) {
   // the 16-byte copies need 16-byte aligned q and pages
   if (((uintptr_t)q | (uintptr_t)kp | (uintptr_t)vp) & 15)
     return (int)cudaErrorMisalignedAddress;
   switch (hd) {
     case 16:
-      return launch_int8_tc<16>(q, kp, vp, ks, vs, tables, lengths, out, B,
-                                Hq, Hkv, N, page, P, scale, st);
+      return launch_int8_tc<16>(q, kp, vp, ks, vs, tables, lengths, out, lse,
+                                B, Hq, Hkv, N, page, P, scale, st);
     case 32:
-      return launch_int8_tc<32>(q, kp, vp, ks, vs, tables, lengths, out, B,
-                                Hq, Hkv, N, page, P, scale, st);
+      return launch_int8_tc<32>(q, kp, vp, ks, vs, tables, lengths, out, lse,
+                                B, Hq, Hkv, N, page, P, scale, st);
     case 64:
-      return launch_int8_tc<64>(q, kp, vp, ks, vs, tables, lengths, out, B,
-                                Hq, Hkv, N, page, P, scale, st);
+      return launch_int8_tc<64>(q, kp, vp, ks, vs, tables, lengths, out, lse,
+                                B, Hq, Hkv, N, page, P, scale, st);
     case 128:
-      return launch_int8_tc<128>(q, kp, vp, ks, vs, tables, lengths, out, B,
-                                 Hq, Hkv, N, page, P, scale, st);
+      return launch_int8_tc<128>(q, kp, vp, ks, vs, tables, lengths, out, lse,
+                                 B, Hq, Hkv, N, page, P, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16.  `lse_out` is NULL or [B,Hq]
+// float32.
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* tables,
-                            const void* lengths, void* out, int B, int Hq,
-                            int Hkv, int hd, int N, int page, int P,
-                            float scale, int q_dtype, int kv_dtype,
+                            const void* lengths, void* out, void* lse_out,
+                            int B, int Hq, int Hkv, int hd, int N, int page,
+                            int P, float scale, int q_dtype, int kv_dtype,
                             void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_out;
   if (q_dtype == 1 && kv_dtype == 1) {
     if (gqa_tc::width_ok(Hq, Hkv, hd))
-      return decode_tc(q, k_pages, v_pages, tables, lengths, out, B, Hq, Hkv,
-                       hd, N, page, P, scale, st);
+      return decode_tc(q, k_pages, v_pages, tables, lengths, out, lse, B, Hq,
+                       Hkv, hd, N, page, P, scale, st);
     return launch<__nv_bfloat16, __nv_bfloat16, false>(
-        q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out, B, Hq,
-        Hkv, hd, N, page, P, scale, st);
+        q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out, lse, B,
+        Hq, Hkv, hd, N, page, P, scale, st);
   }
   if (q_dtype == 0 && kv_dtype == 1)
     return launch<float, __nv_bfloat16, false>(
-        q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out, B, Hq,
-        Hkv, hd, N, page, P, scale, st);
+        q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out, lse, B,
+        Hq, Hkv, hd, N, page, P, scale, st);
   if (q_dtype == 0 && kv_dtype == 0)
     return launch<float, float, false>(q, k_pages, v_pages, nullptr, nullptr,
-                                       tables, lengths, out, B, Hq, Hkv, hd,
-                                       N, page, P, scale, st);
+                                       tables, lengths, out, lse, B, Hq, Hkv,
+                                       hd, N, page, P, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// int8 pages, bf16 scales; q_dtype as above.
+// int8 pages, bf16 scales; q_dtype and `lse_out` as above.
 extern "C" int paged_decode_int8(const void* q, const void* k_pages,
                                  const void* v_pages, const void* k_scales,
                                  const void* v_scales, const void* tables,
-                                 const void* lengths, void* out, int B,
-                                 int Hq, int Hkv, int hd, int N, int page,
-                                 int P, float scale, int q_dtype,
-                                 void* stream) {
+                                 const void* lengths, void* out,
+                                 void* lse_out, int B, int Hq, int Hkv,
+                                 int hd, int N, int page, int P, float scale,
+                                 int q_dtype, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_out;
   if (q_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd))
     return decode_int8_tc(q, k_pages, v_pages, k_scales, v_scales, tables,
-                          lengths, out, B, Hq, Hkv, hd, N, page, P, scale,
-                          st);
+                          lengths, out, lse, B, Hq, Hkv, hd, N, page, P,
+                          scale, st);
   if (q_dtype == 1)
     return launch<__nv_bfloat16, int8_t, true>(
-        q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out, B, Hq,
-        Hkv, hd, N, page, P, scale, st);
+        q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out, lse, B,
+        Hq, Hkv, hd, N, page, P, scale, st);
   if (q_dtype == 0)
     return launch<float, int8_t, true>(q, k_pages, v_pages, k_scales,
-                                       v_scales, tables, lengths, out, B, Hq,
-                                       Hkv, hd, N, page, P, scale, st);
+                                       v_scales, tables, lengths, out, lse, B,
+                                       Hq, Hkv, hd, N, page, P, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

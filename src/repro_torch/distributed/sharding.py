@@ -270,8 +270,11 @@ def per_shard(fn, args, dims, out_dims):
     ``out_dims`` each output's.  The batch stays split over the data
     axes that split the first argument's; heads go over ``model`` where
     the first argument's divide it; every other dim is whole.  A
-    non-tensor argument takes dims None."""
-    from torch.distributed.tensor import Replicate, Shard
+    non-tensor argument takes dims None.  An argument whole along an
+    axis that splits the computation (a weight beside batch-split rows,
+    a row input shared by split heads) gets a partial-sum gradient
+    there: each rank's shard adds its own share."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     ref = args[0]
     mesh = ref.device_mesh
@@ -292,9 +295,17 @@ def per_shard(fn, args, dims, out_dims):
                 Shard(hd) if i == model and heads and hd is not None else
                 Replicate() for i in range(mesh.ndim)]
 
+    split = batch_axes | ({model} if heads else set())
+
+    def grad_pl(d):
+        return None if d is None else [
+            Partial() if i in split and isinstance(p, Replicate) else p
+            for i, p in enumerate(pl(d))]
+
     outs = tuple(pl(d) for d in out_dims)
     return local_map(fn, out_placements=outs if len(outs) > 1 else outs[0],
                      in_placements=tuple(pl(d) for d in dims),
+                     in_grad_placements=tuple(grad_pl(d) for d in dims),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
@@ -444,7 +455,7 @@ class MeshSharding:
         gathering the table.  A table that is not split (or does not
         divide) is an ordinary lookup."""
         import torch.nn.functional as F
-        from torch.distributed.tensor import Partial, Replicate
+        from torch.distributed.tensor import Partial, Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
         vdim = self._vocab_split(emb, 0)
         if vdim is None:
@@ -454,6 +465,10 @@ class MeshSharding:
         tok_pl = to_placements(batch_pspec(tuple(tokens.shape), self.mesh,
                                            self.rules), self.mesh)
         out_pl = [Partial() if i == vdim else p for i, p in enumerate(tok_pl)]
+        # each data shard looks up its own rows: the table's gradient is
+        # their partial sum
+        grad_pl = [Partial() if isinstance(p, Shard) else emb_pl[i]
+                   for i, p in enumerate(tok_pl)]
         vshard = emb.shape[0] // self.mesh.shape[vdim]
         lo = self.mesh.get_local_rank(vdim) * vshard
 
@@ -465,6 +480,7 @@ class MeshSharding:
 
         out = local_map(lookup, out_placements=out_pl,
                         in_placements=(emb_pl, tok_pl),
+                        in_grad_placements=(grad_pl, tok_pl),
                         device_mesh=self.mesh,
                         redistribute_inputs=True)(emb, tokens)
         return out.redistribute(self.mesh, tok_pl)

@@ -19,11 +19,10 @@ A decode over a sequence-sharded slot cache (the ``kv_seq`` rule) is a
 split decode: each rank runs kernel 1 over its own slice of every
 row's keys with the slice's log-sum-exp as a second output, and the
 slices' outputs are merged by their log-sum-exps (``split_decode``):
-two all-reduces of [B, Hq(, hd)] floats over the sequence axes.  The
-dry run prices kernel 1 with that output (its [B, Hq] float32 written
-once); the plain version computes it on the CPU; the CUDA kernel does
-not write it yet, so on the card the split decode is refused
-(``paged_attention.no_lse``).
+two all-reduces of [B, Hq(, hd)] floats over the sequence axes
+(``merge_slices``).  Kernels 1 and 8 write that output on the card, the
+plain versions on the CPU, and the dry run prices it (its [B, Hq]
+float32 written once).
 """
 from __future__ import annotations
 
@@ -225,9 +224,8 @@ def split_decode(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None,
     with_lse=...)`` runs the decode kernel over one slice (local
     tensors) -> [B,Hq,hd], or with ``with_lse`` (out, lse [B,Hq]).
     Each rank attends its slice (lengths shifted by the slice's start)
-    and the slices merge by their log-sum-exps:
-    o = sum_i exp(lse_i - m) o_i / sum_i exp(lse_i - m), m = max_i
-    lse_i.  Returns [B,1,Hq,hd] in q's dtype."""
+    and the slices merge by their log-sum-exps (``merge_slices``).
+    Returns [B,1,Hq,hd] in q's dtype."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = k_cache.device_mesh
     split = _seq_split(k_cache)
@@ -257,10 +255,19 @@ def split_decode(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None,
             row_pl, in_pl, mesh, q, k_cache, v_cache, lengths, *scales)
     o, lse = _local_map(local, (out_pl, out_pl),
                         in_pl, mesh, q, k_cache, v_cache, lengths, *scales)
+    return merge_slices(o, lse).to(q.dtype)[:, None]
+
+
+def merge_slices(o, lse):
+    """One decode's slices merged by their log-sum-exps: o [n,B,Hq,hd]
+    float32 and lse [n,B,Hq] (slice i over its own keys) -> [B,Hq,hd]
+    float32, o = sum_i exp(lse_i - m) o_i / sum_i exp(lse_i - m),
+    m = max_i lse_i.  A slice with no key (lse -1e30) weighs nothing
+    beside one that has; if no slice has one, all weigh alike and the
+    zeros they hold come out."""
     m = lse.amax(dim=0)
     w = torch.exp(lse - m)
-    out = (w[..., None] * o).sum(dim=0) / w.sum(dim=0)[..., None]
-    return out.to(q.dtype)[:, None]
+    return (w[..., None] * o).sum(dim=0) / w.sum(dim=0)[..., None]
 
 
 def cache_write(cache, new, pos):

@@ -8,8 +8,10 @@ through the block table; the kernels are bound by the HBM bytes of the
 K and V pages they read (see the source note in
 ``csrc/paged_decode.cu``), which the int8 version halves: with bf16 q it
 widens its int8 tiles to bf16 exactly and applies the one scale per
-(token, KV head) to the scores (K) and the probabilities (V).  On CPU
-tensors the wrappers run the plain versions in ``kernels/ref.py``.
+(token, KV head) to the scores (K) and the probabilities (V).  With
+``with_lse`` every body also writes each head's log-sum-exp, by which
+the split decode merges its slices.  On CPU tensors the wrappers run the
+plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -60,23 +62,20 @@ def check_args(name: str, q: torch.Tensor, k_pages: torch.Tensor,
 
 
 PTR, INT, FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k_pages, v_pages, tables, lengths, out; B, Hq, Hkv, hd, N, page, P;
-# scale; q and kv dtype codes; stream
-DECODE_ARGS = [PTR] * 6 + [INT] * 7 + [FLT, INT, INT, PTR]
+# q, k_pages, v_pages, tables, lengths, out, lse (or NULL); B, Hq, Hkv, hd,
+# N, page, P; scale; q and kv dtype codes; stream
+DECODE_ARGS = [PTR] * 7 + [INT] * 7 + [FLT, INT, INT, PTR]
 
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def no_lse(name: str, with_lse: bool) -> None:
-    """The decode kernels write no log-sum-exp yet: a split decode over a
-    sequence-split slot cache cannot run on the card, and is refused
-    rather than scored again in plain PyTorch beside the kernel."""
-    if with_lse:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no log-sum-exp output, which the "
-            f"split decode over a sequence-split cache merges by")
+def _lse_out(q: torch.Tensor, with_lse: bool):
+    """The kernel's log-sum-exp output [B,Hq] float32 when asked for,
+    else None (the kernel then writes none)."""
+    return (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+            if with_lse else None)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -86,8 +85,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            with_lse: bool = False) -> torch.Tensor:
     """q [B,Hq,hd]; k/v_pages [N,page,Hkv,hd]; block_tables [B,P] int32;
     lengths [B] int32 -> [B,Hq,hd] in q's dtype; with ``with_lse`` also
-    each head's log-sum-exp [B,Hq] float32 (the split decode's merge
-    weights), which the CUDA kernel does not write yet."""
+    each head's log-sum-exp [B,Hq] float32 in natural-log units, NEG_INF
+    (-1e30) for a row with no attendable key (the split decode's merge
+    weights, ``abstract.merge_slices``)."""
     be = resolve_backend(backend, q)
     if be == "abstract":
         return abstract.paged_decode(q, k_pages, v_pages, block_tables,
@@ -97,7 +97,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                          lengths)
         return (out, ref.paged_decode_lse(q, k_pages, block_tables,
                                           lengths)) if with_lse else out
-    no_lse("paged_decode", with_lse)
     check_args("paged_decode", q, k_pages, v_pages, block_tables, lengths)
     b, hq, hd = q.shape
     n, page, hkv, _ = k_pages.shape
@@ -105,22 +104,24 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode: q [B,Hq,hd], tables [B,P], "
                          "lengths [B]")
     out = torch.empty_like(q)
+    lse = _lse_out(q, with_lse)
     fn = build.entry("paged_decode", "paged_decode", DECODE_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, hq, hkv, hd, n, page, block_tables.shape[1],
             1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
             DTYPE_CODES[k_pages.dtype], stream_ptr(q.device))
     build.check(rc, "paged_decode", "paged_decode")
     paged_decode_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 paged_decode_attention.launches = 0
 
-# q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out; B, Hq,
-# Hkv, hd, N, page, P; scale; q dtype code; stream
-DECODE_INT8_ARGS = [PTR] * 8 + [INT] * 7 + [FLT, INT, PTR]
+# q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out, lse (or
+# NULL); B, Hq, Hkv, hd, N, page, P; scale; q dtype code; stream
+DECODE_INT8_ARGS = [PTR] * 9 + [INT] * 7 + [FLT, INT, PTR]
 
 
 def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
@@ -146,7 +147,6 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
         return (out, ref.paged_decode_lse(q, k_pages, block_tables, lengths,
                                           k_scales)) if with_lse else out
     name = "paged_decode_int8"
-    no_lse(name, with_lse)
     for t in (q, k_pages, v_pages, k_scales, v_scales, block_tables,
               lengths):
         if t.device != q.device:
@@ -172,15 +172,17 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{name}: q [B,Hq,hd], pages [N,page,Hkv,hd], "
                          f"scales [N,page,Hkv,1], tables [B,P], lengths [B]")
     out = torch.empty_like(q)
+    lse = _lse_out(q, with_lse)
     fn = build.entry("paged_decode", name, DECODE_INT8_ARGS)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, hq, hkv, hd, n, page, block_tables.shape[1],
             1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], stream_ptr(q.device))
     build.check(rc, "paged_decode", name)
     paged_decode_attention_int8.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 paged_decode_attention_int8.launches = 0

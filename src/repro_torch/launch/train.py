@@ -5,21 +5,40 @@ The port of the JAX package's ``launch/train.py``: the same flags plus
 versions).  It runs real steps with checkpoint/restart: kill it at any
 step and relaunch with the same ``--ckpt-dir`` and it resumes from the
 latest manifest bit for bit (the data stream is a pure function of the
-step counter).  One device, no mesh.
+step counter).
+
+With no process group in the environment (no ``WORLD_SIZE``) it trains
+on one device.  Under ``torchrun`` (or ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` / ``MASTER_PORT`` set) every rank joins the group
+(``nccl`` on cards, each rank on card ``LOCAL_RANK``; ``gloo`` with
+``--device cpu``), builds the host mesh (``make_host_mesh()``: n ranks
+over "data", one over "model", JAX's default) and the model with its
+``MeshSharding``, and places the params, the ZeRO-1 AdamW state and each
+step's batch by ``training.train.train_shardings``; every rank builds
+the same global batch and keeps its shard.  Checkpoints hold whole
+leaves, so a run restores on any number of ranks.  Rank 0 prints.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --reduced \\
         --device cpu --steps 4 --ckpt-dir /tmp/ckpt --crash-at 2
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 4
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
 import time
 
 import torch
 
 from repro_torch.config import reduce_config
 from repro_torch.configs import get_config
-from repro_torch.models.common import resolve_device
+from repro_torch.distributed import sharding as shlib
+from repro_torch.kernels import flash_prefill as fp
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.common import resolve_device, tree_map
 from repro_torch.models.model import build_model
 from repro_torch.training import checkpoint as ckpt_mod
 from repro_torch.training import data as data_mod
@@ -47,6 +66,32 @@ def make_batch(data, cfg, step: int, global_batch: int, device) -> dict:
     return out
 
 
+def join_group(device: torch.device) -> bool:
+    """Joins the process group the environment describes (``torchrun``'s
+    variables) and returns True; False when there is none (no
+    ``WORLD_SIZE``).  ``nccl`` on cards, each rank on card
+    ``LOCAL_RANK``; ``gloo`` on the CPU.  A group that cannot form
+    raises: the launcher never trains without the group it was given."""
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    import torch.distributed as dist
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
+def place_tree(tree, mesh, placements):
+    """Each leaf of ``tree`` (a dict tree, or an ``AdamWState`` of them)
+    as a DTensor on ``mesh`` under its placements."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(place_tree(t, mesh, pl)
+                            for t, pl in zip(tree, placements)))
+    return tree_map(lambda x, pl: shlib.place(x, mesh, pl), tree, placements)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
@@ -68,10 +113,38 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    grouped = join_group(device)
+    try:
+        return train(args, device, grouped)
+    finally:
+        if grouped:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def train(args, device: torch.device, grouped: bool) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
-    model = build_model(cfg)
+    if grouped:
+        import torch.distributed as dist
+        mesh = make_host_mesh(device_type=device.type)
+        model = build_model(cfg, shlib.MeshSharding(mesh))
+        rank = dist.get_rank()
+    else:
+        mesh, model, rank = None, build_model(cfg), 0
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"process group: {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}; mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
+    def report_launches():
+        # this process's launches of the train path's kernels (0 on the
+        # CPU, where the plain versions run)
+        say("kernel launches:", json.dumps(
+            {"flash_prefill": fp.flash_prefill.launches,
+             "flash_prefill_bwd": fp.flash_prefill_bwd.launches}))
     adamw = AdamWConfig(lr=args.lr, total_steps=max(args.steps, 100),
                         warmup_steps=max(5, args.steps // 20))
     step_fn = train_mod.make_train_step(
@@ -83,39 +156,63 @@ def main(argv=None) -> int:
 
     params = model.init_params(0, device=device)
     opt_state = opt_mod.init_state(params)
+    if mesh is not None:
+        sh = train_mod.train_shardings(model, mesh, make_batch(
+            data, cfg, 0, args.global_batch, "meta"))
+        params = place_tree(params, mesh, sh.params)
+        opt_state = place_tree(opt_state, mesh, sh.opt)
+
+    def batch_at(step):
+        batch = make_batch(data, cfg, step, args.global_batch, device)
+        return batch if mesh is None else place_tree(batch, mesh, sh.batch)
+
     start_step = 0
     mgr = None
     if args.ckpt_dir:
         mgr = ckpt_mod.CheckpointManager(args.ckpt_dir)
         latest = mgr.latest_step()
         if latest is not None:
+            t0 = time.perf_counter()
             (params, opt_state), _ = mgr.restore((params, opt_state))
             start_step = latest
-            print(f"resumed from step {start_step}")
+            say(f"resumed from step {start_step} "
+                f"(restore {time.perf_counter() - t0:.2f}s)")
 
+    # under a mesh, plain tensors made inside the step (scalars,
+    # positions) join DTensors as replicated
+    from torch.distributed.tensor.experimental import implicit_replication
+    context = contextlib.nullcontext if mesh is None else implicit_replication
     t0 = time.time()
     metrics = None
     for step in range(start_step, args.steps):
         if step == args.crash_at:
-            print(f"fault injection: crashing at step {step}")
+            say(f"fault injection: crashing at step {step}")
+            report_launches()
             raise SystemExit(CRASH_EXIT)
-        params, opt_state, metrics = step_fn(
-            params, opt_state,
-            make_batch(data, cfg, step, args.global_batch, device))
+        with context():
+            params, opt_state, metrics = step_fn(params, opt_state,
+                                                 batch_at(step))
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({time.time() - t0:.1f}s)")
+            say(f"step {step:5d} loss {_scalar(metrics['loss']):.4f} "
+                f"lr {_scalar(metrics['lr']):.2e} "
+                f"gnorm {_scalar(metrics['grad_norm']):.3f} "
+                f"({time.time() - t0:.3f}s)")
         if mgr and ((step + 1) % args.ckpt_every == 0
                     or step == args.steps - 1):
+            ts = time.perf_counter()
             m = mgr.save(step + 1, (params, opt_state))
-            print(f"  ckpt @{step + 1}: "
-                  f"new {m['delta']['new_bytes'] / 1e6:.1f}MB "
-                  f"reused {m['delta']['reused_bytes'] / 1e6:.1f}MB")
+            say(f"  ckpt @{step + 1}: "
+                f"new {m['delta']['new_bytes'] / 1e6:.1f}MB "
+                f"reused {m['delta']['reused_bytes'] / 1e6:.1f}MB "
+                f"(save {time.perf_counter() - ts:.2f}s)")
     if metrics is not None:
-        print("final loss:", float(metrics["loss"]))
+        say("final loss:", _scalar(metrics["loss"]))
+    report_launches()
     return 0
+
+
+def _scalar(x) -> float:
+    return float(x.full_tensor() if shlib.is_dtensor(x) else x)
 
 
 if __name__ == "__main__":

@@ -137,11 +137,15 @@ def _sharded_moe(p, xg, cfg, shd, dtype):
             else Replicate() for pl in xg.placements]
     slot_pl = [Shard(1) if isinstance(pl, Shard) else pl for pl in g_pl]
     rep = [Replicate()] * mesh.ndim
+    # each data shard routes its own groups: the router's gradient is
+    # their partial sum
+    router_grad = [Partial() if isinstance(pl, Shard) else Replicate()
+                   for pl in g_pl]
     xin, top_i, rows, w, probs = local_map(
         lambda r, x: _dispatch(r, x, cfg),
         out_placements=(slot_pl, g_pl, g_pl, g_pl, g_pl),
-        in_placements=(rep, g_pl), device_mesh=mesh,
-        redistribute_inputs=True)(p["router"], xg)
+        in_placements=(rep, g_pl), in_grad_placements=(router_grad, g_pl),
+        device_mesh=mesh, redistribute_inputs=True)(p["router"], xg)
     xin = shd(xin, "experts", "moe_groups", None)
     h = F.silu(torch.bmm(xin, p["w_gate"]).float()).to(dtype)
     h = shd(h * torch.bmm(xin, p["w_up"]), "experts", "moe_groups", "mlp")
@@ -175,8 +179,15 @@ def _sharded_moe(p, xg, cfg, shd, dtype):
         yr = y.reshape(n, d)[local.clamp(0, n - 1)].float()
         return ((w * mine)[..., None] * yr).sum(dim=2).to(dtype)
 
+    # where y is a partial sum (or split by expert), every rank's share
+    # gets the whole upstream gradient, and the weights' gradient is a
+    # partial sum of the shares'
+    y_grad = [Replicate() if isinstance(pl, Partial) else pl for pl in y_pl]
+    w_grad = [Partial() if isinstance(o, Partial) else g
+              for o, g in zip(out_pl, g_pl)]
     out = local_map(combine, out_placements=out_pl,
                     in_placements=(y_pl, g_pl, g_pl),
+                    in_grad_placements=(y_grad, g_pl, w_grad),
                     device_mesh=mesh, redistribute_inputs=True)(y, rows, w)
     return out, top_i, probs
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (GQA paged decode / prefill / segment
 prefill, their absorbed-MLA counterparts, causal flash prefill with its
-log-sum-exp, the flash prefill backward and int8 paged decode) against their plain PyTorch versions on the card, and the
+log-sum-exp, the flash prefill backward and int8 paged decode, both
+decodes with their log-sum-exps and a two-slice split merged by them)
+against their plain PyTorch versions on the card, and the
 bf16 decode kernels' split walks against themselves (bit for bit); the
 MLA kernels on the dense layout's routes (a whole prompt at offset 0,
 latent slots seen as pages); the MoE FFN's routing on the card against
@@ -275,24 +277,89 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
                           a["tables"], lengths)
 
 
-def test_decode_kernels_refuse_lse_output(cuda):
-    """Kernels 1 and 8 write no log-sum-exp: the split decode over a
-    sequence-split cache asks for one and is refused on the card, before
-    any launch, rather than scored in plain PyTorch beside the kernel."""
-    a = _inputs(torch.bfloat16)
+# Kernels 1 and 8 with their log-sum-exp output: (q dtype, Hq, Hkv, hd,
+# page): the bf16 tensor-core bodies at hd 64 (G 4) and hd 128 (G 8), at
+# G 1, and the float32-query CUDA-core body
+LSE_CASES = [(torch.bfloat16, 32, 8, 64, 16),
+             (torch.bfloat16, 8, 1, 128, 64),
+             (torch.bfloat16, 6, 6, 64, 64), (torch.float32, 8, 2, 64, 16)]
+LSE_PAGES = 8
+# ragged rows over 8-page tables, in pages: a length-0 row, rows that end
+# in the first half, on the halves' border, just past it, and full
+LSE_LENGTHS = lambda page: [0, 1, 17, 4 * page, 4 * page + 1,  # noqa: E731
+                            8 * page - 5, 8 * page]
+# float32 log-sum-exps of the same float32 scores summed in another order
+LSE_ATOL = 1e-3
+
+
+def _halves(tables, lengths, page):
+    """Each row's block table cut into two halves of pages, each with
+    the row's keys that fall in it (a split decode's two slices)."""
+    p1 = tables.shape[1] // 2
+    cut = p1 * page
+    return ((tables[:, :p1].contiguous(), lengths.clamp(max=cut)),
+            (tables[:, p1:].contiguous(), (lengths - cut).clamp(min=0)))
+
+
+def _check_lse(run, plain, lse_ref, tables, lengths, page, tol):
+    """``run(tables, lengths, with_lse=...)``'s output and log-sum-exp
+    against the plain versions'; a row with no key writes -1e30 (finite,
+    never NaN); and the two halves of every row's table, each launched
+    with its log-sum-exp and merged by ``merge_slices``, equal the
+    whole-row launch."""
+    from repro_torch.kernels.abstract import merge_slices
+    out, lse = run(tables, lengths, with_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == out.shape[:2]
+    assert _err(out, plain) <= tol
+    assert bool(torch.isfinite(lse).all())
+    assert _err(lse, lse_ref) <= LSE_ATOL
+    assert bool((lse[lengths == 0] == -1e30).all())
+    assert torch.equal(out, run(tables, lengths))
+    parts = [run(t, n, with_lse=True) for t, n in _halves(tables, lengths,
+                                                          page)]
+    merged = merge_slices(torch.stack([o.float() for o, _ in parts]),
+                          torch.stack([x for _, x in parts]))
+    assert bool(torch.isfinite(merged).all())
+    assert _err(merged, out) <= tol
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,hd,page", LSE_CASES)
+def test_paged_decode_lse_output(cuda, dtype, hq, hkv, hd, page):
+    from repro_torch.kernels import ref
+    a = _inputs(dtype, b=7, hq=hq, hkv=hkv, hd=hd, page=page,
+                pages=LSE_PAGES)
     q = a["q"][:, 0].contiguous()
-    lengths = torch.ones(5, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(LSE_LENGTHS(page), dtype=torch.int32,
+                           device="cuda")
     before = cuda.paged_decode_attention.launches
-    with pytest.raises(NotImplementedError, match="log-sum-exp"):
-        cuda.paged_decode(q, a["kp"], a["vp"], a["tables"], lengths,
-                          with_lse=True)
-    kp8 = a["kp"].to(torch.int8)
-    sc = torch.ones(kp8.shape[:3] + (1,), dtype=torch.bfloat16,
-                    device="cuda")
-    with pytest.raises(NotImplementedError, match="log-sum-exp"):
-        cuda.paged_decode_int8(q, kp8, kp8, sc, sc, a["tables"], lengths,
-                               with_lse=True)
-    assert cuda.paged_decode_attention.launches == before
+
+    def run(tables, n, **kw):
+        return cuda.paged_decode(q, a["kp"], a["vp"], tables, n, **kw)
+    _check_lse(run, run(a["tables"], lengths, backend="torch"),
+               ref.paged_decode_lse(q, a["kp"], a["tables"], lengths),
+               a["tables"], lengths, page,
+               F32_TOL if dtype == torch.float32 else BF16_TOL)
+    assert cuda.paged_decode_attention.launches == before + 4
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,hd,page", LSE_CASES)
+def test_paged_decode_int8_lse_output(cuda, dtype, hq, hkv, hd, page):
+    from repro_torch.kernels import ref
+    q, kq, vq, ks, vs, tables = _int8_inputs(7, hq, hkv, hd, page,
+                                             LSE_PAGES)
+    q = q.to(dtype)
+    lengths = torch.tensor(LSE_LENGTHS(page), dtype=torch.int32,
+                           device="cuda")
+    before = cuda.paged_decode_attention_int8.launches
+
+    def run(t, n, **kw):
+        return cuda.paged_decode_int8(q, kq, vq, ks, vs, t, n, **kw)
+    _check_lse(run, run(tables, lengths, backend="torch"),
+               ref.paged_decode_lse(q, kq, tables, lengths, ks),
+               tables, lengths, page,
+               F32_TOL if dtype == torch.float32 else BF16_TOL)
+    assert cuda.paged_decode_attention_int8.launches == before + 4
 
 
 def test_engine_on_card_matches_cpu_engine(cuda):
