@@ -244,7 +244,26 @@ check raises and the script exits non-zero with no result line:
   frontend the wall-clock ``ServingFrontend`` over the full-width replay
            engine under a 5-second open-loop lmsys load, its pump thread
            stepping the card on that thread's default stream; the ledger
-           must balance.
+           must balance;
+  examples the README's examples on the port (``examples/torch_*.py``):
+           the three serving examples on the card and on the CPU in this
+           process, on the same seeded weights, every printed line equal
+           but the device line; again at full width (``--full-width``),
+           every engine run finished and the completion and prefix-hit
+           counts the reduced runs', with wall seconds and peak memory;
+           the train demo (reduced llama3.2-1b, 200 steps, every run
+           resumed from one step-0 checkpoint of the card's weights) on
+           the card and on the CPU, its lines equal once wall-clock
+           readings are masked and its losses and gradient norms within
+           DEMO_LOSS_RTOL; cut at step 100 (exit 17) and relaunched, its
+           final checkpoint equal to the straight run's leaf for leaf;
+           the replay example at 2 sessions x 2 turns;
+  chaos    ``scripts/torch_replay_smoke.py``'s chaos replay on the card
+           (transient read / write errors and payload corruption on
+           tiers 1-5): no request hung, a retry absorbed, every injected
+           corruption caught by its crc32 check, every counter equal to
+           the CPU run's (``CHAOS_PINS``, pinned in
+           tests/test_torch_examples.py); kernels 1-3's launches.
 
 Then the ``{"kernels": [...]}`` summary, the card's nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
@@ -345,6 +364,19 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def memory_left(torch, after: str) -> None:
+    """The device memory still allocated once a group of phases has
+    dropped what it made, before and after a garbage collection: the
+    next group's peaks count it in."""
+    import gc
+    torch.cuda.synchronize()
+    before_gc = torch.cuda.memory_allocated()
+    gc.collect()
+    emit({"phase": "memory_left", "after": after,
+          "allocated_gb": before_gc / 1e9,
+          "after_gc_gb": torch.cuda.memory_allocated() / 1e9})
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -442,9 +474,9 @@ def sass_tensor_core_counts(build, name) -> dict:
 # entries that must run on the tensor cores: (source, entry name part,
 # how many such entries)
 TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 5),
-                       ("flash_prefill_bwd", "bwd_dkdv_tc", 2),
+                       ("flash_prefill_bwd", "bwd_dkdv_tc", 3),
                        ("flash_prefill_bwd", "bwd_dkdv_pair_tc", 1),
-                       ("flash_prefill_bwd", "bwd_dq_tc", 3),
+                       ("flash_prefill_bwd", "bwd_dq_tc", 4),
                        ("mla_paged_prefill", "mla_tc_kernelILi0E", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
@@ -2412,7 +2444,10 @@ BWD_CASES = (("flash_prefill_bwd", 4, 1024, 32, 8, 64, 64, "bfloat16"),
              ("flash_prefill_bwd_mla_ragged", 2, 1000, 128, 128, 192, 128,
               "bfloat16"),
              ("flash_prefill_bwd_mla_f32", 1, 256, 128, 128, 192, 128,
-              "float32"))
+              "float32"),
+             # the train demo's micro-step (reduced llama3.2-1b, the
+             # examples phase)
+             ("flash_prefill_bwd_demo", 4, 64, 4, 2, 16, 16, "bfloat16"))
 # (name, B, S, Hq, Hkv, dk, dv) of the forward-with-lse rows: the train
 # and train_mla phases' micro-steps
 LSE_CASES = (("flash_prefill_lse", 4, 1024, 32, 8, 64, 64),
@@ -3584,6 +3619,9 @@ def phase_frontend(torch, kernel_fns, card, cfg, params, duration_s=5.0,
     launches = {name: fn.launches for name, fn in kernel_fns.items()}
     st = fe.stats()
     engine.shutdown()
+    # the wrapper holds the engine's bound step: a reference cycle that
+    # would keep the engine, its pool and the params until a collection
+    del engine.step
     emit({"phase": "frontend", "card": card, "model": cfg.name,
           "layers": cfg.n_layers, "qps": qps, "duration_s": duration_s,
           "offered_summary": offered_summary(arrivals), "wall_s": wall,
@@ -3601,6 +3639,315 @@ def phase_frontend(torch, kernel_fns, card, cfg, params, duration_s=5.0,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"frontend path")
+
+
+# ---------------------------------------------------------------------------
+# the README's examples and the replay smoke's chaos phase on the card
+# ---------------------------------------------------------------------------
+# the port's chaos replay counters on the CPU at its H100 recompute
+# constant; the same dict as tests/test_torch_examples.py, which holds the
+# CPU run to it and this copy to its own
+CHAOS_PINS = {
+    "requests_done": 3, "turns_submitted": 3, "seen_blocks": 24,
+    "hot_hits_t0": 4, "hot_hits_t1": 4, "cow_share_hits": 1,
+    "inject_hits": 8, "segment_hit_blocks": 11, "segment_inject_hits": 11,
+    "promotions": 12, "demotions": 80, "generated_tokens": 12, "steps": 20,
+    "retries": 22, "io_errors": 0, "integrity_failures": 10,
+    "fetch_recomputes": 6, "ttft_p99": 0.03542752153656406,
+    "injected": {"injected_read_errors": 13, "injected_write_errors": 9,
+                 "injected_corruptions": 10, "injected_brownouts": 0,
+                 "injected_stalls": 0, "injected_flaps": 0},
+}
+SERVING_EXAMPLES = ("quickstart", "serve_multi_tier", "agentic_serving")
+# the train demo on the card: a straight run of DEMO_STEPS (the JAX
+# demo's default), and one cut at DEMO_CUT (exit 17 after the demo's
+# step-DEMO_CUT checkpoint: it saves every 50) and relaunched
+DEMO_STEPS, DEMO_CUT = 200, 100
+# its card and CPU runs print the same lines once the wall-clock readings
+# and the launch report are masked, but for the losses and gradient norms:
+# bf16 weights and activations, the kernels' and the plain versions'
+# rounding carried through 200 steps of the same batches (printed to 4
+# decimals; the worst relative gap reads 2^-9.5 on an H100)
+DEMO_LOSS_RTOL = 2.0 ** -6
+# (completed requests, prefix-hit blocks) as each serving example prints
+# them
+EXAMPLE_COUNTS = re.compile(r"(?:served|done:|all completed:) (\d+)"
+                            r"|prefix-hit blocks[^\d]*(\d+)")
+DEMO_WALL = re.compile(r"\((?:save |restore )?\d+\.\d+s\)")
+DEMO_STEP = re.compile(r"step +(\d+) loss (\S+) lr (\S+) gnorm (\S+)")
+
+
+def load_script(rel: str):
+    """A script of the repo (``examples/*.py``, ``scripts/*.py``) as a
+    module, by path."""
+    import importlib.util
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def quiet():
+    """Keep a script's own printing out of this run's output (its run()
+    returns what it printed)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        yield
+
+
+@contextlib.contextmanager
+def engine_runs(out):
+    """Record, for every ``ServingEngine.run``, whether work was left."""
+    from repro_torch.serving.engine import ServingEngine
+    orig = ServingEngine.run
+
+    def run(self, *a, **k):
+        stats = orig(self, *a, **k)
+        out.append(self.scheduler.has_work())
+        return stats
+    ServingEngine.run = run
+    try:
+        yield
+    finally:
+        ServingEngine.run = orig
+
+
+def demo_lines(text):
+    """The train demo's lines with wall-clock readings and the launch
+    report masked, and its step lines' (step, lr, loss, gnorm)."""
+    lines, steps = [], []
+    for line in text.splitlines()[1:]:
+        if line.startswith("kernel launches:"):
+            continue
+        m = DEMO_STEP.match(line)
+        if m:
+            steps.append((int(m.group(1)), m.group(3), float(m.group(2)),
+                          float(m.group(4))))
+            continue
+        if line.startswith("final loss:"):
+            steps.append(("final", None, float(line.split()[-1]), None))
+            continue
+        lines.append(DEMO_WALL.sub("(s)", line))
+    return lines, steps
+
+
+def seed_demo_checkpoints(cfg, dirs) -> None:
+    """A step-0 checkpoint of ``cfg``'s seeded weights on the card and
+    their fresh AdamW state in each of ``dirs``, which the train demo
+    resumes from."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training import checkpoint as ckpt_mod
+    from repro_torch.training import optimizer as opt_mod
+    params = build_model(cfg).init_params(0, device="cuda")
+    tree = (params, opt_mod.init_state(params))
+    for d in dirs:
+        ckpt_mod.CheckpointManager(str(d)).save(0, tree)
+
+
+def phase_examples(torch, kernel_fns, card) -> dict:
+    """The README's examples on the card (``examples/torch_*.py``):
+    the three serving examples and the train demo at their reduced sizes
+    on the card and on the CPU in this process, every line equal but the
+    device line (the demo's: wall-clock readings and its launch report
+    masked, losses and gradient norms within DEMO_LOSS_RTOL); the serving
+    examples at full width, every run finished, their completion and
+    prefix-hit counts the reduced runs'; the train demo cut at DEMO_CUT
+    and relaunched, its final checkpoint equal to the straight run's leaf
+    for leaf; the replay example at 2 sessions x 2 turns.  Every count is
+    zeroed just before each card run and read just after, and its peak
+    memory read as the gain over what was allocated when it started."""
+    import shutil
+    import tempfile
+    from repro_torch.config import reduce_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import EngineConfig
+    t_phase = time.perf_counter()
+    reduced = reduce_config(get_config("llama3.2-1b"))
+    card_params = build_model(reduced).init_params(EngineConfig().seed,
+                                                   device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), card_params)
+    by_path, rows, differ = {}, {}, []
+
+    def on_card(name, fn):
+        for k in kernel_fns.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with quiet():
+            text = fn()
+        torch.cuda.synchronize()
+        by_path[f"examples:{name}"] = {k: f.launches
+                                       for k, f in kernel_fns.items()}
+        peak = torch.cuda.max_memory_allocated()
+        # the example's own peak is the gain over what was held before
+        # it started (the shared reduced params, for the reduced runs)
+        return text, {"wall_s": time.perf_counter() - t0,
+                      "allocated_before_gb": before / 1e9,
+                      "max_memory_allocated_gb": peak / 1e9,
+                      "peak_gain_gb": (peak - before) / 1e9,
+                      "launches": {k: v for k, v in
+                                   by_path[f"examples:{name}"].items()
+                                   if v}}
+
+    finished = []
+    with engine_runs(finished):
+        for name in SERVING_EXAMPLES:
+            ex = load_script(f"examples/torch_{name}.py")
+            on, row = on_card(name, lambda: ex.run(device="cuda",
+                                                   params=card_params))
+            t0 = time.perf_counter()
+            with quiet():
+                off = ex.run(device="cpu", params=cpu_params)
+            row["cpu_wall_s"] = time.perf_counter() - t0
+            full, row["full_width"] = on_card(
+                name + "_full", lambda: ex.run(full_width=True,
+                                               device="cuda"))
+            torch.cuda.empty_cache()
+            row.update(lines=on.splitlines(),
+                       counts=EXAMPLE_COUNTS.findall(on),
+                       full_width_counts=EXAMPLE_COUNTS.findall(full))
+            if on.splitlines()[1:] != off.splitlines()[1:]:
+                differ.append((name, [(a, b) for a, b in zip(
+                    on.splitlines()[1:], off.splitlines()[1:])
+                    if a != b][:4]))
+            if row["counts"] != row["full_width_counts"] or \
+                    not row["counts"]:
+                differ.append((name + "_full", row["full_width_counts"]))
+            rows[name] = row
+    del card_params, cpu_params
+    torch.cuda.empty_cache()
+
+    demo = load_script("examples/torch_train_demo.py")
+    tmp = Path(tempfile.mkdtemp(prefix="train_demo_", dir=ROOT / "build"))
+    try:
+        # every run starts from one step-0 checkpoint of the card's seeded
+        # weights (the launcher's own init draws from the device's
+        # generator, so the CPU's weights would be others)
+        seed_demo_checkpoints(reduced,
+                              [tmp / d for d in ("straight", "cpu", "cut")])
+        straight, row = on_card("train_demo", lambda: demo.run(
+            DEMO_STEPS, str(tmp / "straight"), device="cuda"))
+        t0 = time.perf_counter()
+        with quiet():
+            off = demo.run(DEMO_STEPS, str(tmp / "cpu"), device="cpu")
+        row["cpu_wall_s"] = time.perf_counter() - t0
+        cut_rc = None
+        try:
+            on_card("train_demo_cut", lambda: demo.run(
+                DEMO_STEPS, str(tmp / "cut"), crash_at=DEMO_CUT,
+                device="cuda"))
+        except SystemExit as e:
+            cut_rc = e.code
+        resumed, row["resumed"] = on_card("train_demo_resumed", lambda:
+                                          demo.run(DEMO_STEPS,
+                                                   str(tmp / "cut"),
+                                                   device="cuda"))
+        last = f"ckpt_{DEMO_STEPS:08d}.json"
+        want, got = (json.loads((tmp / d / last).read_text())["leaves"]
+                     if (tmp / d / last).exists() else {}
+                     for d in ("straight", "cut"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (card_lines, card_steps), (cpu_lines, cpu_steps) = (
+        demo_lines(straight), demo_lines(off))
+    worst = max((abs(a[i] - b[i]) / abs(b[i])
+                 for a, b in zip(card_steps, cpu_steps) for i in (2, 3)
+                 if b[i]), default=math.inf)
+    leaves_differ = sorted(k for k in set(want) | set(got)
+                           if want.get(k) != got.get(k))
+    row.update(lines=straight.splitlines(), cut_rc=cut_rc,
+               resumed_from=[line for line in resumed.splitlines()
+                             if line.startswith("resumed from")],
+               leaves=len(want), leaves_differing=leaves_differ[:10],
+               loss_gnorm_worst_rel=worst)
+    rows["train_demo"] = row
+    if card_lines != cpu_lines or [s[:2] for s in card_steps] != \
+            [s[:2] for s in cpu_steps] or not worst <= DEMO_LOSS_RTOL:
+        differ.append(("train_demo", [(a, b) for a, b in zip(
+            card_lines, cpu_lines) if a != b][:4], worst))
+
+    replay = load_script("examples/torch_trace_replay_serving.py")
+    text, row = on_card("trace_replay_serving",
+                        lambda: replay.run(2, 2, device="cuda"))
+    row["lines"] = text.splitlines()
+    rows["trace_replay_serving"] = row
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "examples", "card": card, "wall_s": wall,
+          "examples": rows, "engine_runs": len(finished),
+          "engine_runs_left_work": sum(finished), "differ": differ})
+    if differ:
+        raise AssertionError(f"examples: card and CPU (or full-width and "
+                             f"reduced) runs differ: {differ}")
+    if not finished or any(finished):
+        raise AssertionError(f"examples: {sum(finished)} of "
+                             f"{len(finished)} engine runs left work")
+    resumed_at = [line.split()[3] for line in
+                  rows["train_demo"]["resumed_from"]]
+    if not all(line.startswith("resumed from step 0 ") for line in
+               (straight.splitlines()[1], off.splitlines()[1])):
+        raise AssertionError("examples: the train demo did not start from "
+                             "the seeded step-0 checkpoint")
+    if cut_rc != 17 or resumed_at != [str(DEMO_CUT)] or not want \
+            or leaves_differ:
+        raise AssertionError(f"examples: the train demo cut at {DEMO_CUT} "
+                             f"(exit {cut_rc}) and relaunched differs from "
+                             f"the straight run in {len(leaves_differ)} of "
+                             f"{len(want)} leaves, or did not resume")
+    if sum("4 turns" in line for line in rows["trace_replay_serving"][
+            "lines"]) != 2:
+        raise AssertionError("examples: the replay example did not finish "
+                             "its 4 turns under both policies")
+    for name in SERVING_EXAMPLES:
+        for path in (name, name + "_full"):
+            for k in GQA_PATH[:2]:
+                if by_path[f"examples:{path}"][k] <= 0:
+                    raise AssertionError(f"kernel {k} never launched on "
+                                         f"the examples:{path} path")
+    if by_path["examples:train_demo"]["flash_prefill_bwd"] <= 0:
+        raise AssertionError("the train demo launched no flash prefill "
+                             "backward")
+    return by_path
+
+
+def phase_chaos(torch, kernel_fns, card) -> dict:
+    """``scripts/torch_replay_smoke.py``'s chaos replay on the card (its
+    fault profile: transient read / write errors and payload corruption
+    on tiers 1-5, fault seed 3, 4 hot and 8 tier-1 blocks; the smoke's
+    own checks: no request hung, a retry absorbed, every injected
+    corruption caught by its crc32 check), every counter equal to the
+    CPU run's (CHAOS_PINS); kernels 1-3's launches counted."""
+    smoke = load_script("scripts/torch_replay_smoke.py")
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with quiet():
+        res = smoke.chaos_smoke(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    got = dataclasses.asdict(res)
+    mismatch = {k: (got[k], v) for k, v in CHAOS_PINS.items()
+                if got[k] != v}
+    emit({"phase": "chaos", "card": card, "wall_s": wall,
+          "launches": {k: launches[k] for k in GQA_PATH},
+          **{k: got[k] for k in CHAOS_PINS},
+          "ttft_p50": got["ttft_p50"], "retry_delay_s": got["retry_delay_s"],
+          "tier_health": got["tier_health"],
+          "pins_equal": not mismatch})
+    if mismatch:
+        raise AssertionError(f"chaos: counters differ from the CPU pins "
+                             f"(got, pinned): {mismatch}")
+    for name in GQA_PATH[:2]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"chaos path")
+    return launches
 
 
 REPLACES = {
@@ -3929,6 +4276,7 @@ def main() -> int:
     rows.update(phase_dense_kernels(torch, ops, smi))
     rows.update(phase_train_kernels(torch, smi))
     phase_decode_lse(torch, ops, smi)
+    memory_left(torch, "kernels")
 
     # each path is driven with every count zeroed just before it; a
     # kernel's launches are those of its own path (``by_path``: every
@@ -3941,6 +4289,7 @@ def main() -> int:
     phase_parity(torch, params, smi)
     del params
     torch.cuda.empty_cache()
+    memory_left(torch, "serve")
     granite = get_config("granite-moe-3b-a800m")
     params, by_path["moe_serve"] = phase_serve(
         torch, kernel_fns, GQA_PATH, smi, granite, EngineConfig(),
@@ -3952,6 +4301,7 @@ def main() -> int:
                          max_len=EngineConfig().max_len)).n_slots)
     del params
     torch.cuda.empty_cache()
+    memory_left(torch, "moe_serve")
     params, by_path["mla_serve"] = phase_serve(
         torch, kernel_fns, MLA_PATH, smi, mla_cfg,
         EngineConfig(max_len=MLA_MAX_LEN), system_blocks=1, shared_tail=588,
@@ -3975,6 +4325,7 @@ def main() -> int:
     phase_mla_dense_parity(torch, params, mla_cfg, smi)
     del params
     torch.cuda.empty_cache()
+    memory_left(torch, "mla")
 
     llama = get_config("llama3.2-1b")
     params, by_path["dense_serve"] = phase_serve(
@@ -3995,6 +4346,7 @@ def main() -> int:
     phase_dense_parity(torch, params, llama, smi)
     del params
     torch.cuda.empty_cache()
+    memory_left(torch, "dense")
 
     # the cross-attention families on the dense slot state
     for name, prompts, max_len, steps, prompt, phase in (
@@ -4011,6 +4363,7 @@ def main() -> int:
                            max_len, phase + "_parity")
         del params
         torch.cuda.empty_cache()
+        memory_left(torch, phase)
 
     # the recurrent families on their dense per-row state
     for name, phase in (("zamba2-1.2b", "hybrid"), ("rwkv6-1.6b", "rwkv")):
@@ -4026,17 +4379,22 @@ def main() -> int:
         phase_recurrent_checks(torch, smi, cfg, params, phase + "_checks")
         del params
         torch.cuda.empty_cache()
+        memory_left(torch, phase)
 
     # training: llama3.2-1b at full width and depth, then the same step at
     # two layers against the plain versions and across a checkpoint, then
     # one step of the other families
     by_path["train"] = phase_train(torch, kernel_fns, smi, llama)
     launches["flash_prefill_bwd"] = by_path["train"]["flash_prefill_bwd"]
+    memory_left(torch, "train")
     phase_train_parity(torch, smi, llama)
+    memory_left(torch, "train_parity")
     phase_train_resume(torch, smi, llama)
+    memory_left(torch, "train_resume")
     for name, counts in phase_train_families(torch, kernel_fns,
                                              smi).items():
         by_path[f"train_families:{name}"] = counts
+    memory_left(torch, "train_families")
     # MLA trains in the non-absorbed form: kernel 7 and its backward at
     # Q/K 192 over V 128
     by_path["train_mla"] = phase_train(
@@ -4046,6 +4404,7 @@ def main() -> int:
     phase_train_parity(torch, smi, mla_cfg, phase="train_mla_parity",
                        layers=1, batch=TRAIN_MLA_PARITY_BATCH,
                        seq=TRAIN_MLA_PARITY_SEQ, attn_leaves=MLA_ATTN_LEAVES)
+    memory_left(torch, "train_mla")
     # the launcher under a one-rank nccl group, crash and resume included,
     # against the same command with no group (its own processes: their
     # launches are their own counts, printed by each run)
@@ -4053,12 +4412,14 @@ def main() -> int:
                                       llama).items():
         by_path[f"train_launch:{name}"] = {
             k: r["launches"].get(k, 0) for k in kernel_fns}
+    memory_left(torch, "train_launch")
 
     # distribution and launch analysis: the dry run's cells, then its
     # estimates held to llama3.2-1b's entry points on the card
     phase_dryrun(smi)
     for sname, counts in phase_dryrun_card(torch, kernel_fns, smi).items():
         by_path[f"dryrun_card:{sname}"] = counts
+    memory_left(torch, "dryrun_card")
 
     phase_replay(torch, kernel_fns, smi)
     full = replay_full_config()
@@ -4066,6 +4427,11 @@ def main() -> int:
     phase_replay_full(torch, kernel_fns, smi, full, params)
     phase_cluster(torch, kernel_fns, smi, full, params)
     phase_frontend(torch, kernel_fns, smi, full, params)
+    del params
+    torch.cuda.empty_cache()
+    memory_left(torch, "frontend")
+    by_path.update(phase_examples(torch, kernel_fns, smi))
+    by_path["chaos"] = phase_chaos(torch, kernel_fns, smi)
 
     summary = []
     for name, row in rows.items():

@@ -26,7 +26,7 @@
 // tensor cores.  Two bodies, chosen by type and width in the C entry
 // below (never a retry after a failure):
 //
-// * bf16 at hd 64 and 128 -- the tensor-core body (`mma.sync.m16n8k16`,
+// * bf16 at hd 16, 64 and 128 -- the tensor-core body (`mma.sync.m16n8k16`,
 //   float32 accumulators, mma_common.cuh), 4 warps a block:
 //   - `bwd_dkdv_tc`: one block per (64-key tile, KV head, sequence), a
 //     warp per 16 keys.  It walks the G query heads of the group and,
@@ -72,7 +72,8 @@
 //   float32 (the CPU-parity checks) stays on the CUDA cores' 67 TFLOP/s.
 //
 // Widths: Q/K hd, V, O and dO hdv; (hd, hdv) is (64, 64), (128, 128) (the
-// trainable GQA families) or (192, 128) (MLA).  Layouts: q/dq
+// trainable GQA families), (16, 16) (their reduced configurations, which
+// the examples train) or (192, 128) (MLA).  Layouts: q/dq
 // [B,S,Hq,hd]; o/dO [B,S,Hq,hdv]; k/dk [B,S,Hkv,hd]; v/dv [B,S,Hkv,hdv];
 // lse and the D scratch [B,Hq,S] float32.  One type (float32 or bfloat16)
 // for q, k, v, o, dO and the gradients; float32 everywhere inside.  The
@@ -214,7 +215,7 @@ __device__ __forceinline__ void probs_tile(const Smem<DK, DV>& sm, int i0,
 }  // namespace flash_bwd
 
 // D = rowsum(dO o O): L = hd * sizeof(T) / 16 neighbouring lanes a (b, i,
-// h) row (8 or 16 in bf16, 16 or 32 in float32), 16 bytes of o and of dO
+// h) row (hd / 8 in bf16, hd / 4 in float32), 16 bytes of o and of dO
 // each.
 template <typename T>
 __global__ void bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
@@ -1086,9 +1087,11 @@ static int launch_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The width pairs the backward takes: (64, 64), (128, 128), (192, 128).
+// The width pairs the backward takes: (16, 16), (64, 64), (128, 128),
+// (192, 128).
 static bool widths_ok(int hd, int hdv) {
-  return (hd == hdv && (hd == 64 || hd == 128)) || (hd == 192 && hdv == 128);
+  return (hd == hdv && (hd == 16 || hd == 64 || hd == 128)) ||
+         (hd == 192 && hdv == 128);
 }
 
 // The tensor-core body takes bf16 at every accepted pair.
@@ -1115,6 +1118,9 @@ extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (tensor_core(hd, hdv, dtype)) {
+    if (hd == 16)
+      return launch_tc<16, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                               partials, B, S, Hq, Hkv, scale, kv_chunk, st);
     if (hd == 64)
       return launch_tc<64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                partials, B, S, Hq, Hkv, scale, kv_chunk, st);
@@ -1126,6 +1132,9 @@ extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
                                partials, B, S, Hq, Hkv, scale, kv_chunk, st);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (hd == 16)
+    return launch_f32<16, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                              Hq, Hkv, scale, st);
   if (hd == 64)
     return launch_f32<64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
                               Hq, Hkv, scale, st);

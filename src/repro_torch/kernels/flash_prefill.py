@@ -54,9 +54,10 @@ FLASH_ARGS = [PTR] * 5 + [INT] * 6 + [FLT, INT, PTR]
 # stream
 FLASH_BWD_ARGS = [PTR] * 11 + [INT] * 6 + [FLT, INT, INT, PTR]
 # (dk, dv) width pairs: the forward takes any dk == dv and MLA's pair;
-# the backward the trainable families' (64, 64), (128, 128) and MLA's
+# the backward the trainable families' (64, 64), (128, 128), their
+# reduced configurations' (16, 16) and MLA's
 MLA_WIDTHS = (192, 128)
-BWD_WIDTHS = ((64, 64), (128, 128), MLA_WIDTHS)
+BWD_WIDTHS = ((16, 16), (64, 64), (128, 128), MLA_WIDTHS)
 # the dK/dV grid: one block a (64-key tile, KV head, sequence) when that
 # gives each of the H100's 132 SMs two; else the walks are cut into
 # chunks of at least 2 query tiles, about 2 x 132 blocks in all

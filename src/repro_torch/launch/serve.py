@@ -34,8 +34,21 @@ import numpy as np
 
 from repro_torch.config import reduce_config
 from repro_torch.configs import get_config
+from repro_torch.core import sizing
 from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
 from repro_torch.serving.cluster import ROUTERS, ReplicaCluster
+
+
+def width_config(arch: str, full_width: bool, kv_budget_bytes: float):
+    """(config, budget): ``arch`` reduced with ``kv_budget_bytes``, or at
+    its published width with the budget scaled by the ratio of the two
+    block sizes, so that the pool holds as many blocks and slots."""
+    full = get_config(arch)
+    reduced = reduce_config(full)
+    if not full_width:
+        return reduced, kv_budget_bytes
+    return full, kv_budget_bytes * (sizing.block_bytes(full)
+                                    / sizing.block_bytes(reduced))
 
 
 def run_open_loop(fe, arrivals) -> float:

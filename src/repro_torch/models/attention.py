@@ -208,9 +208,13 @@ def cross_kv(p: Dict, mem: torch.Tensor):
 
 
 def cross_attention(p: Dict, h: torch.Tensor, xk: torch.Tensor,
-                    xv: torch.Tensor) -> torch.Tensor:
+                    xv: torch.Tensor, shd=NOSHARD) -> torch.Tensor:
     """Queries of h [B,S,D] over the memory's xk/xv [B,P,Hkv,hd]
-    (``full_attention``), through the output projection: [B,S,D]."""
+    (``full_attention``), through the output projection: [B,S,D].
+    Under a mesh h enters whole, and the query product's partial input
+    gradient is all-reduced there (as ``project_qkv``'s is), before the
+    norm that made h runs its backward."""
+    h = shd(h, "batch", "seq", None)
     return out_proj(full_attention(_proj(h, p["wq"]), xk, xv), p["wo"])
 
 

@@ -30,6 +30,14 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def device_line(device: torch.device) -> str:
+    """The line an example prints first: the device it runs on, and for
+    the card its name."""
+    if device.type == "cuda":
+        return f"device: {device} ({torch.cuda.get_device_name(device)})"
+    return f"device: {device}"
+
+
 # ---------------------------------------------------------------------------
 # Parameter declaration
 # ---------------------------------------------------------------------------

@@ -99,7 +99,6 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (FAMILY_DECODER, FAMILY_ENCDEC,
@@ -728,7 +727,7 @@ class VLMModel(DecoderModel):
         """x + tanh(gate) * cross-attention of ln(x) over xk/xv (the gate
         in float32, cast to x's dtype)."""
         h = rms_norm(x, cp["ln"], self.cfg.norm_eps)
-        o = attn.cross_attention(cp["attn"], h, xk, xv)
+        o = attn.cross_attention(cp["attn"], h, xk, xv, self.shd)
         return self._residual(
             x + torch.tanh(cp["gate"].float()).to(x.dtype) * o)
 
@@ -870,23 +869,28 @@ class EncDecModel(Model):
             x = self._residual(x + attn.out_proj(
                 attn.full_attention(q, k, v), lp["attn"]["wo"]))
             x = self._ffn_residual(lp, x, "ln2", self.shd)
-        return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+        # the decoder layers' partial K/V input gradients, summed, are
+        # all-reduced here, before the final norm's backward
+        return self.shd(rms_norm(x, params["ln_enc"], cfg.norm_eps),
+                        "batch", "seq", None)
 
     def _embed_dec(self, params, tokens, positions):
         """The decoder's token embedding plus sinusoidal positions; a
         decode step's single token through ``shd.embed_lookup``, as the
-        JAX package looks it up."""
+        JAX package looks it up, a prompt as ``_embed`` looks it up (its
+        vocab-sharded rows summed over the shards by one all-reduce, as
+        JAX's gather is)."""
         if tokens.shape[-1] == 1:
             x = self.shd.embed_lookup(params["embed"],
                                       tokens[:, 0])[:, None, :]
         else:
-            x = F.embedding(tokens.long(), params["embed"])
+            x = self._embed(params, tokens)
         return x + sinusoid_at(positions, self.cfg.d_model, x.dtype)
 
     def _cross(self, lp, x, xk, xv):
         h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
         return self._residual(
-            x + attn.cross_attention(lp["xattn"], h, xk, xv))
+            x + attn.cross_attention(lp["xattn"], h, xk, xv, self.shd))
 
     def _dec_layer(self, lp, x, enc_out, backend=None):
         """One decoder layer over a whole prompt from position 0: causal
@@ -1030,8 +1034,8 @@ class HybridModel(Model):
         q, k, v = attn.project_qkv(sp["attn"], h, positions, self.cfg,
                                    shd=self.shd)
         o = attn.causal_attention(q, k, v, backend=backend, shd=self.shd)
-        return self._shared_ffn(sp, x + attn.out_proj(o, sp["attn"]["wo"])), \
-            (k, v)
+        x = self._residual(x + attn.out_proj(o, sp["attn"]["wo"]))
+        return self._shared_ffn(sp, x), (k, v)
 
     def _mamba_layer(self, lp, x):
         return self._residual(x + ssm.mamba_block(

@@ -209,8 +209,36 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         y = torch.bmm(h, p["w_down"]).view(-1, d)
         out = (w[..., None] * y[rows].float()).sum(dim=2).to(x.dtype)
     # load-balance auxiliary loss (Switch eq. 4)
-    frac_tokens = (top_i[..., None] == torch.arange(e, device=x.device)
-                   ).float().sum(dim=2).mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
+    if shd.active and is_dtensor(xg):
+        counts, prob_sums = _sharded_load_sums(top_i, probs, e)
+        frac_tokens, frac_probs = counts / t, prob_sums / t
+    else:
+        frac_tokens = (top_i[..., None] == torch.arange(e, device=x.device)
+                       ).float().sum(dim=2).mean(dim=(0, 1))
+        frac_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * frac_probs) / k
     return out.reshape(b, s, d), aux
+
+
+def _sharded_load_sums(top_i, probs, e: int):
+    """Each expert's top-k choices and its summed probability, [E]
+    float32 each, per data shard of the groups: partial sums over the
+    data axes, which the aux loss's product all-reduces.  Each shard's
+    probabilities take their gradient locally, in their own placement
+    (the gradient of a partial sum is whole on every rank), where a
+    global mean's backward makes the [G,t,E] gradient a partial sum to
+    reduce-scatter."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    g_pl = list(probs.placements)
+    sum_pl = [Partial() if pl.is_shard() else Replicate() for pl in g_pl]
+
+    def sums(top_i, probs):
+        counts = (top_i[..., None] == torch.arange(e, device=top_i.device)
+                  ).float().sum(dim=(0, 1, 2))
+        return counts, probs.sum(dim=(0, 1))
+    return local_map(sums, out_placements=(sum_pl, sum_pl),
+                     in_placements=(g_pl, g_pl),
+                     in_grad_placements=(g_pl, g_pl),
+                     device_mesh=probs.device_mesh,
+                     redistribute_inputs=True)(top_i, probs)

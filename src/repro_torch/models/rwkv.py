@@ -77,9 +77,28 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None
     return torch.cat([last[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
 
 
+class _Sigmoid(torch.autograd.Function):
+    """sigmoid whose backward multiplies the gradient by the saved
+    s (1 - s): linear in the gradient, so a partial sum stays one (on
+    DTensors a mixing weight's gradient, a partial sum over the batch's
+    data shards, then reaches ZeRO-1's reduce-scatter with the other
+    weights'; DTensor's own sigmoid backward all-reduces it first)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def _mix(x: torch.Tensor, xprev: torch.Tensor,
          mu: torch.Tensor) -> torch.Tensor:
-    m = torch.sigmoid(mu.float()).to(x.dtype)
+    m = _Sigmoid.apply(mu.float()).to(x.dtype)
     return x + (xprev - x) * m
 
 
@@ -87,8 +106,10 @@ def _log_decay(p: Dict, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent log-decay in [-LOG_CLAMP, -1e-4]: xw [..., D] ->
     [..., H, hd] float32."""
     lora = torch.matmul(xw, p["decay_a"])
-    w = torch.einsum("...l,lhk->...hk", torch.tanh(lora.float()),
-                     p["decay_b"].float())
+    # one [.., L] x [L, H*hd] product, as JAX's dot (an einsum here runs
+    # it as a batched product of one)
+    w = torch.tensordot(torch.tanh(lora.float()), p["decay_b"].float(),
+                        dims=1)
     w = p["decay_0"].float() + w
     return -torch.clamp(softplus(w) + 1e-4, 1e-4, LOG_CLAMP)
 
@@ -190,6 +211,12 @@ def _time_mix_inputs(p: Dict, x: torch.Tensor, xprev: torch.Tensor,
     and its shifted xprev."""
     xr, xk, xv, xw, xg = (_mix(x, xprev, p[m]) for m in
                           ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"))
+    # each product's input is constrained whole under a mesh, so the
+    # partial sum of its gradient (the weight is split over ``model``) is
+    # all-reduced where it enters, as JAX's partitioned step reduces it,
+    # before the mix and shift run their backward; channel_mix's too
+    xr, xk, xv, xw, xg = (shd(a, "batch", "seq", None)
+                          for a in (xr, xk, xv, xw, xg))
     r, k, v = (shd(_proj(a, p[w]), "batch", "seq", "heads", None)
                for a, w in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
     g = F.silu(_proj(xg, p["w_g"]).float())
@@ -220,8 +247,8 @@ def channel_mix(p: Dict, x: torch.Tensor,
                 last: Optional[torch.Tensor] = None,
                 shd=NOSHARD) -> torch.Tensor:
     xprev = _shift(x, last)
-    xk = _mix(x, xprev, p["cmu_k"])
-    xr = _mix(x, xprev, p["cmu_r"])
+    xk = shd(_mix(x, xprev, p["cmu_k"]), "batch", "seq", None)
+    xr = shd(_mix(x, xprev, p["cmu_r"]), "batch", "seq", None)
     k = torch.matmul(xk, p["cw_k"])
     k = shd(torch.square(torch.relu(k.float())).to(x.dtype),
             "batch", "seq", "mlp")

@@ -168,15 +168,21 @@ def ssd_step(state: torch.Tensor, xt: torch.Tensor, dt: torch.Tensor,
 def _mamba_inputs(p: Dict, x: torch.Tensor, cfg: ModelConfig, shd=NOSHARD):
     """The projections of a prompt x [B,S,D]: z, the conv inputs
     (x_pre, b_pre, c_pre: the raw projections a conv state keeps) and
-    the SSD operands."""
-    z = torch.matmul(x, p["w_z"])
+    the SSD operands.  Under a mesh the input gradients that arrive as
+    partial sums over ``model`` (the head- and inner-split products',
+    and B's and C's from the head-split SSD) are all-reduced where x, B
+    and C enter (as JAX's step all-reduces them), so the norm before
+    the block and the B / C convolutions run their backward whole."""
+    x = shd(x, "batch", "seq", None)
+    z = shd(torch.matmul(x, p["w_z"]), "batch", "seq", "inner")
     x_pre = torch.matmul(x, p["w_x"])
     b_pre = torch.matmul(x, p["w_B"])
     c_pre = torch.matmul(x, p["w_C"])
     xs = shd(F.silu(_causal_conv(x_pre, p["conv_x"]).float()).to(x.dtype),
              "batch", "seq", "inner")
-    b_in = F.silu(_causal_conv(b_pre, p["conv_B"]).float())
-    c_in = F.silu(_causal_conv(c_pre, p["conv_C"]).float())
+    b_in, c_in = (shd(F.silu(_causal_conv(t, p[w]).float()), "batch", "seq",
+                      None)
+                  for t, w in ((b_pre, "conv_B"), (c_pre, "conv_C")))
     dt = softplus(torch.matmul(x, p["w_dt"]).float() + p["dt_bias"].float())
     return z, (x_pre, b_pre, c_pre), xs, b_in, c_in, dt
 
@@ -186,6 +192,16 @@ def _mamba_out(p: Dict, y: torch.Tensor, z: torch.Tensor,
     """The gated norm and the output projection of y [..., d_inner]."""
     y = rms_norm(y * F.silu(z.float()).to(dtype), p["norm"], cfg.norm_eps)
     return torch.matmul(y, p["w_out"])
+
+
+def _skip(d: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
+    """The skip term D x of xh [B,S,H,P], D [H]; on DTensors per shard
+    of rows and heads, so D's gradient is its head shard's (DTensor's
+    broadcast product would make it a partial sum of the whole D)."""
+    if is_dtensor(xh):
+        return per_shard(lambda x, dd: _skip(dd, x), (xh, d),
+                         ((0, 2), (None, 0)), ((0, 2),))
+    return d[None, None, :, None] * xh
 
 
 def mamba_block_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -205,7 +221,7 @@ def mamba_block_with_state(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     a = -torch.exp(p["A_log"].float())
     xh = xs.reshape(bsz, s, h, hd)
     y, final = ssd_chunked(xh, dt, a, b_in, c_in)
-    y = y + p["D"][None, None, :, None] * xh
+    y = y + _skip(p["D"], xh)
     out = _mamba_out(p, y.reshape(bsz, s, cfg.d_inner), z, x.dtype, cfg)
     state = {"ssm": final}
     for key, t in zip(("conv_x", "conv_B", "conv_C"), pre):

@@ -200,20 +200,30 @@ def test_peak_hint_is_the_trace_peak(world):
 JAX_MESHES = {1: (1, 1), 4: (2, 2)}
 # the reduced MoE cell, held at 2x2 only
 MOE_CELL = ("granite-moe-1b-a400m", "train_4k")
+# the recurrent and cross-attention families' train cells, held at 1x1
+# and 2x2
+FAMILY_CELLS = (("rwkv6-1.6b", "train_4k"), ("zamba2-1.2b", "train_4k"),
+                ("whisper-tiny", "train_4k"))
 
 
 def _jax_cells(n_dev: int) -> dict:
     """Run in a child process whose XLA_FLAGS give the CPU ``n_dev``
     devices (the test process keeps its one): each reduced llama3.2-1b
-    cell (and at 2x2 ``MOE_CELL``, keyed "arch/shape") lowered by JAX's
-    ``lower_cell`` on a ``JAX_MESHES[n_dev]`` mesh and compiled.  Per
-    cell, the flops of the ``dot`` ops without batch dimensions (the
-    weight products; the batched ones are the ``jnp`` attention, which
-    the port runs as kernels), each multiplied by its enclosing loops'
-    trip counts as ``hlocost`` does, ``hlocost.analyze``'s collectives
-    (floats charged at 2 bytes) and every all-reduce's elements
-    (``ar_elems``: each operand's dims, as many times as its loops run;
-    ``hlocost`` charges a tuple all-reduce half its elements' bytes)."""
+    cell and ``FAMILY_CELLS`` (and at 2x2 ``MOE_CELL``; keyed
+    "arch/shape") lowered by JAX's ``lower_cell`` on a
+    ``JAX_MESHES[n_dev]`` mesh and compiled.  Per cell, the flops of the
+    ``dot`` ops without batch dimensions (the weight products; the
+    batched ones are the ``jnp`` attention, which the port runs as
+    kernels), each multiplied by its enclosing loops' trip counts as
+    ``hlocost`` does; ``weight_flops``, those of them whose einsum (the
+    op's name) takes a weight as its second operand, one with no batch
+    index "b" (XLA drops a batch dim of size one, which turns a mixer's
+    product over one row and one chunk into a dot without batch
+    dimensions, and names it no einsum); ``hlocost.analyze``'s
+    collectives (floats charged at 2 bytes) and every all-reduce's
+    elements (``ar_elems``: each operand's dims, as many times as its
+    loops run; ``hlocost`` charges a tuple all-reduce half its
+    elements' bytes)."""
     import numpy as np
     devices = jax.devices()     # before JAX's dryrun module sets XLA_FLAGS
     assert len(devices) == n_dev
@@ -222,7 +232,7 @@ def _jax_cells(n_dev: int) -> dict:
     mesh = jax.sharding.Mesh(np.array(devices).reshape(JAX_MESHES[n_dev]),
                              ("data", "model"))
     out = {}
-    cells = [("llama3.2-1b", sname) for sname in KINDS]
+    cells = [("llama3.2-1b", sname) for sname in KINDS] + list(FAMILY_CELLS)
     if n_dev > 1:
         cells.append(MOE_CELL)
     for arch, sname in cells:
@@ -245,6 +255,7 @@ def _jax_cells(n_dev: int) -> dict:
             slots = cfg.layout_n_experts * max(4, math.ceil(
                 t // ng * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
         flops = [0.0]
+        weight_flops = [0.0]
         expert_flops = [0.0]
         ar_elems = []
 
@@ -286,10 +297,17 @@ def _jax_cells(n_dev: int) -> dict:
                             expert_flops[0] += f
                     elif slots is None or str(slots) not in dims:
                         flops[0] += f
+                        name = re.search(r'op_name="([^"]*)"', op.line)
+                        specs = re.findall(r"([\w.]+(?:,[\w.]+)+)->",
+                                           name.group(1) if name else "")
+                        operands = specs[-1].split(",") if specs else []
+                        if len(operands) == 2 and "b" not in operands[1]:
+                            weight_flops[0] += f
 
         walk(entry, 1)
         key = sname if arch == "llama3.2-1b" else f"{arch}/{sname}"
-        out[key] = {"dot_flops": flops[0], "expert_flops": expert_flops[0],
+        out[key] = {"dot_flops": flops[0], "weight_flops": weight_flops[0],
+                    "expert_flops": expert_flops[0],
                     "collectives": hlocost.analyze(hlo).collectives,
                     "ar_elems": [d for ds in ar_elems for d in ds]}
     return out
@@ -311,11 +329,18 @@ def jax_cells():
 
 class _Width2Counter(opcost.OpCounter):
     """The op counter, also charging each collective's floats at 2 bytes
-    (``wire2``), the width hlocost charges them at, and listing each
-    all-reduce's result shape (``shapes``)."""
+    (``wire2``), the width hlocost charges them at, listing each
+    all-reduce's result shape (``shapes``), and summing the flops of the
+    products without a batch dimension (``mm_flops``: ``mm`` and
+    ``addmm``; the port runs every weight product as one)."""
 
     def _count(self, func, args, kwargs, ins, res, out):
         name = func._schema.name.split("::")[-1]
+        if name in ("mm", "addmm"):
+            from torch.utils.flop_counter import flop_registry
+            self.summary.mm_flops = getattr(self.summary, "mm_flops", 0.0) \
+                + float(flop_registry[func._overloadpacket](
+                    *args, **kwargs, out_val=out))
         if func.namespace == "_c10d_functional" and name in opcost.COLLECTIVES:
             g, _ = opcost._group(args[-1])
             rbytes = sum(t.numel() * (2 if t.is_floating_point()
@@ -422,19 +447,25 @@ def test_cell_costs_against_jax(world, jax_cells, monkeypatch, sname, n_dev):
 #   sum (20480): 10240 a layer; q, k, v as in the dense cell: 4096 a
 #   layer;
 # * the router's load statistics [E] float32: JAX's forward tuple of two
-#   (charged 8) and its recompute's one (8) against the port's two in
-#   the forward (16), a layer: 0;
-# * the port's extras, 768 a layer: its token-space combine makes the
+#   (charged 8) and its recompute's one (8) against the port's one in the
+#   forward (the top-k counts, 8) and one in the backward (the gradient
+#   of the summed probabilities, a partial sum over "data" in the
+#   forward, arrives whole: 8), a layer: 0; the port multiplies the
+#   counts into the probabilities' partial sum and all-reduces the aux
+#   loss itself, both layers' [2] at once in the loss: 4;
+# * the port's extra, 256 a layer: its token-space combine makes the
 #   combine weights' gradient [B,S,k] a partial sum over "model" (an
-#   all-reduce, 256), and the probabilities' gradient [B,S,E] of the
-#   load loss arrives a partial sum over "data" and is reduce-scattered
-#   into their split (512);
+#   all-reduce, 256); it pays for reducing the expert output in token
+#   space, 12288 a layer less (above). The load statistics are summed
+#   per data shard (``moe._sharded_load_sums``), so the probabilities'
+#   gradient [B,S,E] stays local: no reduce-scatter;
 # * the weight gradients: as the dense cell's, but for the router
 #   [L,D,E]: JAX charges its [E,D/2] tuple element 128 a layer, the
 #   port's ZeRO-1 reduce-scatter moves 512: -256 in all;
 # * the loss and scalars as the dense cell's (-59 + 8: JAX's scalar
 #   tuples hold 16 elements here).
-MOE_MINUS = (2 * 12288 + 2 * 10240 + 2 * 4096 - 2 * 768 - 256 - 59 + 8)
+MOE_MINUS = (2 * 12288 + 2 * 10240 + 2 * 4096 - 4 - 2 * 256 - 256
+             - 59 + 8)
 
 
 # The router's weight gradient: JAX computes an [E, D/2] half of it a
@@ -460,6 +491,131 @@ def test_moe_train_costs_against_jax(world, jax_cells, monkeypatch):
     wire = sum(s.collectives.get(k, {}).get("wire2", 0.0)
                for k in ("all_reduce", "reduce_scatter_tensor"))
     assert wire == j["collectives"]["all-reduce"]["wire"] - MOE_MINUS
+
+
+# The family cells at 2x2, op by op, hlocost's all-reduce bytes against
+# the port's sum reductions (JAX's less the port's; floats at 2 bytes;
+# batch 1 and S 64 a device, D 64, 4 heads of 16 split 2 a device; a
+# decoder-side [B,S,D] all-reduce 8192 bytes).  On every side the same
+# forward [B,S,D] all-reduces (the embedding and each row-parallel
+# product), the same of remat's recompute and of the logits' backward;
+# the port all-reduces each group of partial input gradients once, on
+# their sum, where JAX all-reduces a tuple of them (charged half its
+# elements' bytes), and reduce-scatters the weight gradients into ZeRO-1's
+# split where JAX all-reduces tuples over "data" (the same bytes, but as
+# stated).  The loss: JAX's max and sum [B,S] all-reduces and a tuple of
+# scalars with the label logits [B,S,1] against the port's three [B,S]
+# all-reduces (384).  The scalars: JAX's scalar tuples against the
+# port's four gradient-norm all-reduces (8).
+FAMILY_MINUS = {
+    # rwkv6-1.6b, 2 layers, decay LoRA 32, F 128:
+    # * the loss: 128 + 128 + (7 x 2 + 128) / 2 = 327 against 384: -57;
+    # * the time mix's input gradients: JAX's tuple of five (the r, k, v,
+    #   g products' [B,S,D] and the decay LoRA activation's [B,S,32],
+    #   36864 bytes) charged 18432 a layer, against the port's four
+    #   [B,S,D] all-reduces and its reduce-scatter of the LoRA
+    #   activation's gradient into the sequence split (2048; gathered
+    #   whole at the decay's input, where JAX reduces the whole and
+    #   splits the product after): -16384 a layer;
+    # * the channel mix's: JAX's tuple of two [B,S,D] charged 8192 a
+    #   layer (XLA splits the receptance product cw_r over "model", so
+    #   xr's gradient is a partial sum too); the rules keep cw_r whole,
+    #   so the port all-reduces xk's alone, 8192: 0;
+    # * the port's extra, 4096 a layer: the gate's backward reads the
+    #   value product kv as DTensor saved it, a partial sum (the port
+    #   all-reduces the channel mix's output after the gate, in the
+    #   residual: one forward all-reduce, as JAX's), and reduce-scatters
+    #   it. It stays: reducing kv before the gate moves the all-reduce
+    #   into remat's recompute as well (8192 a layer), since the port's
+    #   remat keeps no collective's output;
+    # * the weight gradients: XLA computes cw_r's and decay_a's split
+    #   over "model" (collective permutes gather them) and all-reduces
+    #   [D, D/2] and [D/2, LoRA] halves, 3072 elements a layer fewer than
+    #   the port's whole [D, D] and [D, LoRA]: -6144; JAX sums the
+    #   embedding table's gradient through an all-to-all of the token
+    #   rows' gradients and a scatter-add, no all-reduce, where the port
+    #   reduce-scatters the table's [V/2, D] gradient: -8192; JAX's lone
+    #   [D] all-reduce of a norm scale is charged whole (128), the
+    #   port's reduce-scatter of it moves 64: +64;
+    # * the scalars: 36 against 8: +28.
+    "rwkv6-1.6b": -57 - 2 * 16384 - 2 * 4096 - 6144 - 8192 + 64 + 28,
+    # zamba2-1.2b, 4 Mamba2 layers (d_inner 128, N 16, 8 heads: 64 and 4
+    # a device), the shared attention block applied twice:
+    # * the gated norm's statistics over the split d_inner: JAX's [B,S]
+    #   all-reduce in the forward (128) and a tuple of two in remat's
+    #   recompute and the backward (charged 128), against the port's
+    #   three reduce-scatters of [B,S,1] into the sequence split (3 x
+    #   64), a layer: +256;
+    # * the loss: 128 + 128 + (8 x 2 + 128) / 2 = 328 against 384: -56;
+    # * the Mamba input gradients: JAX's tuple of six (three [B,S,D],
+    #   B's and C's [B,S,N], one [B,S,64]; 36864 bytes) charged 18432 a
+    #   layer, against the port's all-reduce of their [B,S,D] sum (8192)
+    #   and of B's and C's gradients (2 x 2048): +6144 a layer;
+    # * the shared block's input gradients: q, k, v's tuple charged 12288
+    #   against the port's one of their sum (8192), gate and up's tuple
+    #   charged 8192 against the port's one (8192), an application:
+    #   +8192;
+    # * the weight gradients: JAX all-reduces the shared block's over
+    #   "data" once an application (wq, wk, wv, wo 2048 each, w_gate,
+    #   w_up, w_down 4096 each, ln1 and ln2 64 each: 20608), the port
+    #   once, their sum: +20608; XLA computes w_B's and w_C's split over
+    #   "model" ([N, D/2] halves, 512 elements each) where the port
+    #   computes them whole (1024 each; FAMILY_FLOPS): -4 x 1024;
+    # * the scalars: 35 against 8: +27.
+    "zamba2-1.2b": 256 - 56 + 4 * 6144 + 8192 + 20608 - 4 * 1024 + 27,
+    # whisper-tiny, 2 encoder layers over 16 frames (a [B,P,D] all-reduce
+    # 2048) and 2 decoder layers with cross attention:
+    # * the loss: 128 + 128 + (14 x 2 + 128) / 2 = 334 against 384: -50;
+    # * the decoder's self-attention input gradients: q, k, v's tuple
+    #   charged 12288 against the port's one of their sum (8192), a
+    #   layer: +8192; the FFN's: gate and up's tuple charged 8192 against
+    #   the port's 8192: 0;
+    # * the cross attention's: JAX's tuple of the query's [B,S,D] and K's
+    #   and V's [B,P,D] input gradients (12288) charged 6144 a layer,
+    #   against the port's all-reduce of the query's a layer (2 x 8192)
+    #   and of the K/V input gradients summed over the layers, once, at
+    #   the encoder's output (2048): -6144;
+    # * the encoder's: q, k, v's tuple charged 3072 against the port's
+    #   2048, a layer: +2048; the FFN's tuple charged 2048 against 2048:
+    #   0;
+    # * the weight gradients: JAX's lone [D] all-reduce of a norm scale
+    #   charged whole (128), the port's reduce-scatter of it 64: +64;
+    # * the scalars: 32 against 8: +24.
+    "whisper-tiny": -50 + 8192 - 6144 + 2048 + 64 + 24,
+}
+# The weight products' flops at 2x2, the port's more than JAX's: XLA
+# splits w_B's and w_C's gradient products over "model" (each rank one
+# [N, D/2] half), the port computes them whole on each rank: 2 x N x D/2
+# x t flops more a product, two a layer (t = 64 tokens).
+FAMILY_FLOPS = {"zamba2-1.2b": 4 * 2 * (2 * 16 * 32 * 64)}
+
+
+@pytest.mark.parametrize("n_dev", sorted(JAX_MESHES))
+@pytest.mark.parametrize("arch", [cell[0] for cell in FAMILY_CELLS])
+def test_family_train_costs_against_jax(world, jax_cells, monkeypatch, arch,
+                                        n_dev):
+    """A ``FAMILY_CELLS`` cell on a 1x1 and a 2x2 mesh, traced by the
+    port and lowered by JAX: the weight products' flops per device (the
+    port's ``mm`` / ``addmm``, JAX's ``weight_flops``) are JAX's exactly,
+    but for FAMILY_FLOPS at 2x2; the mixers' products (the WKV and SSD
+    chunks, batched) and the attention (kernels on the port's side) are
+    kept apart.  At 2x2 the sum reductions' wire per device is JAX's
+    all-reduce wire less FAMILY_MINUS (op by op above; the counts are
+    not comparable, as in the dense train cell)."""
+    monkeypatch.setattr(opcost, "OpCounter", _Width2Counter)
+    sname = dict(FAMILY_CELLS)[arch]
+    with world(n_dev):
+        s, _ = _trace(arch, sname, JAX_MESHES[n_dev])
+    j = jax_cells[n_dev][f"{arch}/{sname}"]
+    extra = FAMILY_FLOPS.get(arch, 0) if n_dev > 1 else 0
+    assert s.mm_flops == pytest.approx(j["weight_flops"] + extra,
+                                       rel=1e-12)
+    if n_dev == 1:
+        assert s.wire_bytes == 0
+        return
+    wire = sum(s.collectives.get(k, {}).get("wire2", 0.0)
+               for k in ("all_reduce", "reduce_scatter_tensor"))
+    assert wire == j["collectives"]["all-reduce"]["wire"] - FAMILY_MINUS[arch]
 
 
 @pytest.mark.parametrize("flag", sorted(dryrun.REFUSED))

@@ -473,7 +473,12 @@ BWD_SHAPES = [(4, 1024, 32, 8, 64, torch.bfloat16),
               (1, 64, 8, 2, 128, torch.bfloat16),
               (1, 65, 8, 2, 128, torch.bfloat16),
               (2, 100, 4, 4, 128, torch.bfloat16),
-              (1, 320, 8, 2, 64, torch.bfloat16)]
+              (1, 320, 8, 2, 64, torch.bfloat16),
+              # the reduced configurations' hd 16 (the train demo's
+              # micro-step, a split walk, float32)
+              (4, 64, 4, 2, 16, torch.bfloat16),
+              (1, 300, 4, 2, 16, torch.bfloat16),
+              (2, 70, 4, 2, 16, torch.float32)]
 # Backward kernel vs plain version: both recompute the softmax and sum in
 # float32 (another order); a bf16 gradient can then round to a
 # neighbouring bf16 value, so the gap is held to two bf16 steps of the

@@ -225,8 +225,8 @@ def test_mla_checkpoint_roundtrip_bitexact(tmp_path):
                                             (32, 32, True)])
 def test_kernel_width_rule_refuses_other_pairs(dk, dv, backward):
     """The card's wrappers refuse every (dk, dv) pair but dk == dv
-    (forward) or the backward's (64, 64) / (128, 128), and MLA's
-    (192, 128); the refusal names the pairs they take."""
+    (forward) or the backward's (16, 16) / (64, 64) / (128, 128), and
+    MLA's (192, 128); the refusal names the pairs they take."""
     with pytest.raises(ValueError, match="192, 128"):
         fp.check_widths("flash_prefill", dk, dv, backward=backward)
 
@@ -235,6 +235,7 @@ def test_kernel_width_rule_refuses_other_pairs(dk, dv, backward):
                                             (192, 128, True),
                                             (64, 64, True), (128, 128, True),
                                             (256, 256, False),
-                                            (16, 16, False)])
+                                            (16, 16, False),
+                                            (16, 16, True)])
 def test_kernel_width_rule_takes_its_pairs(dk, dv, backward):
     fp.check_widths("flash_prefill", dk, dv, backward=backward)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``repro`` (the machine with the card has neither JAX nor ``ml_dtypes``),
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and none of the port's examples and scripts
+(``examples/torch_*.py``, ``scripts/torch_*.py``) imports ``jax`` or
+anything of the JAX package ``repro`` (the machine with the card has neither JAX nor ``ml_dtypes``),
 and every numpy-only module the port copies equals its original after
 the ``repro.`` -> ``repro_torch.`` prefix rewrite."""
 import ast
@@ -46,7 +47,9 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py"))
+    + sorted((ROOT / "scripts").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [(mod, line) for mod, line in _imported_roots(path)
