@@ -16,7 +16,10 @@ check raises and the script exits non-zero with no result line:
            the tensor-core bodies of flash prefill and of its backward
            (dK/dV and dQ), of both MLA chunk prefill entries, of the MLA
            split decode, of the GQA decode bandwidth body, of the int8
-           decode and of both GQA chunk prefill entries must hold some;
+           decode and of both GQA chunk prefill entries must hold some,
+           and the warp-specialised flash bodies (``flash_prefill_wg``,
+           ``bwd_dkdv_wg``, ``bwd_dkdv_pair_wg``, ``bwd_dq_wg``) HGMMA
+           (``wgmma``) ones: none may compile to ``mma.sync`` alone;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
            lengths up to 512 with inactive rows; the decode also with
@@ -28,7 +31,9 @@ check raises and the script exits non-zero with no result line:
            flushed before each launch, the flushes' own time taken
            off), beside the least time the card could take for the
            same work, and the body the C entry ran for the case
-           (``body``: "tensor_core" or "cuda_core"); then the three at
+           (``body``: "tensor_core", "cuda_core", or for flash prefill
+           and its backward "wgmma", "mma_sync" or "cuda_core"); then
+           the three at
            the trace replay's 32-token pages (``*_page32``: the chunk at
            offset 336, every slot no row may read holding 8x larger
            K/V); then the three at granite-moe-3b-a800m's engine
@@ -156,6 +161,17 @@ check raises and the script exits non-zero with no result line:
            also at the ragged 1000 and in float32 at 1 x 256), SDPA on
            the first of its backends that takes V narrower than Q/K
            (``library_backend``);
+  flash_long  kernels 7 and 7b where they set the pace on the card:
+           kernel 7 with its log-sum-exp at dryrun_card's prefill shape
+           (8 x 32768, 32 / 8 heads, hd 64; ``flash_prefill_32k``), and
+           kernels 7 and 7b at the train cell's micro-batch (4 x 4096;
+           ``flash_prefill_4k``, ``flash_prefill_bwd_4k``); each held on
+           the whole to SDPA (on ``sdpa_backend``'s backend) and on a
+           slice to the plain version: the last 512 queries of one
+           sequence against all its keys through ``ref._attend`` with
+           the causal mask at that offset (the output and lse; for the
+           backward dQ, by autograd through it); ms, TFLOP/s, bound and
+           SDPA ms; the C entries' bodies at every width pair;
   decode_lse  kernels 1 and 8 with their log-sum-exp output (the split
            decode's merge weights) at the kernels phase's paged_decode
            and 64-slot paged_decode_int8 rows, on the bf16 tensor-core
@@ -454,8 +470,9 @@ def ptxas_report(text: str) -> list:
 
 
 def sass_tensor_core_counts(build, name) -> dict:
-    """Compiled entry -> its tensor-core instructions (HMMA / HGMMA) in
-    ``cuobjdump -sass`` of the built library of ``csrc/<name>.cu``."""
+    """Compiled entry -> its tensor-core instructions in ``cuobjdump
+    -sass`` of the built library of ``csrc/<name>.cu``: {"HMMA": n,
+    "HGMMA": n} (``mma.sync`` and ``wgmma``)."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
                           capture_output=True, text=True, check=True,
@@ -465,18 +482,24 @@ def sass_tensor_core_counts(build, name) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and re.search(r"\bH(G)?MMA\b", line):
-            counts[cur] += 1
+            counts[cur] = {"HMMA": 0, "HGMMA": 0}
+        elif cur is not None:
+            m = re.search(r"\b(HG?MMA)\b", line)
+            if m:
+                counts[cur][m.group(1)] += 1
     return counts
 
 
 # entries that must run on the tensor cores: (source, entry name part,
-# how many such entries)
-TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 5),
-                       ("flash_prefill_bwd", "bwd_dkdv_tc", 3),
-                       ("flash_prefill_bwd", "bwd_dkdv_pair_tc", 1),
-                       ("flash_prefill_bwd", "bwd_dq_tc", 4),
+# how many such entries, and for the warp-specialised bodies "HGMMA":
+# they must hold `wgmma` instructions, not only `mma.sync` ones)
+TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 2),
+                       ("flash_prefill", "flash_prefill_wg", 4, "HGMMA"),
+                       ("flash_prefill_bwd", "bwd_dkdv_tc", 1),
+                       ("flash_prefill_bwd", "bwd_dkdv_wg", 1, "HGMMA"),
+                       ("flash_prefill_bwd", "bwd_dkdv_pair_wg", 2, "HGMMA"),
+                       ("flash_prefill_bwd", "bwd_dq_tc", 1),
+                       ("flash_prefill_bwd", "bwd_dq_wg", 3, "HGMMA"),
                        ("mla_paged_prefill", "mla_tc_kernelILi0E", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
@@ -495,17 +518,20 @@ def phase_build(build, card):
         sass = sass_tensor_core_counts(build, name)
         entries = {e["entry"]: e for e in ptxas_report(entry["ptxas"])}
         for fn, n in sass.items():
-            entries.setdefault(fn, {"entry": fn})["tensor_core_sass"] = n
+            e = entries.setdefault(fn, {"entry": fn})
+            e["tensor_core_sass"] = n["HMMA"] + n["HGMMA"]
+            e["hgmma_sass"] = n["HGMMA"]
         report[name] = {"nvcc_s": entry["seconds"],
                         "entries": list(entries.values())}
     emit({"phase": "build", "card": card, "wall_s": wall,
           "sources": report})
-    for name, part, want in TENSOR_CORE_ENTRIES:
+    for name, part, want, *inst in TENSOR_CORE_ENTRIES:
+        key = "hgmma_sass" if inst else "tensor_core_sass"
         found = [e for e in report[name]["entries"] if part in e["entry"]]
-        if len(found) != want or not all(e.get("tensor_core_sass", 0) > 0
-                                         for e in found):
+        if len(found) != want or not all(e.get(key, 0) > 0 for e in found):
             raise AssertionError(f"build: {name} entries {part}: {found} "
-                                 f"(want {want}, each with HMMA / HGMMA)")
+                                 f"(want {want}, each with "
+                                 f"{inst[0] if inst else 'HMMA / HGMMA'})")
 
 
 def make_kernel_inputs(torch, gen, page=64, offset=320, B=64, Hq=32):
@@ -553,6 +579,7 @@ def make_kernel_inputs(torch, gen, page=64, offset=320, B=64, Hq=32):
 def kernel_body(name, a) -> str:
     """The body the C entry runs for case ``name`` on inputs ``a``, as
     its dispatch by type and width decides: "tensor_core" or
+    "cuda_core"; flash prefill and its backward "wgmma", "mma_sync" or
     "cuda_core"."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mla_paged_decode as mpd
@@ -576,13 +603,13 @@ def kernel_body(name, a) -> str:
                              DTYPE_CODES[a["q_lat"].dtype],
                              DTYPE_CODES[a["latent_pages"].dtype])
     elif name.startswith("flash_prefill_bwd"):
-        from repro_torch.kernels.flash_prefill import bwd_tensor_core
-        tc = bwd_tensor_core(a["q"].shape[-1], a["v"].shape[-1],
-                             DTYPE_CODES[a["q"].dtype])
+        from repro_torch.kernels.flash_prefill import bwd_body
+        return bwd_body(a["q"].shape[-1], a["v"].shape[-1],
+                        DTYPE_CODES[a["q"].dtype])
     elif name.startswith("flash_prefill"):
-        from repro_torch.kernels.flash_prefill import tensor_core
-        tc = tensor_core(a["q"].shape[-1], a["v"].shape[-1],
-                         DTYPE_CODES[a["q"].dtype])
+        from repro_torch.kernels.flash_prefill import body
+        return body(a["q"].shape[-1], a["v"].shape[-1],
+                    DTYPE_CODES[a["q"].dtype])
     elif name.startswith("mla_paged_prefill"):
         fn = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
                          [ctypes.c_int] * 5)
@@ -2522,9 +2549,10 @@ def kernel_split_ms(torch, fn, calls: int = 5) -> dict:
 def sdpa_backend(torch, q, k, v, do):
     """The first of PyTorch's SDPA backends (flash, cuDNN, efficient,
     math) that takes causal attention on these [B, H, S, d] inputs
-    forward and backward, tried alone under ``sdpa_kernel``: for Q/K
-    wider than V, where the flash backend refuses.  Its name and a
-    context that selects it."""
+    forward and backward (GQA where k has fewer heads than q), tried
+    alone under ``sdpa_kernel``: for Q/K wider than V, where the flash
+    backend refuses, and for the long cases.  Its name and a context
+    that selects it."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
@@ -2532,8 +2560,9 @@ def sdpa_backend(torch, q, k, v, do):
         qh, kh, vh = (t.detach().requires_grad_(True) for t in (q, k, v))
         try:
             with sdpa_kernel(be):
-                out = F.scaled_dot_product_attention(qh, kh, vh,
-                                                     is_causal=True)
+                out = F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True,
+                    enable_gqa=qh.shape[1] != kh.shape[1])
                 torch.autograd.grad(out, (qh, kh, vh), do)
             torch.cuda.synchronize()
         except RuntimeError:
@@ -2641,8 +2670,10 @@ def phase_train_kernels(torch, card):
     ``flash_prefill_lse``, ``flash_prefill_lse_mla``), SDPA's forward
     beside it.  One JSON line per row, in the kernels phase."""
     from repro_torch.kernels.flash_prefill import (bwd_kv_chunk,
-                                                   bwd_kv_parts,
+                                                   bwd_kv_parts, bwd_kv_tile,
+                                                   bwd_per_sm,
                                                    flash_prefill_bwd)
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
     gen = torch.Generator(device="cuda").manual_seed(2222)
     rows = {}
     for case in BWD_CASES:
@@ -2669,6 +2700,9 @@ def phase_train_kernels(torch, card):
                                  f"the largest magnitude")
         del got, plain, lib
         nbytes, flops, peak = cost.bwd_cost(a)
+        code = DTYPE_CODES[a["q"].dtype]
+        plan = (*case[1:5], bwd_kv_tile(case[5], case[6], code),
+                bwd_per_sm(case[5], case[6], code))
         kt = time_ms(torch, lambda: flash_prefill_bwd(**a, backend="cuda"))
         pt = time_ms(torch, lambda: flash_prefill_bwd(**a, backend="torch"),
                      iters=5)
@@ -2676,8 +2710,9 @@ def phase_train_kernels(torch, card):
         t_bytes, t_ops = nbytes / h100.HBM_BW, flops / peak
         rows[name] = {
             "body": kernel_body(name, a), "shape": list(case[1:7]),
-            "dtype": case[-1], "kv_chunk": bwd_kv_chunk(*case[1:5]),
-            "kv_parts": bwd_kv_parts(*case[1:5]),
+            "dtype": case[-1], "kv_tile": plan[4], "per_sm": plan[5],
+            "kv_chunk": bwd_kv_chunk(*plan),
+            "kv_parts": bwd_kv_parts(*plan),
             "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
             "tol": [rtol * s for s in scales], "ms": kt["ms"],
             "plain_ms": pt["ms"], "flush_ms": kt["flush_ms"],
@@ -2699,6 +2734,175 @@ def phase_train_kernels(torch, card):
         rows[name] = lse_row(torch, gen, name, *shape)
         emit({"phase": "kernels", "card": card, "kernel": name,
               **rows[name]})
+    return rows
+
+
+# kernels 7 and 7b where they set the pace on the card, (name, B, S, Hq,
+# Hkv, hd, backward): dryrun_card's prefill (8 x 32768, kernel 7 with its
+# lse, 16 launches a step) and its train cell's micro-batch (4 x 4096:
+# 256 launches of 7 and 128 of 7b a step)
+LONG_CASES = (("flash_prefill_32k", 8, 32768, 32, 8, 64, False),
+              ("flash_prefill_4k", 4, 4096, 32, 8, 64, False),
+              ("flash_prefill_bwd_4k", 4, 4096, 32, 8, 64, True))
+# the plain version's share: the last LONG_SLICE queries of sequence 0
+LONG_SLICE = 512
+LONG_ITERS = 3
+FLASH_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
+               (256, 256))
+
+
+def plain_slice(torch, q, k, v, do=None):
+    """The plain version on the last LONG_SLICE queries of sequence 0
+    against all its keys, in float32: ``ref._attend`` with the causal
+    mask at offset S - LONG_SLICE -> (output [1, C, Hq, dv], lse [1, Hq,
+    C] in natural-log units, and with ``do`` the gradients by autograd
+    through it, else None: the rows' dQ [1, C, Hq, dk] and dK, dV of the
+    last C keys [1, C, Hkv, d], whole, since only these rows attend
+    them)."""
+    from repro_torch.kernels import ref
+    S, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+    hkv, off = k.shape[2], S - LONG_SLICE
+    grad = do is not None
+    qs = q[:1, off:].float().requires_grad_(grad)
+    kf, vf = (t[:1].float().requires_grad_(grad) for t in (k, v))
+    mask = (torch.arange(S, device=q.device)[None, :]
+            <= torch.arange(off, S, device=q.device)[:, None])[None]
+    out = ref._attend(qs, kf, vf, mask)
+    sc = torch.einsum("bchgd,bthd->bchgt",
+                      qs.detach().reshape(1, LONG_SLICE, hkv, hq // hkv, hd),
+                      kf.detach()) / math.sqrt(hd)
+    sc = sc.masked_fill(~mask[:, :, None, None, :], float("-inf"))
+    lse = torch.logsumexp(sc, dim=-1).reshape(1, LONG_SLICE, hq)
+    del sc
+    grads = None
+    if grad:
+        dq, dk, dv = torch.autograd.grad(out, (qs, kf, vf),
+                                         do[:1, off:].float())
+        grads = (dq, dk[:, off:], dv[:, off:])
+    return out.detach(), lse.transpose(1, 2), grads
+
+
+def phase_flash_long(torch, card):
+    """LONG_CASES: each kernel held on the whole to SDPA (on
+    ``sdpa_backend``'s backend; forward within LIBRARY_ATOL, each
+    gradient within LIBRARY_BWD_RTOL of its own largest magnitude) and on
+    the slice to the plain version (``plain_slice``; lse within 1e-4 of
+    its largest magnitude, the output and dQ, dK, dV each within
+    BWD_RTOL of its own largest magnitude there: two bf16 steps, where
+    KERNEL_ATOL's |o| < 4 would be loose, since a row that averages 32k
+    keys has outputs of a few hundredths); timed over LONG_ITERS launches
+    beside SDPA, with bound and TFLOP/s.  First the body each C entry runs at FLASH_PAIRS: bf16
+    at (64, 64), (128, 128) and (192, 128) must be "wgmma"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import (body, bwd_body,
+                                                   check_widths,
+                                                   flash_prefill,
+                                                   flash_prefill_bwd)
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
+    bodies = {}
+    for dk, dv in FLASH_PAIRS:
+        for dt in ("bfloat16", "float32"):
+            code = DTYPE_CODES[getattr(torch, dt)]
+            entry = {"forward": body(dk, dv, code)}
+            try:
+                check_widths("", dk, dv, backward=True)
+                entry["backward"] = bwd_body(dk, dv, code)
+            except ValueError:
+                pass
+            bodies[f"{dk}/{dv} {dt}"] = entry
+    emit({"phase": "flash_long", "card": card, "bodies": bodies})
+    for dk, dv in ((64, 64), (128, 128), (192, 128)):
+        if set(bodies[f"{dk}/{dv} bfloat16"].values()) != {"wgmma"}:
+            raise AssertionError(f"flash_long: bf16 ({dk}, {dv}) runs "
+                                 f"{bodies[f'{dk}/{dv} bfloat16']}")
+    gen = torch.Generator(device="cuda").manual_seed(3333)
+    rows = {}
+    for name, B, S, Hq, Hkv, hd, backward in LONG_CASES:
+        def rn(*shape):
+            return torch.randn(shape, generator=gen,
+                               device="cuda").bfloat16()
+        q, k, v = rn(B, S, Hq, hd), rn(B, S, Hkv, hd), rn(B, S, Hkv, hd)
+        out, lse = flash_prefill(q, k, v, backend="cuda", with_lse=True)
+        do = rn(B, S, Hq, hd) if backward else None
+        torch.cuda.synchronize()
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(backward)
+                      for t in (q, k, v))
+        doh = (do if backward else out).transpose(1, 2).contiguous()
+        lib_backend, ctx = sdpa_backend(torch, qh, kh, vh, doh)
+        with ctx():
+            lib_out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                     is_causal=True,
+                                                     enable_gqa=Hq != Hkv)
+        po, pl, pgrads = plain_slice(torch, q, k, v, do)
+        off = S - LONG_SLICE
+        rtol = BWD_RTOL["bfloat16"]
+        row = {"body": None, "shape": [B, S, Hq, Hkv, hd, hd],
+               "slice": [0, off, S], "library_backend": lib_backend}
+        if backward:
+            grads = flash_prefill_bwd(q, k, v, out, do, lse, backend="cuda")
+
+            def sdpa_bwd():
+                with ctx():
+                    return torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                               retain_graph=True)
+            lib_err = max(
+                float((g.float() - lg.transpose(1, 2).float()).abs().max())
+                / float(lg.float().abs().max())
+                for g, lg in zip(grads, sdpa_bwd()))
+            errs = [float((g[:1, off:].float() - p).abs().max())
+                    for g, p in zip(grads, pgrads)]
+            tols = [rtol * float(p.abs().max()) for p in pgrads]
+            ok = (all(e <= t for e, t in zip(errs, tols))
+                  and lib_err <= LIBRARY_BWD_RTOL)
+            row.update(body=kernel_body("flash_prefill_bwd", {"q": q, "v": v}),
+                       max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
+                       tol=tols, err_of="dq, dk, dv on the slice",
+                       library_max_rel_err=lib_err)
+            nbytes, flops, peak = cost.bwd_cost(
+                {"q": q, "k": k, "v": v, "o": out, "lse": lse})
+            del grads
+            fn = (lambda: flash_prefill_bwd(q, k, v, out, do, lse,
+                                            backend="cuda"))
+            lib_fn = sdpa_bwd
+        else:
+            lib_err = float((lib_out.transpose(1, 2).float()
+                             - out.float()).abs().max())
+            err = float((out[:1, off:].float() - po).abs().max())
+            tol = rtol * float(po.abs().max())
+            lse_err = float((lse[:1, :, off:] - pl).abs().max())
+            lse_tol = 1e-4 * float(pl.abs().max())
+            ok = (err <= tol and lse_err <= lse_tol
+                  and lib_err <= LIBRARY_ATOL)
+            row.update(body=kernel_body("flash_prefill", {"q": q, "v": v}),
+                       max_abs_err=err, tol=tol,
+                       err_of="output on the slice", lse_max_abs_err=lse_err,
+                       lse_tol=lse_tol, library_max_abs_err=lib_err)
+            nbytes, flops = cost.flash_cost({"q": q, "k": k, "v": v})
+            nbytes += lse.numel() * 4
+            peak = h100.PEAK_FLOPS_BF16
+            fn = (lambda: flash_prefill(q, k, v, backend="cuda",
+                                        with_lse=True))
+
+            def lib_fn():
+                with ctx():
+                    return F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=True, enable_gqa=Hq != Hkv)
+        del po, pl, pgrads
+        if not ok or row["body"] != "wgmma":
+            raise AssertionError(f"{name}: {row}")
+        kt = time_ms(torch, fn, iters=LONG_ITERS, warmup=1)
+        lt = time_ms(torch, lib_fn, iters=LONG_ITERS, warmup=1)
+        t_bytes, t_ops = nbytes / h100.HBM_BW, flops / peak
+        row.update(ms=kt["ms"], flush_ms=kt["flush_ms"],
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, flops=flops,
+                   tflops=flops / kt["ms"] / 1e9, library_ms=lt["ms"],
+                   plain_ms=None)
+        emit({"phase": "kernels", "card": card, "kernel": name, **row})
+        rows[name] = row
+        del q, k, v, out, lse, do, qh, kh, vh, doh, lib_out, fn, lib_fn
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4275,6 +4479,7 @@ def main() -> int:
     rows.update(phase_mla_kernels(torch, ops, smi, mla_cfg))
     rows.update(phase_dense_kernels(torch, ops, smi))
     rows.update(phase_train_kernels(torch, smi))
+    rows.update(phase_flash_long(torch, smi))
     phase_decode_lse(torch, ops, smi)
     memory_left(torch, "kernels")
 

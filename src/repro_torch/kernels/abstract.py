@@ -108,7 +108,10 @@ def flash_prefill_bwd(q, k, v, o, do, lse):
     hkv = k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = q.new_empty((b, hq, s), dtype=torch.float32)
-    parts = fp.bwd_kv_parts(b, s, hq, hkv)
+    code = int(q.dtype == torch.bfloat16)
+    parts = fp.bwd_kv_parts(b, s, hq, hkv,
+                            fp.bwd_kv_tile(hd, v.shape[3], code),
+                            fp.bwd_per_sm(hd, v.shape[3], code))
     tensor_core = (q.dtype == torch.bfloat16
                    and (hd, v.shape[3]) in fp.BWD_WIDTHS)
     part = (q.new_empty((parts * (k.numel() + v.numel()),),

@@ -6,9 +6,8 @@ Replaces the Pallas TPU kernel ``flash_prefill``
 (``repro/kernels/flash_prefill.py``): query i attends keys j <= i, the
 computation of ``models/attention.causal_attention`` with no query
 offset, which the monolithic prefill runs for a prompt without a prefix
-hit.  The forward kernel is bound by the bytes of q, k, v and the output
-at the serving path's prompt lengths (see the source note); it handles
-any sequence length, a ragged last tile included.  With ``with_lse`` it
+hit and the training forward runs for every layer.  Any sequence length
+is taken, a ragged last tile included.  With ``with_lse`` the forward
 also returns each row's log-sum-exp of its scaled scores (float32
 [B,Hq,S], natural-log units), which the backward recomputes the
 probabilities from.
@@ -19,18 +18,42 @@ trains (K = [c_kv W_uk ; k_rope], V = c_kv W_uv per head; scale
 1/sqrt(dk) as ever).  Any other pair is refused on the card
 (``check_widths``); the plain versions take any.
 
+Bodies by type and width (``body`` / ``bwd_body`` ask the C entries):
+
+=============  ==========================  =============================
+inputs         forward                     backward
+=============  ==========================  =============================
+bf16 64/64     ``wgmma`` (192- or 128-row  ``wgmma`` (dK/dV 128-key
+               tiles by grid size)         blocks, dQ 128-key tiles)
+bf16 128/128   ``wgmma`` (128-row tiles)   ``wgmma`` (dK/dV split over
+                                           the consumers, 64 keys)
+bf16 192/128   ``wgmma`` (128-row tiles)   ``wgmma`` (as 128; dQ 32-key
+                                           tiles)
+bf16 16, 32    ``mma_sync``                ``mma_sync`` (16 only)
+float32,       ``cuda_core``               ``cuda_core`` (float32)
+bf16 256
+=============  ==========================  =============================
+
+The ``wgmma`` bodies are Hopper's: a producer warpgroup whose one thread
+issues TMA loads into an ``mbarrier`` ring of two stages, and two (three
+at hd 64's 192-row tiles) consumer warpgroups that run every product
+with ``wgmma`` and keep the softmax and the accumulators in registers
+(the source notes give tiles, ring and register split).  TMA reads from
+16-byte aligned bases, so a view at an odd offset is copied first
+(``_tma_ready``).
+
 The JAX package differentiates this attention in ``jnp`` (``jax.grad``
 of ``causal_attention``); it has no backward kernel to translate.
 ``FlashCausal`` is the port's: its forward runs the forward kernel with
 ``lse``, its backward ``flash_prefill_bwd`` (dQ, dK, dV without atomics,
-so gradients are deterministic; bf16 on the tensor cores, float32 on
-the CUDA cores).  On CPU tensors every wrapper runs the plain version in
-``kernels/ref.py``.
+so gradients are deterministic).  On CPU tensors every wrapper runs the
+plain version in ``kernels/ref.py``.
 
-At small batch the tensor-core dK/dV kernel cuts each key tile's walk
-into chunks of ``bwd_kv_chunk`` query tiles, chosen from the shape
-alone; the wrapper allocates the chunks' float32 partials, which a
-second kernel sums in a fixed order.
+At small batch the dK/dV kernel cuts each key tile's walk into chunks of
+``bwd_kv_chunk`` query tiles, chosen from the shape, the body's key
+tile (``bwd_kv_tile``) and the blocks an SM runs (``bwd_per_sm``) alone;
+the wrapper allocates the chunks' float32 partials, which a second
+kernel sums in a fixed order.
 """
 from __future__ import annotations
 
@@ -58,43 +81,79 @@ FLASH_BWD_ARGS = [PTR] * 11 + [INT] * 6 + [FLT, INT, INT, PTR]
 # reduced configurations' (16, 16) and MLA's
 MLA_WIDTHS = (192, 128)
 BWD_WIDTHS = ((16, 16), (64, 64), (128, 128), MLA_WIDTHS)
-# the dK/dV grid: one block a (64-key tile, KV head, sequence) when that
-# gives each of the H100's 132 SMs two; else the walks are cut into
-# chunks of at least 2 query tiles, about 2 x 132 blocks in all
+# the dK/dV grid: one block a (key tile, KV head, sequence) when that
+# fills the H100's 132 SMs with as many blocks as an SM holds
+# (``bwd_per_sm``); else the walks are cut into chunks of at least 2
+# query tiles, about 2 x 132 blocks in all.  Key tiles: 128 keys for
+# the `wgmma` body at hd 64, else 64 (``bwd_kv_tile``); query tiles of 64
+# throughout
 BWD_TILE, BWD_SMS, BWD_MIN_CHUNK = 64, 132, 2
+BODIES = {0: "cuda_core", 1: "mma_sync", 2: "wgmma"}
+# the (dk, dv) pairs with `wgmma` bodies, forward and backward, in bf16
+WGMMA_WIDTHS = ((64, 64), (128, 128), MLA_WIDTHS)
 
 
-def bwd_kv_chunk(b: int, s: int, hq: int, hkv: int) -> int:
+def bwd_kv_tile(dk: int, dv: int, dtype_code: int) -> int:
+    """Keys a block of the backward's dK/dV kernel takes: 128 for the
+    `wgmma` body at hd 64 (bf16), else 64 (the C entry
+    ``flash_prefill_bwd_kv_tile`` says the same)."""
+    return 128 if dtype_code == 1 and dk == dv == 64 else BWD_TILE
+
+
+def bwd_per_sm(dk: int, dv: int, dtype_code: int) -> int:
+    """dK/dV blocks an SM runs at once: one of a `wgmma` body's (bf16 at
+    WGMMA_WIDTHS: 384 threads that take the whole register file), two of
+    the `mma.sync` body's 128-thread blocks."""
+    return 1 if dtype_code == 1 and (dk, dv) in WGMMA_WIDTHS else 2
+
+
+def bwd_kv_chunk(b: int, s: int, hq: int, hkv: int,
+                 kv_tile: int = BWD_TILE, per_sm: int = 2) -> int:
     """Query-tile iterations a block of the tensor-core dK/dV kernel
-    walks.  Key tile kt of n = ceil(s / 64) walks G (n - kt) of them (each
-    query head of the group over the tiles from the diagonal down);
-    G n means one block a key tile, no partials."""
+    walks.  Of n = ceil(s / 64) query tiles, key tile kt (``kv_tile``
+    keys) walks G (n - kt kv_tile / 64) of them (each query head of the
+    group over the tiles from the diagonal down); G n means one block a
+    key tile, no partials.  That holds from ``per_sm`` x 132 blocks (a
+    full wave); below it the chunks make about 2 x 132 blocks for either
+    body: at one block an SM a one-wave target leaves the ragged last
+    chunks a second wave (the A/B is in PERF.md §6)."""
     n, g = -(-s // BWD_TILE), hq // hkv
-    if b * hkv * n >= 2 * BWD_SMS:
+    m, r = -(-s // kv_tile), kv_tile // BWD_TILE
+    if b * hkv * m >= BWD_SMS * per_sm:
         return g * n
-    pairs = b * hkv * g * n * (n + 1) // 2
+    pairs = b * hkv * g * sum(n - r * kt for kt in range(m))
     return min(g * n, max(BWD_MIN_CHUNK, -(-pairs // (2 * BWD_SMS))))
 
 
-def bwd_kv_parts(b: int, s: int, hq: int, hkv: int) -> int:
+def bwd_kv_parts(b: int, s: int, hq: int, hkv: int,
+                 kv_tile: int = BWD_TILE, per_sm: int = 2) -> int:
     """Chunks of the longest walk (key tile 0): the partials' count."""
     whole = hq // hkv * -(-s // BWD_TILE)
-    return -(-whole // bwd_kv_chunk(b, s, hq, hkv))
+    return -(-whole // bwd_kv_chunk(b, s, hq, hkv, kv_tile, per_sm))
 
 
 @functools.lru_cache(maxsize=None)
-def tensor_core(dk: int, dv: int, dtype_code: int) -> bool:
-    """Whether the forward's C entry runs the tensor-core body."""
+def body(dk: int, dv: int, dtype_code: int) -> str:
+    """The body the forward's C entry runs: "wgmma" (bf16 at (64, 64),
+    (128, 128), (192, 128)), "mma_sync" (bf16 at hd 16, 32) or
+    "cuda_core"."""
     fn = build.entry("flash_prefill", "flash_prefill_tensor_core", [INT] * 3)
-    return bool(fn(dk, dv, dtype_code))
+    return BODIES[fn(dk, dv, dtype_code)]
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_tensor_core(dk: int, dv: int, dtype_code: int) -> bool:
-    """Whether the backward's C entry runs the tensor-core body."""
+def bwd_body(dk: int, dv: int, dtype_code: int) -> str:
+    """The body the backward's C entry runs: "wgmma", "mma_sync" (bf16
+    at hd 16) or "cuda_core" (float32)."""
     fn = build.entry("flash_prefill_bwd", "flash_prefill_bwd_tensor_core",
                      [INT] * 3)
-    return bool(fn(dk, dv, dtype_code))
+    return BODIES[fn(dk, dv, dtype_code)]
+
+
+def _tma_ready(*ts):
+    """The tensors with any whose address is not 16-byte aligned (a view
+    at an odd offset) copied: TMA reads from 16-byte aligned bases."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
 
 
 def check_widths(name: str, dk: int, dv: int, backward: bool = False):
@@ -154,6 +213,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = q.new_empty((b, s, hq, dv))
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if body(dk, dv, DTYPE_CODES[q.dtype]) == "wgmma":
+        q, k, v = _tma_ready(q, k, v)
     fn = build.entry("flash_prefill", "flash_prefill", FLASH_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
@@ -194,18 +255,24 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_prefill_bwd: the kernel needs the forward's "
                          "lse [B,Hq,S] float32, contiguous, on q's device")
     hkv, code = k.shape[2], DTYPE_CODES[q.dtype]
+    if bwd_body(hd, hdv, code) == "wgmma":
+        q, k, v, o, do = _tma_ready(q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    parts = bwd_kv_parts(b, s, hq, hkv)
+    plan = (b, s, hq, hkv, bwd_kv_tile(hd, hdv, code),
+            bwd_per_sm(hd, hdv, code))
+    parts = bwd_kv_parts(*plan)
     # `parts` float32 dK partials, then `parts` dV partials
     part = (torch.empty(parts * (k.numel() + v.numel()), dtype=torch.float32,
                         device=q.device)
-            if parts > 1 and bwd_tensor_core(hd, hdv, code) else None)
+            if parts > 1 and bwd_body(hd, hdv, code) != "cuda_core"
+            else None)
     fn = build.entry("flash_prefill_bwd", "flash_prefill_bwd", FLASH_BWD_ARGS)
     rc = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
             None if part is None else part.data_ptr(),
             b, s, hq, hkv, hd, hdv, 1.0 / math.sqrt(hd),
-            bwd_kv_chunk(b, s, hq, hkv), code, stream_ptr(q.device))
+            bwd_kv_chunk(*plan), code,
+            stream_ptr(q.device))
     build.check(rc, "flash_prefill_bwd", "flash_prefill_bwd")
     flash_prefill_bwd.launches += 1
     return dq, dk, dv

@@ -508,11 +508,10 @@ def test_flash_prefill_bwd_kernel(cuda, b, s, hq, hkv, hd, dtype):
     forward kernel's own o and lse; one launch a call, and two calls equal
     bit for bit (no atomics); bf16 runs the tensor-core body, float32 the
     CUDA-core body."""
-    from repro_torch.kernels.flash_prefill import (bwd_tensor_core,
-                                                   flash_prefill_bwd)
+    from repro_torch.kernels.flash_prefill import bwd_body, flash_prefill_bwd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
-    assert bwd_tensor_core(hd, hd, DTYPE_CODES[dtype]) == (dtype
-                                                           == torch.bfloat16)
+    assert (bwd_body(hd, hd, DTYPE_CODES[dtype]) != "cuda_core") == \
+        (dtype == torch.bfloat16)
     q, k, v, o, do, lse = bwd_inputs(b, s, hq, hkv, hd, dtype, seed=s)
     before = flash_prefill_bwd.launches
     grads = flash_prefill_bwd(q, k, v, o, do, lse)
@@ -595,10 +594,10 @@ def test_flash_prefill_kernel_mla_widths(cuda, b, s, hq, hkv, dtype):
     """The forward kernel at Q/K 192 over V 128 against the plain
     version (output and lse), one launch, the body by type, and a second
     call equal bit for bit."""
-    from repro_torch.kernels.flash_prefill import flash_prefill, tensor_core
+    from repro_torch.kernels.flash_prefill import body, flash_prefill
     from repro_torch.kernels.paged_attention import DTYPE_CODES
-    assert tensor_core(MLA_DK, MLA_DV, DTYPE_CODES[dtype]) == \
-        (dtype == torch.bfloat16)
+    assert body(MLA_DK, MLA_DV, DTYPE_CODES[dtype]) == \
+        ("wgmma" if dtype == torch.bfloat16 else "cuda_core")
     g = torch.Generator(device="cuda").manual_seed(s)
 
     def rn(*shape):
@@ -623,13 +622,12 @@ def test_flash_prefill_bwd_kernel_mla_widths(cuda, b, s, hq, hkv, dtype):
     """dq, dk, dv of the backward at Q/K 192 over V 128 against the
     plain version on the forward kernel's own o and lse, each within
     BWD_RTOL of its largest magnitude; one launch a call, two calls
-    equal bit for bit; bf16 on the tensor cores (the warp-pair dK/dV
-    kernel), float32 on the CUDA cores."""
-    from repro_torch.kernels.flash_prefill import (bwd_tensor_core,
-                                                   flash_prefill_bwd)
+    equal bit for bit; bf16 on the `wgmma` body (dK and dV split over
+    its two consumers), float32 on the CUDA cores."""
+    from repro_torch.kernels.flash_prefill import bwd_body, flash_prefill_bwd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
-    assert bwd_tensor_core(MLA_DK, MLA_DV, DTYPE_CODES[dtype]) == \
-        (dtype == torch.bfloat16)
+    assert bwd_body(MLA_DK, MLA_DV, DTYPE_CODES[dtype]) == \
+        ("wgmma" if dtype == torch.bfloat16 else "cuda_core")
     q, k, v, o, do, lse = bwd_inputs(b, s, hq, hkv, MLA_DK, dtype, seed=s,
                                      dv=MLA_DV)
     before = flash_prefill_bwd.launches
@@ -662,6 +660,103 @@ def test_flash_causal_mla_gradient_on_card_matches_cpu(cuda):
         grads[dev] = [t.grad.cpu() for t in (q, k, v)]
     for a, c in zip(grads["cuda"], grads["cpu"]):
         assert _err(a, c) <= F32_TOL * float(c.abs().max())
+
+
+# The warp-specialised bodies (``flash_prefill_wg``; ``bwd_dkdv_wg``,
+# ``bwd_dkdv_pair_wg``, ``bwd_dq_wg``): bf16 at every width pair they
+# take, S at their 128-row tiles' edges (1, 127 / 128 / 129, a ragged
+# 100 and 1000), G = Hq / Hkv of 1, 4 and 16 (glm4's) at 16 query heads
+WG_PAIRS = [(64, 64), (128, 128), (192, 128)]
+WG_S = [1, 100, 127, 128, 129, 1000]
+WG_G = [1, 4, 16]
+
+
+def _wg_inputs(b, s, g, dk, dv, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    hq = 16
+    return rn(b, s, hq, dk), rn(b, s, hq // g, dk), rn(b, s, hq // g, dv)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("g", WG_G)
+@pytest.mark.parametrize("s", WG_S)
+@pytest.mark.parametrize("dk,dv", WG_PAIRS)
+def test_flash_prefill_wg_body(cuda, dk, dv, s, g, with_lse):
+    """The forward's `wgmma` body against the plain version: the output
+    within one bf16 step (BF16_TOL), the lse within F32_TOL of its
+    largest magnitude, one launch, and the body the C entry names."""
+    from repro_torch.kernels.flash_prefill import body, flash_prefill
+    assert body(dk, dv, 1) == "wgmma"
+    q, k, v = _wg_inputs(2, s, g, dk, dv, seed=s + g)
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    out = got[0] if with_lse else got
+    assert out.shape == (2, s, 16, dv) and bool(torch.isfinite(out).all())
+    assert _err(out, flash_prefill(q, k, v, backend="torch")) <= BF16_TOL
+    if with_lse:
+        from repro_torch.kernels import ref
+        plain = ref.flash_prefill_lse(q, k)
+        assert _err(got[1], plain) <= F32_TOL * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("g", WG_G)
+@pytest.mark.parametrize("s", WG_S)
+@pytest.mark.parametrize("dk,dv", WG_PAIRS)
+def test_flash_prefill_bwd_wg_body(cuda, dk, dv, s, g):
+    """The backward's `wgmma` body (dK/dV whole or split into partials by
+    ``bwd_kv_chunk``, dQ) against the plain version on the forward
+    kernel's o and lse, each gradient within BWD_RTOL of its largest
+    magnitude; run twice, equal bit for bit."""
+    from repro_torch.kernels.flash_prefill import bwd_body, flash_prefill_bwd
+    assert bwd_body(dk, dv, 1) == "wgmma"
+    q, k, v, o, do, lse = bwd_inputs(2, s, 16, 16 // g, dk, torch.bfloat16,
+                                     seed=s + g, dv=dv)
+    grads = flash_prefill_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    plain = flash_prefill_bwd(q, k, v, o, do, backend="torch")
+    for got, want, t in zip(grads, plain, (q, k, v)):
+        assert got.shape == t.shape and bool(torch.isfinite(got).all())
+        assert _err(got, want) <= BWD_RTOL[torch.bfloat16] * max(
+            1.0, float(want.float().abs().max()))
+    again = flash_prefill_bwd(q, k, v, o, do, lse)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+def test_flash_wg_bodies_take_unaligned_views(cuda):
+    """TMA reads from 16-byte aligned bases: a contiguous view at an odd
+    offset is copied by the wrappers, and the result is unchanged."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
+    q, k, v = _wg_inputs(1, 70, 4, 64, 64, seed=1)
+    flat = torch.cat([q.new_zeros(1), q.flatten()])[1:]
+    q1 = flat.view(q.shape)
+    assert q1.data_ptr() % 16 != 0 and q1.is_contiguous()
+    out, lse = flash_prefill(q1, k, v, with_lse=True)
+    assert torch.equal(out, flash_prefill(q, k, v))
+    do = torch.randn_like(out)
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_prefill_bwd(q1, k, v, out, do, lse),
+        flash_prefill_bwd(q, k, v, out, do, lse)))
+
+
+def test_bwd_kv_tile_matches_c_entry(cuda):
+    """The wrapper's split plan reads the dK/dV kernel's key tile from
+    ``bwd_kv_tile``; the C entry must name the same."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_prefill import BWD_WIDTHS, bwd_kv_tile
+    fn = build.entry("flash_prefill_bwd", "flash_prefill_bwd_kv_tile",
+                     [ctypes.c_int] * 3)
+    for dk, dv in BWD_WIDTHS:
+        for code in (0, 1):
+            assert fn(dk, dv, code) == bwd_kv_tile(dk, dv, code)
 
 
 def _int8_inputs(b, hq, hkv, hd, page, pages, seed=0):
@@ -941,7 +1036,9 @@ def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr):
 
 def test_tensor_core_dispatch(cuda):
     """The C entries choose a body by type and width: bf16 flash prefill
-    at hd 16-128 and its backward at hd 64 and 128, bf16 MLA chunk prefill and MLA decode at every width
+    at hd 16-128 and (192, 128) and its backward at hd 16, 64, 128 and
+    (192, 128) (the `wgmma` bodies at 64, 128 and (192, 128), `mma.sync`
+    below), bf16 MLA chunk prefill and MLA decode at every width
     above and bf16 GQA decode and GQA chunk / segment prefill at hd
     16-128 with up to 16 query heads a KV head run on the tensor cores,
     and so does the int8 GQA decode with a bf16 query at those widths;
@@ -953,12 +1050,16 @@ def test_tensor_core_dispatch(cuda):
     from repro_torch.kernels import build
     flash = build.entry("flash_prefill", "flash_prefill_tensor_core",
                         [ctypes.c_int] * 3)
+    # 2: the `wgmma` body, 1: the `mma.sync` body, 0: the CUDA cores
     assert [flash(hd, hd, 1) for hd in (16, 32, 64, 128, 256)] == \
-        [1] * 4 + [0]
+        [1, 1, 2, 2, 0]
+    assert flash(192, 128, 1) == 2 and flash(192, 128, 0) == 0
     assert [flash(hd, hd, 0) for hd in (16, 32, 64, 128, 256)] == [0] * 5
     bwd = build.entry("flash_prefill_bwd", "flash_prefill_bwd_tensor_core",
                       [ctypes.c_int] * 3)
-    assert [bwd(hd, hd, 1) for hd in (32, 64, 128, 256)] == [0, 1, 1, 0]
+    assert [bwd(hd, hd, 1) for hd in (16, 32, 64, 128, 256)] == \
+        [1, 0, 2, 2, 0]
+    assert bwd(192, 128, 1) == 2 and bwd(192, 128, 0) == 0
     assert [bwd(hd, hd, 0) for hd in (32, 64, 128, 256)] == [0] * 4
     mla = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
                       [ctypes.c_int] * 5)

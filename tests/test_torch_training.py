@@ -114,6 +114,30 @@ def test_bwd_kv_plan_at_smoke_shapes(shape, chunk, parts):
     assert (bwd_kv_chunk(*shape), bwd_kv_parts(*shape)) == (chunk, parts)
 
 
+# (B, S, Hq, Hkv) -> (chunk, parts) of the hd 128 and 192 / 128 `wgmma`
+# dK/dV body (64-key tiles, one 384-thread block an SM): the card run's
+# shapes, llama-3.2-vision's at S 2048, and MLA's micro-step
+@pytest.mark.parametrize("shape,chunk,parts", [
+    ((1, 512, 32, 8), 5, 7),        # llama-3.2-vision: 64 blocks unsplit
+    ((2, 1024, 32, 8), 64, 1),      # 256 blocks: no split (264 at two
+                                    # blocks an SM would split it)
+    ((1, 2048, 32, 8), 128, 1),
+    ((2, 1024, 128, 128), 16, 1),   # DeepSeek-V3's micro-step, G 1
+    ((1, 100, 16, 1), 2, 16),
+])
+def test_bwd_kv_plan_at_smoke_shapes_pair_body(shape, chunk, parts):
+    """The split plan of the `wgmma` dK/dV kernel at 64-key tiles: one
+    block an SM (``bwd_per_sm``), so no split from 132 blocks; below
+    that, chunks for about 2 x 132 blocks."""
+    from repro_torch.kernels.flash_prefill import (bwd_kv_chunk,
+                                                   bwd_kv_parts, bwd_per_sm)
+    assert bwd_per_sm(128, 128, 1) == bwd_per_sm(192, 128, 1) == 1
+    assert bwd_per_sm(64, 64, 1) == 1 and bwd_per_sm(16, 16, 1) == 2
+    assert bwd_per_sm(64, 64, 0) == 2
+    assert (bwd_kv_chunk(*shape, 64, 1), bwd_kv_parts(*shape, 64, 1)) == \
+        (chunk, parts)
+
+
 @pytest.mark.parametrize("b,hq,hkv", [(1, 32, 8), (2, 6, 6), (3, 8, 1),
                                       (8, 32, 8)])
 def test_bwd_kv_plan_covers_every_walk(b, hq, hkv):
@@ -121,18 +145,77 @@ def test_bwd_kv_plan_covers_every_walk(b, hq, hkv):
     kt) query tiles) cover it, the longest walk needs exactly
     ``bwd_kv_parts`` chunks, and a split grid gives the 132 SMs at least
     one block each or runs chunks of the least length."""
+    _covers_every_walk(b, hq, hkv, 2)
+
+
+@pytest.mark.parametrize("b,hq,hkv", [(1, 32, 8), (2, 6, 6), (3, 8, 1),
+                                      (2, 128, 128)])
+def test_bwd_kv_plan_covers_every_walk_one_block_an_sm(b, hq, hkv):
+    """The same at one block an SM (the `wgmma` body at 64-key tiles)."""
+    _covers_every_walk(b, hq, hkv, 1)
+
+
+def _covers_every_walk(b, hq, hkv, per_sm):
     from repro_torch.kernels.flash_prefill import (BWD_MIN_CHUNK, BWD_SMS,
                                                    bwd_kv_chunk,
                                                    bwd_kv_parts)
     g = hq // hkv
     for s in range(1, 2049, 7):
         n = -(-s // 64)
-        chunk, parts = bwd_kv_chunk(b, s, hq, hkv), bwd_kv_parts(b, s, hq,
-                                                                  hkv)
+        chunk, parts = (bwd_kv_chunk(b, s, hq, hkv, 64, per_sm),
+                        bwd_kv_parts(b, s, hq, hkv, 64, per_sm))
         assert 1 <= chunk <= g * n
         used = [-(-g * (n - kt) // chunk) for kt in range(n)]
         assert max(used) == parts and all(u * chunk >= g * (n - kt)
                                           for kt, u in enumerate(used))
+        if parts > 1:
+            assert (b * hkv * sum(used) >= BWD_SMS
+                    or chunk == BWD_MIN_CHUNK)
+
+
+# (B, S, Hq, Hkv) -> (chunk, parts) of the hd 64 `wgmma` dK/dV body's
+# 128-key tiles (one 384-thread block an SM): the card run's shapes, the
+# long train micro-batch (4 x 4096) and the GPU tests' split walks
+@pytest.mark.parametrize("shape,chunk,parts", [
+    ((4, 1024, 32, 8), 64, 1),      # 256 blocks: no split
+    ((4, 4096, 32, 8), 256, 1),
+    ((1, 512, 32, 8), 3, 11),       # 32 blocks unsplit
+    ((2, 448, 6, 6), 2, 4),         # whisper-tiny, G 1: 48 unsplit
+    ((2, 512, 32, 32), 8, 1),       # zamba2's shared attention, G 1
+    ((1, 320, 8, 2), 2, 10),
+])
+def test_bwd_kv_plan_at_smoke_shapes_128_key_tiles(shape, chunk, parts):
+    """The `wgmma` dK/dV kernel's split plan (128-key tiles, query tiles
+    of 64) at the card run's shapes."""
+    from repro_torch.kernels.flash_prefill import bwd_kv_chunk, bwd_kv_parts
+    assert (bwd_kv_chunk(*shape, 128, 1),
+            bwd_kv_parts(*shape, 128, 1)) == (chunk, parts)
+
+
+@pytest.mark.parametrize("b,hq,hkv", [(1, 32, 8), (2, 6, 6), (3, 8, 1),
+                                      (8, 32, 8), (2, 16, 1)])
+def test_bwd_kv_plan_covers_every_walk_128_key_tiles(b, hq, hkv):
+    """At every S up to 2048, with 128-key tiles: key tile kt walks G (n
+    - 2 kt) query tiles of 64; its chunks cover that walk, the longest
+    needs exactly ``bwd_kv_parts`` of them, and a split grid gives the
+    132 SMs a block each or runs chunks of the least length; the C
+    entries agree (``flash_prefill_bwd_kv_tile``, checked on the card)."""
+    from repro_torch.kernels.flash_prefill import (BWD_MIN_CHUNK, BWD_SMS,
+                                                   bwd_kv_chunk,
+                                                   bwd_kv_parts, bwd_kv_tile)
+    assert bwd_kv_tile(64, 64, 1) == 128
+    assert bwd_kv_tile(128, 128, 1) == bwd_kv_tile(192, 128, 1) == 64
+    assert bwd_kv_tile(16, 16, 1) == 64
+    assert bwd_kv_tile(64, 64, 0) == 64
+    g = hq // hkv
+    for s in range(1, 2049, 7):
+        n, m = -(-s // 64), -(-s // 128)
+        chunk, parts = (bwd_kv_chunk(b, s, hq, hkv, 128, 1),
+                        bwd_kv_parts(b, s, hq, hkv, 128, 1))
+        assert 1 <= chunk <= g * n
+        used = [-(-g * (n - 2 * kt) // chunk) for kt in range(m)]
+        assert max(used) == parts and all(
+            u * chunk >= g * (n - 2 * kt) for kt, u in enumerate(used))
         if parts > 1:
             assert (b * hkv * sum(used) >= BWD_SMS
                     or chunk == BWD_MIN_CHUNK)
