@@ -18,7 +18,8 @@ check raises and the script exits non-zero with no result line:
            split decode, of the GQA decode bandwidth body, of the int8
            decode and of both GQA chunk prefill entries must hold some,
            and the warp-specialised flash bodies (``flash_prefill_wg``,
-           ``bwd_dkdv_wg``, ``bwd_dkdv_pair_wg``, ``bwd_dq_wg``) HGMMA
+           ``bwd_dkdv_wg``, ``bwd_dkdv_pair_wg``, ``bwd_dq_wg``) and the
+           GQA chunk prefill's Hopper body (``paged_prefill_wg``) HGMMA
            (``wgmma``) ones: none may compile to ``mma.sync`` alone;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
@@ -32,12 +33,17 @@ check raises and the script exits non-zero with no result line:
            off), beside the least time the card could take for the
            same work, and the body the C entry ran for the case
            (``body``: "tensor_core", "cuda_core", or for flash prefill
-           and its backward "wgmma", "mma_sync" or "cuda_core"); then
-           the three at
+           and its backward "wgmma", "mma_sync" or "cuda_core", for the
+           GQA chunk prefill "wgmma", "tensor_core" or "cuda_core", with
+           its split plan: splits, blocks, the blocks that walk keys on
+           the case's inputs, the partials' bytes); then the three at
            the trace replay's 32-token pages (``*_page32``: the chunk at
            offset 336, every slot no row may read holding 8x larger
-           K/V); then the three at granite-moe-3b-a800m's engine
-           shapes (``*_g3``: Hq 24 over Hkv 8, G = 3, hd 64, 32 slots);
+           K/V), and kernels 2 and 3 there with those slots holding
+           inf / NaN (``*_page32_nonfinite``: the output equal to the
+           clean pool's bit for bit and finite); then the three at
+           granite-moe-3b-a800m's engine shapes (``*_g3``: Hq 24 over
+           Hkv 8, G = 3, hd 64, 32 slots);
   mla_kernels  the same for the three absorbed-MLA kernels at the MLA
            path's shapes (DeepSeek-V3: Hq=128, dl=512, dr=64, page=64,
            C=64, a 1857-page bf16 latent pool, 56 rows with lengths up
@@ -53,7 +59,10 @@ check raises and the script exits non-zero with no result line:
   serve    the engine at full llama3.2-1b width (seeded random bf16
            weights, default EngineConfig) serving shared-prefix and
            segment-reuse traffic, 16 new tokens per request, with every
-           kernel's launch count zeroed just before and read just after;
+           kernel's launch count zeroed just before and read just after,
+           and calls 1, 2, 4, 8, ... of kernels 1-3 held to their plain
+           versions on the traffic's own inputs (``kernel_checks``; also
+           in moe_serve, replay, replay_full, examples and chaos);
   parity   one decode step, one prefill chunk and one segment chunk of
            the full-width model with the CUDA kernels and then with the
            plain versions (explicit backend="torch") on the same weights
@@ -506,7 +515,9 @@ TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 2),
                        ("paged_decode", "paged_decode_tc", 4),
                        ("paged_decode", "paged_decode_int8_tc", 4),
                        ("paged_prefill", "paged_prefill_tcILb0E", 4),
-                       ("paged_prefill", "paged_prefill_tcILb1E", 4))
+                       ("paged_prefill", "paged_prefill_tcILb1E", 4),
+                       ("paged_prefill", "paged_prefill_wgILb0E", 2, "HGMMA"),
+                       ("paged_prefill", "paged_prefill_wgILb1E", 2, "HGMMA"))
 
 
 def phase_build(build, card):
@@ -580,7 +591,8 @@ def kernel_body(name, a) -> str:
     """The body the C entry runs for case ``name`` on inputs ``a``, as
     its dispatch by type and width decides: "tensor_core" or
     "cuda_core"; flash prefill and its backward "wgmma", "mma_sync" or
-    "cuda_core"."""
+    "cuda_core"; the GQA chunk prefill (by page size too) "wgmma",
+    "tensor_core" (``mma.sync``) or "cuda_core"."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mla_paged_decode as mpd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
@@ -591,10 +603,14 @@ def kernel_body(name, a) -> str:
         q = a["q"]
         tc = fn(q.shape[-2], a["k_pages"].shape[2], q.shape[-1],
                 DTYPE_CODES[q.dtype])
-    elif name.startswith(("paged_decode", "paged_prefill")):
-        src = ("paged_decode" if name.startswith("paged_decode")
-               else "paged_prefill")
-        fn = build.entry(src, f"{src}_tensor_core", [ctypes.c_int] * 5)
+    elif name.startswith("paged_prefill"):
+        from repro_torch.kernels.paged_prefill import body
+        q, kp = a["q"], a["k_pages"]
+        return body(q.shape[-2], kp.shape[2], q.shape[-1], kp.shape[1],
+                    DTYPE_CODES[q.dtype], DTYPE_CODES[kp.dtype])
+    elif name.startswith("paged_decode"):
+        fn = build.entry("paged_decode", "paged_decode_tensor_core",
+                         [ctypes.c_int] * 5)
         q, kp = a["q"], a["k_pages"]
         tc = fn(q.shape[-2], kp.shape[2], q.shape[-1], DTYPE_CODES[q.dtype],
                 DTYPE_CODES[kp.dtype])
@@ -675,15 +691,36 @@ def seg_counts(cpos):
 
 
 def prefill_plan(a) -> dict:
-    """The GQA chunk prefill's plan on inputs ``a`` (tensor-core body):
-    one block per (16 / G queries, KV head, row), its key walk dealt to
-    four warps (16 keys of every 64-key tile each) and merged inside the
-    block, so no partial leaves it."""
-    B, C, Hq, _ = a["q"].shape
-    Hkv = a["k_pages"].shape[2]
-    qb = 16 // (Hq // Hkv)
-    return {"splits": 1, "warp_splits": 4, "queries_a_block": qb,
-            "blocks": B * Hkv * -(-C // qb), "partial_bytes": 0}
+    """The GQA chunk prefill's plan on inputs ``a``.  The `wgmma` body:
+    ``prefill_split_plan``'s splits of the key walk (from the shapes
+    alone), the blocks, the blocks that walk keys on these inputs (their
+    offsets or pool limits, read here on the host) and the partials the
+    clusters merge in shared memory.  The `mma.sync` body: one block per
+    (16 / G queries, KV head, row), its walk dealt to four warps and
+    merged inside the block."""
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
+    B, C, Hq, hd = a["q"].shape
+    _, page, Hkv, _ = a["k_pages"].shape
+    P = a["block_tables"].shape[1]
+    if pp.body(Hq, Hkv, hd, page, DTYPE_CODES[a["q"].dtype],
+               DTYPE_CODES[a["k_pages"].dtype]) != "wgmma":
+        qb = 16 // (Hq // Hkv)
+        return {"splits": 1, "warp_splits": 4, "queries_a_block": qb,
+                "blocks": B * Hkv * -(-C // qb), "partial_bytes": 0}
+    plan = pp.prefill_split_plan(B, C, Hq, Hkv, hd, page, P)
+    ends = (a["offsets"] if "offsets" in a
+            else ref.pool_limits(a["chunk_positions"])).tolist()
+    live = Hkv * sum(plan.live_splits(e, qb) for e in ends
+                     for qb in range(plan.query_blocks))
+    return {"splits": plan.splits, "tiles_a_split": plan.tiles,
+            "pool_splits": plan.pool_splits,
+            "chunk_splits": plan.chunk_splits,
+            "queries_a_block": plan.queries, "blocks": plan.blocks,
+            "live_blocks": live, "cluster": [1, plan.splits, 1],
+            "partial_bytes": plan.partial_bytes,
+            "partials_in": "shared memory"}
 
 
 def phase_kernels(torch, ops, card):
@@ -724,7 +761,53 @@ def phase_kernels(torch, ops, card):
     rows = check_and_time(torch, cases, card, "kernels")
     check_contiguous(torch, ops.paged_prefill_seg, ops.paged_prefill, pre,
                      C, "kernels")
+    check_nonfinite_unread(torch, gen, ops, card)
     return rows
+
+
+def check_nonfinite_unread(torch, gen, ops, card):
+    """Kernels 2 and 3 at the trace replay's 32-token pages (offset 336;
+    the gap segment chunk) with every slot no row may read (at or past
+    the offset or pool limit, a segment chunk's own slots) holding inf
+    in K and NaN in V, then NaN in K and inf in V: the output must equal
+    the clean pool's bit for bit and be finite.  The body lands whole
+    pages and zeroes those V rows before P V."""
+    _, pre, seg = make_kernel_inputs(torch, gen, page=32, offset=336)
+    for name, op, a in (("paged_prefill_page32", ops.paged_prefill, pre),
+                        ("paged_prefill_seg_page32", ops.paged_prefill_seg,
+                         seg)):
+        page = a["k_pages"].shape[1]
+        pos = torch.arange(a["block_tables"].shape[1] * page, device="cuda")
+        if "offsets" in a:
+            unread = pos[None] >= a["offsets"].long()[:, None]
+        else:
+            from repro_torch.kernels import ref
+            cpos = a["chunk_positions"].long()
+            limit = ref.pool_limits(a["chunk_positions"]).long()
+            unread = ((pos[None, :, None] == cpos[:, None, :]).any(-1)
+                      | (pos[None] >= limit[:, None]))
+        pid = a["block_tables"].long()[:, pos // page][unread]
+        slot = (pos % page).expand_as(unread)[unread]
+        clean = op(**a, backend="cuda")
+        err = float((clean.float()
+                     - op(**a, backend="torch").float()).abs().max())
+        same = []
+        for kbad, vbad in ((math.inf, math.nan), (math.nan, math.inf)):
+            dirty = dict(a, k_pages=a["k_pages"].clone(),
+                         v_pages=a["v_pages"].clone())
+            dirty["k_pages"][pid, slot] = kbad
+            dirty["v_pages"][pid, slot] = vbad
+            out = op(**dirty, backend="cuda")
+            same.append(bool(torch.isfinite(out).all())
+                        and torch.equal(out, clean))
+        emit({"phase": "kernels", "card": card, "check": name + "_nonfinite",
+              "body": kernel_body(name, a), "unread_slots": int(pid.numel()),
+              "clean_max_abs_err": err, "tol": KERNEL_ATOL,
+              "unchanged_and_finite": same})
+        if not all(same) or not err <= KERNEL_ATOL:
+            raise AssertionError(f"{name}: non-finite unread slots changed "
+                                 f"the output ({same}) or the clean output "
+                                 f"is {err} from the plain version")
 
 
 def stale_pools(torch, a, unread):
@@ -1191,7 +1274,7 @@ def phase_dense_kernels(torch, ops, card):
 def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
                 shared_tail, phase="serve", pool=None,
                 expect=("cow_share_hits", "segment_chunks"), params=None,
-                instrument=None):
+                instrument=None, check_calls=False):
     """Serve ``cfg`` on the engine: 6 requests of a shared system prefix
     (``system_blocks`` manager blocks) plus ``shared_tail`` tokens each,
     the first alone, then five; then a segment pair A = [S0 S1 S2 | tail]
@@ -1202,7 +1285,9 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     pages) the kernel phase assumed for this engine.  ``params``: a
     weight tree to serve (else the engine's seeded init); ``instrument``:
     called with the engine before the traffic, returns a function whose
-    dict joins the phase's line."""
+    dict joins the phase's line.  ``check_calls``: kernels 1-3 held to
+    their plain versions on the traffic's own calls
+    (``checked_kernel_calls``)."""
     from repro_torch.serving import SamplingParams, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
@@ -1244,22 +1329,25 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     for fn in kernel_fns.values():
         fn.launches = 0
     reqs, decode_s, decode_tokens, decode_steps, steps = [], 0.0, 0, 0, 0
+    calls = []
     t_serve = time.perf_counter()
-    for wave in waves:
-        reqs += [eng.submit(p, params=SamplingParams(max_new_tokens=16))
-                 for p in wave]
-        while eng.scheduler.has_work():
-            t = time.perf_counter()
-            prefills = eng.monolithic_prefills
-            produced = eng.step()      # ends in a device->host copy
-            dt = time.perf_counter() - t
-            steps += 1
-            # decode-only: no prompt chunk and no admission prefill
-            if (produced and eng.last_step_prefill_tokens == 0
-                    and eng.monolithic_prefills == prefills):
-                decode_s += dt
-                decode_tokens += produced
-                decode_steps += 1
+    with (checked_kernel_calls(torch, calls) if check_calls
+          else contextlib.nullcontext()):
+        for wave in waves:
+            reqs += [eng.submit(p, params=SamplingParams(max_new_tokens=16))
+                     for p in wave]
+            while eng.scheduler.has_work():
+                t = time.perf_counter()
+                prefills = eng.monolithic_prefills
+                produced = eng.step()      # ends in a device->host copy
+                dt = time.perf_counter() - t
+                steps += 1
+                # decode-only: no prompt chunk and no admission prefill
+                if (produced and eng.last_step_prefill_tokens == 0
+                        and eng.monolithic_prefills == prefills):
+                    decode_s += dt
+                    decode_tokens += produced
+                    decode_steps += 1
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t_serve
     launches = {name: fn.launches for name, fn in kernel_fns.items()}
@@ -1292,7 +1380,11 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
            "segment_chunks": st["segment_chunks"],
            "segment_share_hits": st["segment_share_hits"],
            "kernel_backend": st["kernel_backend"], **report()}
+    if check_calls:
+        out["kernel_checks"] = kernel_check_report(torch, calls)
     emit(out)
+    if check_calls:
+        held_to_plain(phase, out["kernel_checks"], launches)
     bad = [r.request_id for r in reqs if len(r.generated) != 16]
     if bad:
         raise AssertionError(f"requests {bad} did not produce 16 tokens")
@@ -3538,6 +3630,19 @@ def kernel_check_report(torch, record) -> dict:
     return report
 
 
+def held_to_plain(phase, report, launches, names=None):
+    """Raise unless every kernel of ``names`` (GQA_PATH) that launched on
+    the path was held to its plain version on the path's own calls
+    (``kernel_check_report``) with finite outputs within the limit."""
+    for name in names or GQA_PATH:
+        if launches[name] <= 0:
+            continue
+        row = report.get(name)
+        if not row or not row["finite"] or row["worst_err_over_tol"] > 1.0:
+            raise AssertionError(f"{phase}: kernel {name} vs its plain "
+                                 f"version on the path's own calls: {row}")
+
+
 @contextlib.contextmanager
 def checked_injects(torch, record):
     """After every block inject into a paged pool (a tier fetch, a
@@ -3632,10 +3737,7 @@ def check_replay_run(phase, run):
         if run["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{phase} path")
-        row = run["kernel_checks"].get(name)
-        if not row or not row["finite"] or row["worst_err_over_tol"] > 1.0:
-            raise AssertionError(f"{phase}: kernel {name} vs its plain "
-                                 f"version on the path's own calls: {row}")
+    held_to_plain(phase, run["kernel_checks"], run["launches"])
     if page_tokens(run) != [REPLAY_BLOCK_TOKENS]:
         raise AssertionError(f"{phase}: kernels 1-3 ran at pages "
                              f"{page_tokens(run)}, not "
@@ -3983,11 +4085,13 @@ def phase_examples(torch, kernel_fns, card) -> dict:
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        with quiet():
+        calls = []
+        with quiet(), checked_kernel_calls(torch, calls):
             text = fn()
         torch.cuda.synchronize()
         by_path[f"examples:{name}"] = {k: f.launches
                                        for k, f in kernel_fns.items()}
+        checks[name] = kernel_check_report(torch, calls)
         peak = torch.cuda.max_memory_allocated()
         # the example's own peak is the gain over what was held before
         # it started (the shared reduced params, for the reduced runs)
@@ -3997,9 +4101,10 @@ def phase_examples(torch, kernel_fns, card) -> dict:
                       "peak_gain_gb": (peak - before) / 1e9,
                       "launches": {k: v for k, v in
                                    by_path[f"examples:{name}"].items()
-                                   if v}}
+                                   if v},
+                      "kernel_checks": checks[name]}
 
-    finished = []
+    finished, checks = [], {}
     with engine_runs(finished):
         for name in SERVING_EXAMPLES:
             ex = load_script(f"examples/torch_{name}.py")
@@ -4116,6 +4221,8 @@ def phase_examples(torch, kernel_fns, card) -> dict:
     if by_path["examples:train_demo"]["flash_prefill_bwd"] <= 0:
         raise AssertionError("the train demo launched no flash prefill "
                              "backward")
+    for name, report in checks.items():
+        held_to_plain(f"examples:{name}", report, by_path[f"examples:{name}"])
     return by_path
 
 
@@ -4125,16 +4232,19 @@ def phase_chaos(torch, kernel_fns, card) -> dict:
     on tiers 1-5, fault seed 3, 4 hot and 8 tier-1 blocks; the smoke's
     own checks: no request hung, a retry absorbed, every injected
     corruption caught by its crc32 check), every counter equal to the
-    CPU run's (CHAOS_PINS); kernels 1-3's launches counted."""
+    CPU run's (CHAOS_PINS); kernels 1-3's launches counted and held to
+    their plain versions on the run's own calls."""
     smoke = load_script("scripts/torch_replay_smoke.py")
     for fn in kernel_fns.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with quiet():
+    calls = []
+    with quiet(), checked_kernel_calls(torch, calls):
         res = smoke.chaos_smoke(device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    checks = kernel_check_report(torch, calls)
     got = dataclasses.asdict(res)
     mismatch = {k: (got[k], v) for k, v in CHAOS_PINS.items()
                 if got[k] != v}
@@ -4142,8 +4252,9 @@ def phase_chaos(torch, kernel_fns, card) -> dict:
           "launches": {k: launches[k] for k in GQA_PATH},
           **{k: got[k] for k in CHAOS_PINS},
           "ttft_p50": got["ttft_p50"], "retry_delay_s": got["retry_delay_s"],
-          "tier_health": got["tier_health"],
+          "tier_health": got["tier_health"], "kernel_checks": checks,
           "pins_equal": not mismatch})
+    held_to_plain("chaos", checks, launches)
     if mismatch:
         raise AssertionError(f"chaos: counters differ from the CPU pins "
                              f"(got, pinned): {mismatch}")
@@ -4489,7 +4600,7 @@ def main() -> int:
     by_path = {}
     params, by_path["serve"] = phase_serve(
         torch, kernel_fns, GQA_PATH, smi, get_config("llama3.2-1b"),
-        EngineConfig(), system_blocks=2, shared_tail=128)
+        EngineConfig(), system_blocks=2, shared_tail=128, check_calls=True)
     launches = {name: by_path["serve"][name] for name in GQA_PATH}
     phase_parity(torch, params, smi)
     del params
@@ -4499,7 +4610,7 @@ def main() -> int:
     params, by_path["moe_serve"] = phase_serve(
         torch, kernel_fns, GQA_PATH, smi, granite, EngineConfig(),
         system_blocks=2, shared_tail=128, phase="moe_serve",
-        instrument=moe_drops(torch))
+        instrument=moe_drops(torch), check_calls=True)
     phase_moe_parity(torch, params, granite, smi,
                      rows=Scheduler(granite, SchedulerConfig(
                          kv_budget_bytes=EngineConfig().kv_budget_bytes,

@@ -10,30 +10,164 @@ chunk of C queries attends resident pool tokens through the block table
 plus its own densely passed keys, causally by index; the caller
 scatters the chunk's KV into the pool afterwards.  The GQA kernels are
 bound by the HBM bytes of the pool pages they read (at the serving
-path's sizes by the latency of a short walk of key tiles), the MLA ones
-by their operations; bf16 inputs run tensor-core bodies (see the source
-notes).  On CPU tensors the wrappers run the plain versions in
-``kernels/ref.py``.
+path's sizes by the latency of their dependent reads and of the key
+tiles a block walks in turn), the MLA ones by their operations; bf16
+inputs run tensor-core bodies (see the source notes).  On CPU tensors
+the wrappers run the plain versions in ``kernels/ref.py``.
+
+The GQA kernels' bodies by type, width and page size (``body`` asks the
+C entry):
+
+=====================================  ==============================
+inputs                                 body
+=====================================  ==============================
+bf16, hd 64 / 128, G <= 16, pages of   ``wgmma`` (``paged_prefill_wg``:
+16 / 32 / 64 tokens                    TMA page gathers, a split walk)
+bf16, hd 16 - 128, G <= 16, other      ``tensor_core``
+pages (hd 16 / 32: every page)         (``paged_prefill_tc``,
+                                       ``mma.sync``)
+float32; bf16 otherwise                ``cuda_core``
+=====================================  ==============================
+
+The ``wgmma`` body cuts each query block's key walk into splits chosen
+on the host by ``prefill_split_plan`` from B, C, Hq, Hkv, hd, page and
+the table window alone (the host never reads the offsets or positions):
+pool splits of ``tiles`` 64-key tiles, then the chunk's own keys in
+splits of their own.  The splits of a query block run as one thread
+block cluster: each block keeps its float32 partial in its shared
+memory and the cluster merges them in split order through distributed
+shared memory, so the wrapper allocates no scratch.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import abstract, build, ref
 from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.flash_prefill import _tma_ready
 from repro_torch.kernels.mla_paged_decode import check_mla_args
 from repro_torch.kernels.paged_attention import (DTYPE_CODES, FLT, INT,
                                                  PTR, check_args, stream_ptr)
 
-# q, k/v chunk, k/v pages, tables, offsets or positions, out;
-# B, C, Hq, Hkv, hd, N, page, P; scale; q and kv dtype codes; stream
-PREFILL_ARGS = [PTR] * 8 + [INT] * 8 + [FLT, INT, INT, PTR]
+# q, k/v chunk, k/v pages, tables, offsets or positions, out; B, C, Hq,
+# Hkv, hd, N, page, P, tiles a split, pool splits, splits; scale; q and
+# kv dtype codes; stream
+PREFILL_ARGS = [PTR] * 8 + [INT] * 11 + [FLT, INT, INT, PTR]
+BODIES = {0: "cuda_core", 1: "tensor_core", 2: "wgmma"}
+
+# The `wgmma` body's split plan: a block holds QUERY_ROWS rows (64 // G
+# queries x G heads of one KV head, the M of one `wgmma` warpgroup) and
+# walks whole tiles of KEY_TILE keys; a split takes the fewest tiles, at
+# least MIN_SPLIT_TILES, that keep the grid within SPLIT_BLOCKS[hd]
+# blocks (half of what the H100's 132 SMs hold at once: three blocks an
+# SM at hd 64, two at hd 128, by shared memory) and each query block
+# within MAX_SPLITS splits (one portable cluster)
+KEY_TILE = 64
+QUERY_ROWS = 64
+SPLIT_BLOCKS = {64: 192, 128: 132}
+MIN_SPLIT_TILES = 2
+MAX_SPLITS = 8
+
+
+class PrefillPlan(NamedTuple):
+    """How the `wgmma` body cuts the key walk of a chunk call: per query
+    block, ``pool_splits`` splits of ``tiles`` pool tiles over the table
+    window, then ``chunk_splits`` of the chunk's own keys."""
+    tiles: int              # 64-key tiles a split
+    pool_splits: int
+    chunk_splits: int
+    queries: int            # queries a block: 64 // G
+    query_blocks: int
+    groups: int             # B * Hkv * query_blocks: one cluster each
+    window: int             # P * page
+    c: int
+    hd: int
+
+    @property
+    def splits(self) -> int:
+        return self.pool_splits + self.chunk_splits
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.splits
+
+    @property
+    def partial_bytes(self) -> int:
+        """The float32 partials (each block's unnormalised output and (m,
+        l) for its 64 rows) held in shared memory and merged across each
+        cluster."""
+        return self.blocks * QUERY_ROWS * (self.hd + 2) * 4
+
+    def split_keys(self, split: int) -> Tuple[str, int, int]:
+        """("pool", start, stop) pool positions or ("chunk", start, stop)
+        chunk indices of split ``split``'s keys."""
+        span = self.tiles * KEY_TILE
+        if split < self.pool_splits:
+            return ("pool", split * span, min((split + 1) * span,
+                                              self.window))
+        k = split - self.pool_splits
+        return ("chunk", k * span, min((k + 1) * span, self.c))
+
+    def live_splits(self, end: int, query_block: int) -> int:
+        """Splits a block of query block ``query_block`` walks when its
+        row reads pool positions < ``end`` (the offset, or the segment
+        chunk's pool limit); the others walk nothing."""
+        span = self.tiles * KEY_TILE
+        end = min(max(end, 0), self.window)
+        n_keys = min(self.c, (query_block + 1) * self.queries)
+        return -(-end // span) + -(-n_keys // span)
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_split_plan(b: int, c: int, hq: int, hkv: int, hd: int,
+                       page: int, p: int) -> PrefillPlan:
+    """The `wgmma` body's split plan for a call on q [b, c, hq, hd] over
+    k/v pages [N, page, hkv, hd] with tables [b, p]: ints only, so the
+    host reads nothing of the device."""
+    args = (b, c, hq, hkv, hd, page, p)
+    if not all(isinstance(x, int) for x in args):
+        raise TypeError("prefill_split_plan takes ints (the shapes), "
+                        f"got {[type(x).__name__ for x in args]}")
+    queries = QUERY_ROWS // (hq // hkv)
+    query_blocks = -(-c // queries)
+    groups = b * hkv * query_blocks
+    window = p * page
+    pool_tiles, chunk_tiles = -(-window // KEY_TILE), -(-c // KEY_TILE)
+    # narrower widths (the CPU emulation's) plan as hd 64
+    limit = SPLIT_BLOCKS[128 if hd > 64 else 64]
+    tiles = MIN_SPLIT_TILES
+    while True:
+        splits = -(-pool_tiles // tiles) + -(-chunk_tiles // tiles)
+        if splits <= 2 or (splits <= MAX_SPLITS
+                           and groups * splits <= limit):
+            break
+        tiles += 1
+    return PrefillPlan(tiles=tiles, pool_splits=-(-pool_tiles // tiles),
+                       chunk_splits=-(-chunk_tiles // tiles),
+                       queries=queries, query_blocks=query_blocks,
+                       groups=groups, window=window, c=c, hd=hd)
+
+
+@functools.lru_cache(maxsize=None)
+def body(hq: int, hkv: int, hd: int, page: int, q_dtype: int,
+         kv_dtype: int) -> str:
+    """The body the GQA chunk prefill's C entries run: "wgmma",
+    "tensor_core" (``mma.sync``) or "cuda_core"."""
+    fn = build.entry("paged_prefill", "paged_prefill_body",
+                     [ctypes.c_int] * 6)
+    return BODIES[fn(hq, hkv, hd, page, q_dtype, kv_dtype)]
 
 
 def _launch(entry: str, q, k_chunk, v_chunk, k_pages, v_pages,
-            block_tables, where) -> torch.Tensor:
+            block_tables, where, plan: PrefillPlan | None = None
+            ) -> torch.Tensor:
+    """Launch C entry ``entry``; ``plan`` replaces the `wgmma` body's
+    default split plan (an A/B of plans passes one)."""
     b, c, hq, hd = q.shape
     n, page, hkv, _ = k_pages.shape
     if (q.dim() != 4 or k_chunk.shape != (b, c, hkv, hd)
@@ -41,13 +175,20 @@ def _launch(entry: str, q, k_chunk, v_chunk, k_pages, v_pages,
             or block_tables.shape[0] != b):
         raise ValueError(f"{entry}: q [B,C,Hq,hd], k/v chunk [B,C,Hkv,hd], "
                          f"tables [B,P]")
+    qd, kd = DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype]
+    p = block_tables.shape[1]
+    ints = (0, 0, 0)
+    if body(hq, hkv, hd, page, qd, kd) == "wgmma":
+        plan = plan or prefill_split_plan(b, c, hq, hkv, hd, page, p)
+        q, k_chunk, v_chunk, k_pages, v_pages = _tma_ready(
+            q, k_chunk, v_chunk, k_pages, v_pages)
+        ints = (plan.tiles, plan.pool_splits, plan.splits)
     out = torch.empty_like(q)
     fn = build.entry("paged_prefill", entry, PREFILL_ARGS)
     rc = fn(*(t.data_ptr() for t in (q, k_chunk, v_chunk, k_pages, v_pages,
                                      block_tables, where, out)),
-            b, c, hq, hkv, hd, n, page, block_tables.shape[1],
-            1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
-            DTYPE_CODES[k_pages.dtype], stream_ptr(q.device))
+            b, c, hq, hkv, hd, n, page, p, *ints, 1.0 / math.sqrt(hd), qd,
+            kd, stream_ptr(q.device))
     build.check(rc, "paged_prefill", entry)
     return out
 

@@ -4,6 +4,9 @@ log-sum-exp, the flash prefill backward and int8 paged decode, both
 decodes with their log-sum-exps and a two-slice split merged by them)
 against their plain PyTorch versions on the card, and the
 bf16 decode kernels' split walks against themselves (bit for bit); the
+GQA chunk / segment prefill's `wgmma` body at hd 64 / 128 over 16-, 32-
+and 64-token pages (its split plans, inf / NaN in slots no row may
+read, bit for bit twice and against the offset call); the
 MLA kernels on the dense layout's routes (a whole prompt at offset 0,
 latent slots seen as pages); the MoE FFN's routing on the card against
 the CPU's; engines on the card against the CPU engine.
@@ -198,7 +201,12 @@ def test_paged_prefill_seg_kernel(cuda, dtype, tol, hq, hkv, hd, page, pages,
 
 @pytest.mark.parametrize("hq,hkv,hd,page,pages", [(8, 2, 64, 16, 6),
                                                   (8, 2, 64, 64, 3),
-                                                  (32, 8, 64, 64, 8)])
+                                                  (32, 8, 64, 64, 8),
+                                                  (32, 8, 64, 32, 16),
+                                                  (24, 8, 64, 64, 8),
+                                                  (8, 1, 128, 32, 8),
+                                                  (16, 1, 128, 16, 12),
+                                                  (8, 2, 32, 16, 6)])
 def test_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, hkv, hd, page,
                                                      pages):
     a = _inputs(torch.bfloat16, hq=hq, hkv=hkv, hd=hd, page=page,
@@ -211,6 +219,141 @@ def test_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, hkv, hd, page,
     off = cuda.paged_prefill(*base, torch.tensor(offs, dtype=torch.int32,
                                                  device="cuda"))
     assert torch.equal(seg, off)
+
+
+# (Hq, Hkv, hd, page, pages, C, offsets) of the `wgmma` body
+# (``paged_prefill_wg``): hd 64 and 128; pages of 16, 32 and 64 tokens;
+# offsets at 0, at tile and page edges and at the window's last chunk; G
+# 1 / 3 / 4 / 8 / 16; ragged C (1, 17, 63, 80); windows of 4096 and 2048
+# tokens, whose splits are longer than the ring (it wraps)
+WG_PREFILL_CASES = [
+    (32, 8, 64, 64, 8, 64, (0, 63, 64, 320, 448)),
+    (32, 8, 64, 32, 16, 64, (0, 31, 32, 336, 448)),
+    (8, 8, 64, 16, 12, 17, (0, 15, 16, 65, 175)),
+    (24, 8, 64, 64, 8, 63, (0, 64, 320, 449)),
+    (64, 8, 128, 16, 24, 64, (0, 128, 300, 320)),
+    (16, 1, 128, 32, 8, 1, (0, 1, 64, 255)),
+    (16, 1, 64, 64, 4, 80, (0, 5, 176)),
+    (8, 2, 128, 64, 3, 17, (0, 40, 175)),
+    (32, 8, 64, 64, 64, 64, (0, 1000, 4032)),
+    (64, 8, 128, 32, 64, 64, (0, 2000)),
+]
+
+
+def _gap_rows(offs, c, window):
+    """Per offset a segment chunk with a gap: c // 2 positions from
+    offset // 2, then the rest up to offset + c (the first row ends in 3
+    padding slots)."""
+    rows = []
+    for k, o in enumerate(offs):
+        r = list(range(o // 2, o // 2 + c // 2)) + \
+            list(range(o + c // 2, o + c))
+        rows.append([x for x in r if x < window][:c - 3 if k == 0 else c])
+    return rows
+
+
+def _wg_case(hq, hkv, hd, page, pages, c, offs, seg, seed=0):
+    a = _inputs(torch.bfloat16, b=len(offs), c=c, hq=hq, hkv=hkv, hd=hd,
+                page=page, pages=pages, seed=seed)
+    if seg:
+        rows = _gap_rows(offs, c, pages * page)
+        where = torch.tensor([r + [-1] * (c - len(r)) for r in rows],
+                             dtype=torch.int32, device="cuda")
+    else:
+        where = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    return a, where
+
+
+@pytest.mark.parametrize("seg", [False, True])
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,c,offs", WG_PREFILL_CASES)
+def test_paged_prefill_wg_body(cuda, seg, hq, hkv, hd, page, pages, c, offs):
+    """The `wgmma` body against the plain version in both modes, with a
+    clamped table entry inside a row's window; one launch a call, and two
+    calls equal bit for bit."""
+    from repro_torch.kernels import paged_prefill as pp
+    assert pp.body(hq, hkv, hd, page, 1, 1) == "wgmma"
+    a, where = _wg_case(hq, hkv, hd, page, pages, c, offs, seg)
+    tables = a["tables"].clone()
+    tables[-1, 0] = -2                          # clamps to page 0
+    args = (a["q"], a["kc"], a["vc"], a["kp"], a["vp"], tables, where)
+    op, fn = ((cuda.paged_prefill_seg, cuda.paged_prefill_segments) if seg
+              else (cuda.paged_prefill, cuda.paged_prefill_attention))
+    before = fn.launches
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert _err(out, op(*args, backend="torch")) <= BF16_TOL
+    assert torch.equal(out, op(*args))
+
+
+@pytest.mark.parametrize("seg", [False, True])
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,c,offs",
+                         [WG_PREFILL_CASES[i] for i in (0, 3, 5, 8, 9)])
+def test_paged_prefill_wg_split_plans(cuda, seg, hq, hkv, hd, page, pages,
+                                      c, offs):
+    """Plans of one to four tiles a split and of one more than the
+    default (those of at most MAX_SPLITS splits: one cluster) agree with
+    the plain version, each twice bit for bit; a plan of more splits is
+    refused."""
+    from repro_torch.kernels import paged_prefill as pp
+    a, where = _wg_case(hq, hkv, hd, page, pages, c, offs, seg, seed=3)
+    args = (a["q"], a["kc"], a["vc"], a["kp"], a["vp"], a["tables"], where)
+    entry = "paged_prefill_seg" if seg else "paged_prefill"
+    plan = pp.prefill_split_plan(len(offs), c, hq, hkv, hd, page, pages)
+    op = cuda.paged_prefill_seg if seg else cuda.paged_prefill
+    plain = op(*args, backend="torch")
+    window = pages * page
+    for tiles in (1, 2, 3, 4, plan.tiles + 1):
+        span = tiles * pp.KEY_TILE
+        other = plan._replace(tiles=tiles, pool_splits=-(-window // span),
+                              chunk_splits=-(-c // span))
+        if other.splits > pp.MAX_SPLITS:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                pp._launch(entry, *args, plan=other)
+            continue
+        out = pp._launch(entry, *args, plan=other)
+        torch.cuda.synchronize()
+        assert _err(out, plain) <= BF16_TOL
+        assert torch.equal(out, pp._launch(entry, *args, plan=other))
+
+
+@pytest.mark.parametrize("seg", [False, True])
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,c,offs",
+                         [WG_PREFILL_CASES[i] for i in (0, 1, 2, 4, 8)])
+def test_paged_prefill_wg_ignores_nonfinite_unread_slots(cuda, seg, hq, hkv,
+                                                         hd, page, pages, c,
+                                                         offs):
+    """Slots no row may read (at or past a row's offset or pool limit, a
+    segment chunk's own slots) holding inf in K and NaN in V, or NaN in K
+    and inf in V, leave the output bit for bit as with clean slots: whole
+    pages land in shared memory, and the body zeroes those V rows before
+    P V and replaces their scores."""
+    from repro_torch.kernels import ref
+    a, where = _wg_case(hq, hkv, hd, page, pages, c, offs, seg, seed=5)
+    args = (a["q"], a["kc"], a["vc"], a["kp"], a["vp"], a["tables"], where)
+    op = cuda.paged_prefill_seg if seg else cuda.paged_prefill
+    clean = op(*args)
+    window = pages * page
+    pos = torch.arange(window, device="cuda")
+    if seg:
+        limit = ref.pool_limits(where).long()
+        own = (pos[None, :, None] == where.long()[:, None, :]).any(-1)
+        unread = own | (pos[None] >= limit[:, None])
+    else:
+        unread = pos[None] >= where.long()[:, None]
+    pid = a["tables"].long()[:, pos // page]
+    slots = (pid * page + pos % page)[unread]
+    assert slots.numel() > 0
+    for kbad, vbad in ((float("inf"), float("nan")),
+                       (float("nan"), float("inf"))):
+        kp, vp = a["kp"].clone(), a["vp"].clone()
+        kp.view(-1, *kp.shape[2:])[slots] = kbad
+        vp.view(-1, *vp.shape[2:])[slots] = vbad
+        out = op(a["q"], a["kc"], a["vc"], kp, vp, a["tables"], where)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, clean)
 
 
 def test_gqa_kernels_at_replay_page(cuda):
@@ -1035,7 +1178,8 @@ def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr):
 
 
 def test_tensor_core_dispatch(cuda):
-    """The C entries choose a body by type and width: bf16 flash prefill
+    """The C entries choose a body by type and width (and the GQA chunk
+    prefill by page size too): bf16 flash prefill
     at hd 16-128 and (192, 128) and its backward at hd 16, 64, 128 and
     (192, 128) (the `wgmma` bodies at 64, 128 and (192, 128), `mma.sync`
     below), bf16 MLA chunk prefill and MLA decode at every width
@@ -1084,15 +1228,25 @@ def test_tensor_core_dispatch(cuda):
         assert gqa(hq, hkv, hd, 0, 0) == 0
     assert gqa(32, 1, 64, 1, 1) == 0            # 32 query heads a KV head
     assert gqa(8, 2, 256, 1, 1) == 0            # hd 256
-    pre = build.entry("paged_prefill", "paged_prefill_tensor_core",
-                      [ctypes.c_int] * 5)
+    # the GQA chunk prefill's body: `wgmma` at hd 64 / 128 over pages of
+    # 16 / 32 / 64 tokens, `mma.sync` at hd 16 / 32 and at other pages
+    from repro_torch.kernels import paged_prefill as pp
     for hq, hkv, hd in [(32, 8, 64), (8, 2, 16), (4, 4, 32), (8, 1, 128),
                         (16, 1, 32)]:
-        assert pre(hq, hkv, hd, 1, 1) == 1
-        assert pre(hq, hkv, hd, 0, 1) == 0
-        assert pre(hq, hkv, hd, 0, 0) == 0
-    assert pre(32, 1, 64, 1, 1) == 0            # 32 query heads a KV head
-    assert pre(8, 2, 256, 1, 1) == 0            # hd 256
+        assert pp.body(hq, hkv, hd, 64, 1, 1) != "cuda_core"
+        assert pp.body(hq, hkv, hd, 64, 0, 1) == "cuda_core"
+        assert pp.body(hq, hkv, hd, 64, 0, 0) == "cuda_core"
+    assert pp.body(32, 1, 64, 64, 1, 1) == "cuda_core"   # 32 heads a KV head
+    assert pp.body(8, 2, 256, 64, 1, 1) == "cuda_core"   # hd 256
+    for hq, hkv in [(32, 8), (24, 8), (8, 8), (16, 1), (64, 8)]:
+        for page in (16, 32, 64):
+            assert [pp.body(hq, hkv, hd, page, 1, 1)
+                    for hd in (16, 32, 64, 128)] == \
+                ["tensor_core", "tensor_core", "wgmma", "wgmma"]
+            assert pp.body(hq, hkv, 64, page, 0, 1) == "cuda_core"
+            assert pp.body(hq, hkv, 128, page, 0, 0) == "cuda_core"
+        for page in (8, 128):
+            assert pp.body(hq, hkv, 64, page, 1, 1) == "tensor_core"
     int8 = build.entry("paged_decode", "paged_decode_int8_tensor_core",
                        [ctypes.c_int] * 4)
     for hq, hkv, hd in [(32, 8, 64), (8, 2, 64), (4, 4, 32), (8, 1, 128),
