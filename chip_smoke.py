@@ -15,12 +15,15 @@ check raises and the script exits non-zero with no result line:
            HGMMA) counted in ``cuobjdump -sass`` of the built library;
            the tensor-core bodies of flash prefill and of its backward
            (dK/dV and dQ), of both MLA chunk prefill entries, of the MLA
-           split decode, of the GQA decode bandwidth body, of the int8
-           decode and of both GQA chunk prefill entries must hold some,
-           and the warp-specialised flash bodies (``flash_prefill_wg``,
-           ``bwd_dkdv_wg``, ``bwd_dkdv_pair_wg``, ``bwd_dq_wg``) and the
-           GQA chunk prefill's Hopper body (``paged_prefill_wg``) HGMMA
-           (``wgmma``) ones: none may compile to ``mma.sync`` alone;
+           split decode, of the GQA decode's bandwidth and Hopper bodies
+           (``paged_decode_tc``, ``paged_decode_wg``: `mma.sync`), of the
+           int8 decode and of both GQA chunk prefill entries must hold
+           some, and the warp-specialised flash bodies
+           (``flash_prefill_wg``, ``bwd_dkdv_wg``, ``bwd_dkdv_pair_wg``,
+           ``bwd_dq_wg``), the GQA chunk prefill's Hopper body
+           (``paged_prefill_wg``) and the MLA decode's
+           (``mla_decode_wg``) HGMMA (``wgmma``) ones: none may compile
+           to ``mma.sync`` alone;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
            lengths up to 512 with inactive rows; the decode also with
@@ -34,14 +37,16 @@ check raises and the script exits non-zero with no result line:
            same work, and the body the C entry ran for the case
            (``body``: "tensor_core", "cuda_core", or for flash prefill
            and its backward "wgmma", "mma_sync" or "cuda_core", for the
-           GQA chunk prefill "wgmma", "tensor_core" or "cuda_core", with
-           its split plan: splits, blocks, the blocks that walk keys on
-           the case's inputs, the partials' bytes); then the three at
-           the trace replay's 32-token pages (``*_page32``: the chunk at
-           offset 336, every slot no row may read holding 8x larger
-           K/V), and kernels 2 and 3 there with those slots holding
-           inf / NaN (``*_page32_nonfinite``: the output equal to the
-           clean pool's bit for bit and finite); then the three at
+           GQA chunk prefill "wgmma", "tensor_core" or "cuda_core", for
+           the GQA decode "hopper", "tensor_core" or "cuda_core", each
+           with its split plan: splits, blocks, the blocks that walk
+           keys on the case's inputs, the partials' bytes); then the
+           three at the trace replay's 32-token pages (``*_page32``: the
+           chunk at offset 336, every slot no row may read holding 8x
+           larger K/V), and kernels 1-3 there with those slots holding
+           inf / NaN (``*_page32_nonfinite``: the output, and the
+           decode's log-sum-exp, equal to the clean pool's bit for bit
+           and finite); then the three at
            granite-moe-3b-a800m's engine shapes (``*_g3``: Hq 24 over
            Hkv 8, G = 3, hd 64, 32 slots);
   mla_kernels  the same for the three absorbed-MLA kernels at the MLA
@@ -52,17 +57,17 @@ check raises and the script exits non-zero with no result line:
            1100-token prompt at offset 0 (``mla_paged_prefill_offset0``,
            the monolithic prefill's call) and the decode over 56 latent
            slots of 2048 tokens seen as pages (``mla_paged_decode_slots``,
-           the dense layout's call); the decode rows carry the split
-           plan (tokens a split, splits, blocks, partial bytes), the GQA
-           decode and chunk prefill rows their one-wave plans (blocks,
-           warp splits merged inside the block, no partials);
+           the dense layout's call); the decode rows carry the body
+           ("wgmma", "tensor_core" or "cuda_core") and the split plan
+           (tokens a split, splits, blocks, partial bytes);
   serve    the engine at full llama3.2-1b width (seeded random bf16
            weights, default EngineConfig) serving shared-prefix and
            segment-reuse traffic, 16 new tokens per request, with every
            kernel's launch count zeroed just before and read just after,
-           and calls 1, 2, 4, 8, ... of kernels 1-3 held to their plain
+           and calls 1, 2, 4, 8, ... of kernels 1-4 held to their plain
            versions on the traffic's own inputs (``kernel_checks``; also
-           in moe_serve, replay, replay_full, examples and chaos);
+           in moe_serve, the three MLA serve phases, replay, replay_full,
+           examples and chaos);
   parity   one decode step, one prefill chunk and one segment chunk of
            the full-width model with the CUDA kernels and then with the
            plain versions (explicit backend="torch") on the same weights
@@ -512,7 +517,9 @@ TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi0E", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
+                       ("mla_paged_decode", "mla_decode_wg", 1, "HGMMA"),
                        ("paged_decode", "paged_decode_tc", 4),
+                       ("paged_decode", "paged_decode_wg", 2),
                        ("paged_decode", "paged_decode_int8_tc", 4),
                        ("paged_prefill", "paged_prefill_tcILb0E", 4),
                        ("paged_prefill", "paged_prefill_tcILb1E", 4),
@@ -592,7 +599,9 @@ def kernel_body(name, a) -> str:
     its dispatch by type and width decides: "tensor_core" or
     "cuda_core"; flash prefill and its backward "wgmma", "mma_sync" or
     "cuda_core"; the GQA chunk prefill (by page size too) "wgmma",
-    "tensor_core" (``mma.sync``) or "cuda_core"."""
+    "tensor_core" (``mma.sync``) or "cuda_core"; the GQA decode (by page
+    size too) "hopper", "tensor_core" or "cuda_core"; the MLA decode (by
+    page size too) "wgmma", "tensor_core" or "cuda_core"."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mla_paged_decode as mpd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
@@ -609,15 +618,16 @@ def kernel_body(name, a) -> str:
         return body(q.shape[-2], kp.shape[2], q.shape[-1], kp.shape[1],
                     DTYPE_CODES[q.dtype], DTYPE_CODES[kp.dtype])
     elif name.startswith("paged_decode"):
-        fn = build.entry("paged_decode", "paged_decode_tensor_core",
-                         [ctypes.c_int] * 5)
+        from repro_torch.kernels.paged_attention import body
         q, kp = a["q"], a["k_pages"]
-        tc = fn(q.shape[-2], kp.shape[2], q.shape[-1], DTYPE_CODES[q.dtype],
-                DTYPE_CODES[kp.dtype])
+        return body(q.shape[-2], kp.shape[2], q.shape[-1], kp.shape[1],
+                    a["block_tables"].shape[1], DTYPE_CODES[q.dtype],
+                    DTYPE_CODES[kp.dtype])
     elif name.startswith("mla_paged_decode"):
-        tc = mpd.tensor_core(a["q_lat"].shape[-1], a["q_rope"].shape[-1],
-                             DTYPE_CODES[a["q_lat"].dtype],
-                             DTYPE_CODES[a["latent_pages"].dtype])
+        lat = a["latent_pages"]
+        return mpd.body(a["q_lat"].shape[-1], a["q_rope"].shape[-1],
+                        lat.shape[1], DTYPE_CODES[a["q_lat"].dtype],
+                        DTYPE_CODES[lat.dtype])
     elif name.startswith("flash_prefill_bwd"):
         from repro_torch.kernels.flash_prefill import bwd_body
         return bwd_body(a["q"].shape[-1], a["v"].shape[-1],
@@ -723,6 +733,35 @@ def prefill_plan(a) -> dict:
             "partials_in": "shared memory"}
 
 
+def decode_plan(a) -> dict:
+    """The GQA decode's plan on inputs ``a``.  The Hopper body:
+    ``decode_split_plan``'s splits of each (row, KV head)'s walk (from the
+    shapes alone), the blocks, the blocks that walk keys and those that
+    stay for a cluster's merge on these inputs (their lengths, read here
+    on the host), and the partials the clusters merge in shared memory.
+    The `mma.sync` body: one block per (row, KV head), its walk dealt to
+    four warps and merged inside the block."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.paged_attention import DTYPE_CODES
+    B, Hq, hd = a["q"].shape
+    _, page, Hkv, _ = a["k_pages"].shape
+    P = a["block_tables"].shape[1]
+    if pa.body(Hq, Hkv, hd, page, P, DTYPE_CODES[a["q"].dtype],
+               DTYPE_CODES[a["k_pages"].dtype]) != "hopper":
+        return {"splits": 1, "warp_splits": 4, "blocks": B * Hkv,
+                "partial_bytes": 0}
+    plan = pa.decode_split_plan(B, Hq, Hkv, hd, page, P)
+    live = [plan.live_splits(n) for n in a["lengths"].tolist()]
+    return {"splits": plan.splits, "tiles_a_split": plan.tiles,
+            "warp_splits": 4, "blocks": plan.blocks,
+            "live_blocks": Hkv * sum(live),
+            "staying_blocks": Hkv * sum(plan.splits if n > 1 else 1
+                                        for n in live),
+            "cluster": [plan.splits, 1, 1],
+            "partial_bytes": plan.partial_bytes,
+            "partials_in": "shared memory"}
+
+
 def phase_kernels(torch, ops, card):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     dec, pre, seg = make_kernel_inputs(torch, gen)
@@ -733,9 +772,6 @@ def phase_kernels(torch, ops, card):
     # the window's last chunk: the longest pool walk on the serve path
     long_off = pre["block_tables"].shape[1] * pre["k_pages"].shape[1] - C
     pre_long = dict(pre, offsets=torch.full_like(pre["offsets"], long_off))
-    B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
-    # the bandwidth body walks a row in one block per (row, KV head)
-    plan = {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}
     # every row at the full 512-token table: the bytes of a batch with no
     # short row, where the longest row no longer sets the time
     full = dict(dec, lengths=torch.full_like(dec["lengths"],
@@ -743,9 +779,9 @@ def phase_kernels(torch, ops, card):
                                              * dec["k_pages"].shape[1]))
     cases = [
         ("paged_decode", ops.paged_decode, dec, cost.decode_cost(dec), None,
-         plan),
+         decode_plan(dec)),
         ("paged_decode_full", ops.paged_decode, full, cost.decode_cost(full),
-         None, plan),
+         None, decode_plan(full)),
         ("paged_prefill", ops.paged_prefill, pre,
          cost.prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
          prefill_plan(pre)),
@@ -766,30 +802,40 @@ def phase_kernels(torch, ops, card):
 
 
 def check_nonfinite_unread(torch, gen, ops, card):
-    """Kernels 2 and 3 at the trace replay's 32-token pages (offset 336;
-    the gap segment chunk) with every slot no row may read (at or past
-    the offset or pool limit, a segment chunk's own slots) holding inf
-    in K and NaN in V, then NaN in K and inf in V: the output must equal
-    the clean pool's bit for bit and be finite.  The body lands whole
-    pages and zeroes those V rows before P V."""
-    _, pre, seg = make_kernel_inputs(torch, gen, page=32, offset=336)
+    """Kernels 1-3 at the trace replay's 32-token pages (decode rows of
+    ragged lengths; chunks at offset 336; the gap segment chunk) with
+    every slot no row may read (at or past a decode row's length, at or
+    past the offset or pool limit, a segment chunk's own slots) holding
+    inf in K and NaN in V, then NaN in K and inf in V: the output (and
+    the decode's log-sum-exp) must equal the clean pool's bit for bit and
+    be finite.  The bodies land whole pages and zero those V rows before
+    P V."""
+    from repro_torch.kernels import ref
+    dec, pre, seg = make_kernel_inputs(torch, gen, page=32, offset=336)
     for name, op, a in (("paged_prefill_page32", ops.paged_prefill, pre),
                         ("paged_prefill_seg_page32", ops.paged_prefill_seg,
-                         seg)):
+                         seg),
+                        ("paged_decode_page32", ops.paged_decode, dec)):
         page = a["k_pages"].shape[1]
         pos = torch.arange(a["block_tables"].shape[1] * page, device="cuda")
-        if "offsets" in a:
+        if "lengths" in a:
+            unread = pos[None] >= a["lengths"].long()[:, None]
+        elif "offsets" in a:
             unread = pos[None] >= a["offsets"].long()[:, None]
         else:
-            from repro_torch.kernels import ref
             cpos = a["chunk_positions"].long()
             limit = ref.pool_limits(a["chunk_positions"]).long()
             unread = ((pos[None, :, None] == cpos[:, None, :]).any(-1)
                       | (pos[None] >= limit[:, None]))
         pid = a["block_tables"].long()[:, pos // page][unread]
         slot = (pos % page).expand_as(unread)[unread]
-        clean = op(**a, backend="cuda")
-        err = float((clean.float()
+        kw = {"with_lse": True} if "lengths" in a else {}
+
+        def run(b):
+            out = op(**b, backend="cuda", **kw)
+            return out if kw else (out,)
+        clean = run(a)
+        err = float((clean[0].float()
                      - op(**a, backend="torch").float()).abs().max())
         same = []
         for kbad, vbad in ((math.inf, math.nan), (math.nan, math.inf)):
@@ -797,9 +843,10 @@ def check_nonfinite_unread(torch, gen, ops, card):
                          v_pages=a["v_pages"].clone())
             dirty["k_pages"][pid, slot] = kbad
             dirty["v_pages"][pid, slot] = vbad
-            out = op(**dirty, backend="cuda")
-            same.append(bool(torch.isfinite(out).all())
-                        and torch.equal(out, clean))
+            outs = run(dirty)
+            same.append(all(bool(torch.isfinite(o).all())
+                            and torch.equal(o, c)
+                            for o, c in zip(outs, clean)))
         emit({"phase": "kernels", "card": card, "check": name + "_nonfinite",
               "body": kernel_body(name, a), "unread_slots": int(pid.numel()),
               "clean_max_abs_err": err, "tol": KERNEL_ATOL,
@@ -842,10 +889,9 @@ def page32_cases(torch, gen, ops):
     past = pos[None] > cpos.max(-1).values[:, None]
     seg = stale_pools(torch, seg, own | past)
     off = int(pre["offsets"][0])
-    B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
     return [
         ("paged_decode_page32", ops.paged_decode, dec, cost.decode_cost(dec),
-         None, {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}),
+         None, decode_plan(dec)),
         ("paged_prefill_page32", ops.paged_prefill, pre,
          cost.prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
          prefill_plan(pre)),
@@ -862,10 +908,9 @@ def g3_cases(torch, gen, ops):
     dec, pre, seg = make_kernel_inputs(torch, gen, B=32, Hq=24)
     C = pre["q"].shape[1]
     off = int(pre["offsets"][0])
-    B, Hkv = dec["q"].shape[0], dec["k_pages"].shape[2]
     return [
         ("paged_decode_g3", ops.paged_decode, dec, cost.decode_cost(dec), None,
-         {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0}),
+         decode_plan(dec)),
         ("paged_prefill_g3", ops.paged_prefill, pre,
          cost.prefill_cost(pre, off, C * off + C * (C + 1) // 2), None,
          prefill_plan(pre)),
@@ -941,10 +986,11 @@ def make_mla_kernel_inputs(torch, gen, cfg):
 
 
 def mla_decode_plan(a) -> dict:
-    """The tensor-core MLA decode's split plan on inputs ``a``: tokens a
-    split, splits of the grid, blocks launched (those past a row's
-    length exit at once), blocks that walk keys, and the float32 partial
-    bytes written (the combine reads them back once)."""
+    """The tensor-core MLA decode's split plan on inputs ``a`` (the
+    `wgmma` and the `mma.sync` body share it): tokens a split, splits of
+    the grid, blocks launched (those past a row's length exit at once),
+    blocks that walk keys, and the float32 partial bytes written (the
+    combine reads them back once)."""
     from repro_torch.kernels import mla_paged_decode as mpd
     q_lat, lat = a["q_lat"], a["latent_pages"]
     B, Hq, dl = q_lat.shape
@@ -1203,9 +1249,8 @@ def slot_decode_case(torch, gen, ops, attn, name, S, Hq, Hkv, hd, lengths):
                            device="cuda").to(torch.bfloat16),
              k_pages=kp, v_pages=vp, block_tables=tables,
              lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
-    # one block per (row, KV head) walks the row; nothing to combine
     return (name, ops.paged_decode, a, cost.decode_cost(a), None,
-            {"splits": 1, "blocks": B * Hkv, "partial_bytes": 0})
+            decode_plan(a))
 
 
 def cross_cases(torch, gen, ops, attn):
@@ -1285,7 +1330,7 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     pages) the kernel phase assumed for this engine.  ``params``: a
     weight tree to serve (else the engine's seeded init); ``instrument``:
     called with the engine before the traffic, returns a function whose
-    dict joins the phase's line.  ``check_calls``: kernels 1-3 held to
+    dict joins the phase's line.  ``check_calls``: kernels 1-4 held to
     their plain versions on the traffic's own calls
     (``checked_kernel_calls``)."""
     from repro_torch.serving import SamplingParams, ServingEngine
@@ -3566,7 +3611,7 @@ def host_link(torch, out):
 
 @contextlib.contextmanager
 def checked_kernel_calls(torch, record):
-    """Hold calls 1, 2, 4, 8, ... of each of kernels 1-3 on the driven
+    """Hold calls 1, 2, 4, 8, ... of each of kernels 1-4 on the driven
     path against the plain version on the very tensors the path gave
     the kernel, right after the path's own launch (so the pool holds
     what that launch read): per checked call its page size and, as
@@ -3574,10 +3619,11 @@ def checked_kernel_calls(torch, record):
     the plain output's largest magnitude and whether the output is
     finite.  The plain calls launch no kernel."""
     from repro_torch.kernels import ops
-    # kernel -> (ops global it is reached through, position of k_pages)
+    # kernel -> (ops global it is reached through, position of its pages)
     where = {"paged_decode": ("paged_decode_attention", 1),
              "paged_prefill": ("paged_prefill_attention", 3),
-             "paged_prefill_seg": ("paged_prefill_segments", 3)}
+             "paged_prefill_seg": ("paged_prefill_segments", 3),
+             "mla_paged_decode": ("mla_paged_decode", 2)}
     saved = {attr: getattr(ops, attr) for attr, _ in where.values()}
     calls = dict.fromkeys(where, 0)
 
@@ -3631,10 +3677,11 @@ def kernel_check_report(torch, record) -> dict:
 
 
 def held_to_plain(phase, report, launches, names=None):
-    """Raise unless every kernel of ``names`` (GQA_PATH) that launched on
-    the path was held to its plain version on the path's own calls
-    (``kernel_check_report``) with finite outputs within the limit."""
-    for name in names or GQA_PATH:
+    """Raise unless every kernel of ``names`` (CHECKED: kernels 1-4) that
+    launched on the path was held to its plain version on the path's own
+    calls (``kernel_check_report``) with finite outputs within the
+    limit."""
+    for name in names or CHECKED:
         if launches[name] <= 0:
             continue
         row = report.get(name)
@@ -4288,6 +4335,9 @@ REPLACES = {
                           "kernel)"),
 }
 GQA_PATH = ("paged_decode", "paged_prefill", "paged_prefill_seg")
+# the kernels `checked_kernel_calls` holds to their plain versions on a
+# path's own calls
+CHECKED = GQA_PATH + ("mla_paged_decode",)
 MLA_PATH = ("mla_paged_decode", "mla_paged_prefill", "mla_paged_prefill_seg")
 # the dense and monolithic paths: flash prefill for a prompt with no
 # prefix hit, the paged decode kernel over slots or pages
@@ -4622,7 +4672,7 @@ def main() -> int:
         torch, kernel_fns, MLA_PATH, smi, mla_cfg,
         EngineConfig(max_len=MLA_MAX_LEN), system_blocks=1, shared_tail=588,
         phase="mla_serve",
-        pool=(MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES))
+        pool=(MLA_ROWS, MLA_TABLE_PAGES, MLA_POOL_PAGES), check_calls=True)
     launches.update({name: by_path["mla_serve"][name] for name in MLA_PATH})
     phase_mla_parity(torch, params, mla_cfg, smi)
     # MLA on the dense slots and with monolithic prefill, same weights
@@ -4631,13 +4681,14 @@ def main() -> int:
         torch, kernel_fns, MLA_DENSE_PATH, smi, mla_cfg,
         EngineConfig(paged=False, max_len=MLA_MAX_LEN), system_blocks=1,
         shared_tail=588, phase="mla_dense_serve", params=params,
-        expect=("inject_hits", "monolithic_prefills"))[1]
+        expect=("inject_hits", "monolithic_prefills"), check_calls=True)[1]
     by_path["mla_monolithic_serve"] = phase_serve(
         torch, kernel_fns, MLA_DENSE_PATH, smi, mla_cfg,
         EngineConfig(chunked_prefill=False, fused_step=False,
                      max_len=MLA_MAX_LEN), system_blocks=1, shared_tail=588,
         phase="mla_monolithic_serve", params=params,
-        expect=("cow_share_hits", "monolithic_prefills"))[1]
+        expect=("cow_share_hits", "monolithic_prefills"),
+        check_calls=True)[1]
     phase_mla_dense_parity(torch, params, mla_cfg, smi)
     del params
     torch.cuda.empty_cache()

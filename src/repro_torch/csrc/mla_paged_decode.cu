@@ -12,11 +12,18 @@
 // at Hq = 128: 242 flops per byte, close to the card's bf16 balance point
 // (~295), so on tensor cores bytes and flops bound it about equally.
 //
-// Two bodies, chosen by type and width in `mla_paged_decode` below (never
-// a retry after a failure):
+// Three bodies, chosen by type, width and page size in `mla_decode_body`
+// below (never a retry after a failure):
 //
+// * bf16 queries and pool at DeepSeek-V3's widths (dl 512, dr 64) over
+//   64-token pages -- the Hopper body (`mla_decode_wg` of mla_wg.cuh: 64
+//   heads a block, Q and one 64-token page a tile in shared memory by
+//   TMA, `wgmma` for the scores in one consumer warpgroup and for P V in
+//   both, 256 value columns each), on the same split plan, partials and
+//   combine as the body below.
 // * bf16 queries and pool with dl a multiple of 32 up to 512 and dr a
-//   multiple of 8 -- the tensor-core body: the chunk prefill's block
+//   multiple of 8, at other widths or pages -- the `mma.sync` body: the
+//   chunk prefill's block
 //   (`mla_tc_kernel` of mla_tc.cuh, DECODE mode: 64 heads a block, bf16
 //   `mma.sync`, 32-key latent tiles in a three-stage `cp.async` ring, one
 //   block an SM) with the row's key walk split over blocks, since 56 rows
@@ -42,12 +49,15 @@
 //   block walks the row's min(length, P * page) tokens, 32 positions at
 //   a time.
 //
-// Both clamp table entries into [0, N-1]; a row of length 0 reads
+// All clamp table entries into [0, N-1]; a row of length 0 reads
 // nothing and writes zeros.
 //
 // Layouts: q_lat [B,Hq,dl], q_rope [B,Hq,dr]; latent pages [N,page,dl+dr];
 // block tables [B,P] int32; lengths [B] int32; out [B,Hq,dl] in q's type.
+// The Hopper body needs 16-byte aligned bases (TMA), which the wrapper
+// ensures.
 #include "mla_tc.cuh"
+#include "mla_wg.cuh"
 
 template <typename TQ, typename TKV, int VPT>
 __global__ void __launch_bounds__(mla::NT, 1)
@@ -158,6 +168,16 @@ __global__ void mla_decode_combine(const float* __restrict__ part,
   }
 }
 
+// The body `mla_paged_decode` runs: 2, the Hopper body (`mla_decode_wg`:
+// bf16, dl 512, dr 64, 64-token pages); 1, the `mma.sync` body
+// (`mla_tc_kernel` DECODE: bf16 at the widths `mla_tc::width_ok` takes);
+// 0, the CUDA-core body.
+static int mla_decode_body(int dl, int dr, int page, int q_dtype,
+                           int kv_dtype) {
+  if (q_dtype != 1 || kv_dtype != 1 || !mla_tc::width_ok(dl, dr, 0)) return 0;
+  return mla_wg::width_ok(dl, dr, page) ? 2 : 1;
+}
+
 // The split walk and its combine: `part` holds B * S * Hq * (dl + 2)
 // floats, S = ceil(P * page / split).
 static int decode_tc(const void* ql, const void* qr, const void* pages,
@@ -168,9 +188,12 @@ static int decode_tc(const void* ql, const void* qr, const void* pages,
   const int window = P * page;
   if (part == nullptr || split <= 0) return (int)cudaErrorInvalidValue;
   const int S = max(1, (window + split - 1) / split);
-  int err = launch_mla_tc_width<mla_tc::DECODE>(
-      ql, qr, nullptr, pages, tables, lengths, out, part, B, 1, S, Hq, dl,
-      dr, N, page, P, scale, split, st);
+  int err = mla_decode_body(dl, dr, page, 1, 1) == 2
+                ? launch_mla_wg(ql, qr, pages, tables, lengths, out, part, B,
+                                S, Hq, dl, dr, N, page, P, scale, split, st)
+                : launch_mla_tc_width<mla_tc::DECODE>(
+                      ql, qr, nullptr, pages, tables, lengths, out, part, B,
+                      1, S, Hq, dl, dr, N, page, P, scale, split, st);
   if (err != 0 || S == 1) return err;
   mla_decode_combine<<<dim3(Hq, B), 128, 0, st>>>(
       part, (const int*)lengths, (__nv_bfloat16*)out, S, Hq, dl, window,
@@ -208,7 +231,14 @@ extern "C" int mla_paged_decode(const void* q_lat, const void* q_rope,
   return (int)cudaErrorInvalidValue;
 }
 
-// 1 when mla_paged_decode runs the tensor-core body (split walk and
+// The body mla_paged_decode runs: 2 `wgmma` (`mla_decode_wg`), 1
+// `mma.sync` (`mla_tc_kernel` DECODE), 0 the CUDA cores.
+extern "C" int mla_paged_decode_body(int dl, int dr, int page, int q_dtype,
+                                     int kv_dtype) {
+  return mla_decode_body(dl, dr, page, q_dtype, kv_dtype);
+}
+
+// 1 when mla_paged_decode runs a tensor-core body (split walk and
 // combine) for these types and widths.
 extern "C" int mla_paged_decode_tensor_core(int dl, int dr, int q_dtype,
                                             int kv_dtype) {

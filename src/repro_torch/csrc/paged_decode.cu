@@ -17,15 +17,46 @@
 // the sequential walk replaces the TPU grid's page axis.  A row of
 // length 0 reads nothing and writes zeros; a key at or past the length
 // is never loaded (its tile row and its scales are zero-filled), so
-// stale or non-finite slots cannot reach the output.  Three bodies,
-// chosen by type and width in the C entries below (never a retry after
-// a failure):
+// stale or non-finite slots cannot reach the output.  Four bodies,
+// chosen by type, width, page size and table window in `decode_body`
+// below (never a retry after a failure):
 //
-// * bf16 q and pages, hd 16 / 32 / 64 / 128 and G <= 16 -- the bandwidth
-//   body (`paged_decode_tc`, on the block layout of gqa_tc.cuh, which the
-//   bf16 chunk prefill shares): 4 warps; tiles of KT = 64 key positions
-//   (each row found through the block table, so any page size) arrive
-//   as bf16 by 16-byte `cp.async` into a three-stage ring of K and V
+// * bf16 q and pages, hd 64 / 128, G <= 16, pages of 16 / 32 / 64
+//   tokens and a table window of 512 to 4096 tokens -- the Hopper body
+//   (`paged_decode_wg`).  Block (split, KV head, row), 160 threads; the
+//   host cuts a (row, KV head)'s walk into splits of whole 64-key tiles
+//   from the shapes alone (`decode_split_plan`, kernels/
+//   paged_attention.py), and only while the grid has fewer blocks than
+//   the card has SMs: a split's start and merge cost more than a
+//   shorter walk saves once every SM holds blocks (one split at the
+//   serving shape, 512 blocks; 4 at the VLM's 4 rows).  Warp 4, the
+//   producer, reads the split's table entries once, up front and in
+//   flight with the row's length, then issues each 16-key chunk of a
+//   tile that starts below the row's end as TMA boxes ([16 rows][64
+//   columns] of one head, 128-byte swizzle, from a rank-4 map over the
+//   pool [N, page, Hkv, hd] with the page id as its outer coordinate)
+//   into an `mbarrier` ring of up to three K / V stages.  Warps 0-3
+//   keep the bandwidth body's walk: Q as A fragments loaded straight
+//   into registers, warp w takes keys 16w .. 16w+15 of every tile on
+//   `mma.sync` (at ~1 flop a byte `wgmma` would not help), `ldmatrix`
+//   reading the swizzled tiles without conflicts, its own online softmax
+//   in log2 units; slots at or past the length that landed with their
+//   chunk are zeroed in V and replaced in S, so stale or non-finite
+//   values there leave the output bit for bit.  The four warps merge in
+//   warp order in shared memory; with one live split that is the
+//   output, else a row's splits are one thread block cluster (splits,
+//   1, 1) and merge their float32 partials in split order through
+//   distributed shared memory (no scratch, no atomics: two calls agree
+//   bit for bit).  A block whose split starts past the row's end leaves
+//   at once when the row has one live split; otherwise it shares the
+//   merge.  Four blocks an SM at hd 64 (96 registers, three stages),
+//   two at hd 128.
+// * bf16 q and pages, hd 16 / 32 / 64 / 128 and G <= 16 otherwise -- the
+//   bandwidth body (`paged_decode_tc`, on the block layout of
+//   gqa_tc.cuh, which the bf16 chunk prefill shares): 4 warps; tiles of
+//   KT = 64 key positions (each row found through the block table, so
+//   any page size) arrive as bf16 by 16-byte `cp.async` into a
+//   three-stage ring of K and V
 //   tiles, two tiles in flight while one is scored, one barrier a tile.
 //   Warp w takes keys 16w .. 16w+15 of every tile and keeps its own
 //   online-softmax state; the four are merged once at the end, in warp
@@ -74,6 +105,7 @@
 // [N,page,Hkv,1] bf16; block tables [B,P] int32; lengths [B] int32;
 // out [B,Hq,hd] in q's type; lse [B,Hq] float32 or null.
 #include "gqa_tc.cuh"
+#include "hopper_common.cuh"
 #include "paged_common.cuh"
 
 template <typename TQ, typename TKV, bool SCALED>
@@ -283,6 +315,417 @@ static int decode_tc(const void* q, const void* kp, const void* vp,
                             Hkv, N, page, P, scale, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Hopper body (bf16 q and pages at hd 64 / 128, G <= 16, pages of 16 / 32
+// / 64 tokens)
+// ---------------------------------------------------------------------------
+namespace decode_wg {
+constexpr int KT = 64;          // keys a tile, 16 a consumer warp
+constexpr int RM = 16;          // query rows of the mma tile: G <= 16
+constexpr int NT = 160;         // warps 0-3 the consumers, 4 the producer
+constexpr int MAX_SPLITS = 8;   // splits a plan may have: a portable cluster
+constexpr int CHUNK = 16;       // keys a TMA box: the rows past the end
+                                // of a row's last page stay unread
+
+// Byte offsets in the block's shared memory (from a 1024-byte boundary):
+// the K ring [stages][HD/64][KT][64] bf16, the V ring the same, then the
+// barriers (full, then empty, a stage).  Once the walk is over the space
+// holds each warp's state -- o [4][RM][HD], m [4][RM], l [4][RM] float32
+// -- and the block's partial merged from them, o [RM][HD] and (m, l)
+// [RM] float2, which the cluster's merge reads.
+template <int HD>
+struct Smem {
+  // stages of the ring (a split of fewer tiles takes fewer): at hd 64
+  // three keep four blocks an SM (shared memory and MIN_BLOCKS)
+  static constexpr int MAX_STAGES = 3;
+  static constexpr int MIN_BLOCKS = HD == 64 ? 4 : 2;
+  static constexpr size_t tile = (size_t)KT * HD * 2;  // K or V of a tile
+  static constexpr size_t wm = (size_t)4 * RM * HD * 4;
+  static constexpr size_t wl = wm + 4 * RM * 4;
+  static constexpr size_t bo = wl + 4 * RM * 4;
+  static constexpr size_t bml = bo + (size_t)RM * HD * 4;
+  static constexpr size_t merge = bml + RM * 8;
+  __host__ __device__ static int stages(int tps) {
+    return tps < MAX_STAGES ? tps : MAX_STAGES;
+  }
+  __host__ __device__ static size_t bars(int tps) {
+    const size_t ring = 2 * stages(tps) * tile;
+    return ring > merge ? ring : merge;
+  }
+  static size_t bytes(int tps) { return bars(tps) + 16 * stages(tps) + 1024; }
+};
+
+inline bool page_ok(int page) {
+  return page == 16 || page == 32 || page == 64;
+}
+
+// Table windows the Hopper body takes: 8 to 64 tiles.  Below, a walk of a
+// few tiles is latency and the bandwidth body's `cp.async` starts sooner
+// than a TMA load (whisper-tiny's 448-token slots); above, one block
+// streams a (row, KV head) at the card's bytes either way and the
+// bandwidth body reads ~2 % faster (the dry run's 32768-token window).
+inline bool window_ok(int window) {
+  return window >= 8 * KT && window <= 64 * KT;
+}
+
+// Element offset of (row, col) in a tile of KT rows stored as HD / 64
+// regions of [KT][64] bf16 in 128-byte swizzle (hopper_common.cuh): the
+// 16-byte chunk c of a row lies at chunk c ^ (row % 8).
+__device__ __forceinline__ int swz(int row, int col) {
+  return (col >> 6) * KT * 64 + row * 64 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
+}
+
+// Scores of this warp's keys k0 .. k0+15 of the swizzled key tile `kt`:
+// s[n] holds keys k0 + 8n .. k0 + 8n + 7 (float32, unscaled); `ldmatrix`
+// reads eight rows of one logical chunk from eight distinct banks.
+template <int HD>
+__device__ __forceinline__ void scores(const uint32_t (&qa)[HD / 16][4],
+                                       const __nv_bfloat16* kt, int k0,
+                                       int lane, float (&s)[2][4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  const int row = k0 + (lane & 7) + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t bk[4];
+    mma::ldsm_x4(bk, kt + swz(row, kk * 16 + ((lane >> 3) & 1) * 8));
+    mma::mma_bf16(s[0], qa[kk], bk[0], bk[1]);
+    mma::mma_bf16(s[1], qa[kk], bk[2], bk[3]);
+  }
+}
+
+// o += P V over this warp's keys k0 .. k0+15 of the swizzled value tile
+// `vt`, P the A fragment of the probabilities.
+template <int HD>
+__device__ __forceinline__ void values(const uint32_t (&pa)[4],
+                                       const __nv_bfloat16* vt, int k0,
+                                       int lane, float (&o)[HD / 8][4]) {
+  const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int np = 0; np < HD / 16; ++np) {
+    uint32_t bv[4];
+    mma::ldsm_x4_trans(bv, vt + swz(row, np * 16 + (lane >> 4) * 8));
+    mma::mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+    mma::mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+  }
+}
+}  // namespace decode_wg
+
+// Block (split sp, KV head h, row b), 160 threads: warps 0-3 the
+// consumers (16 keys of every 64-key tile each), warp 4 the producer.  A
+// row's splits are one cluster (splits, 1, 1); block sp is its rank sp.
+template <int HD>
+__global__ void __launch_bounds__(decode_wg::NT,
+                                  decode_wg::Smem<HD>::MIN_BLOCKS)
+    paged_decode_wg(const __grid_constant__ CUtensorMap tkp,
+                    const __grid_constant__ CUtensorMap tvp,
+                    const __nv_bfloat16* __restrict__ q,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    int Hq, int Hkv, int N, int page, int P, int tps,
+                    float scale_log2) {
+  using namespace decode_wg;
+  using L = Smem<HD>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char decode_wg_smem[];
+  unsigned char* base = hop::align1024(decode_wg_smem);
+  const int stages = L::stages(tps);
+  bf16* sk = reinterpret_cast<bf16*>(base);
+  bf16* sv = reinterpret_cast<bf16*>(base + stages * L::tile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::bars(tps));
+  uint64_t* empty = full + stages;
+  float* wo = reinterpret_cast<float*>(base);  // after the walk
+  float* wm = reinterpret_cast<float*>(base + L::wm);
+  float* wl = reinterpret_cast<float*>(base + L::wl);
+  float* bo = reinterpret_cast<float*>(base + L::bo);
+  float2* bml = reinterpret_cast<float2*>(base + L::bml);
+
+  const int sp = blockIdx.x, splits = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z, G = Hq / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the producer's first 32 table entries of the split, in flight with
+  // the row's length
+  const int* trow = tables + (size_t)b * P;
+  const int ppt = KT / page;
+  int first = sp * tps * ppt;  // page of lane 0's entry
+  int pid = 0;
+  if (warp == 4 && first + lane < P) pid = trow[first + lane];
+  const int end = min(max(lengths[b], 0), P * page);
+  const int span = tps * KT;
+  // the splits that start below the row's end (at least split 0); with
+  // one, block 0 writes the output and the others leave at once
+  const int n_live = max(1, (end + span - 1) / span);
+  if (n_live == 1 && sp > 0) return;
+  const int t0 = sp * tps;                           // the split's tile 0
+  const int nt = min(tps, (end + KT - 1) / KT - t0);  // tiles it walks
+  const size_t q0 = ((size_t)b * Hq + (size_t)h * G) * HD;
+  if (tid == 128) {
+    for (int s = 0; s < stages; ++s) {
+      hop::mbar_init(full + s, 1);
+      hop::mbar_init(empty + s, 4);  // lane 0 of each consumer warp
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // the producer: the split's table entries, 32 pages a batch (the
+    // first read before the row's length is known), then each 16-key
+    // chunk of a tile that starts below the row's end as one TMA box a
+    // 64-column region ([16 rows][64 columns] of head h, chunk c of a
+    // tile at row 16 c; lane c issues it with its page's entry), a stage
+    // a tile, reusing a stage once its four consumer warps have released
+    // it
+    if (nt > 0) {
+      if (lane == 0) {
+        hop::prefetch_map(&tkp);
+        hop::prefetch_map(&tvp);
+      }
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % stages;
+        if (t >= stages) hop::mbar_wait(empty + s, (t / stages - 1) & 1);
+        const int p0 = (t0 + t) * ppt;  // the tile's first page
+        if (p0 - first >= 32) {
+          first = p0;
+          pid = p0 + lane < P ? trow[p0 + lane] : 0;
+        }
+        // chunks below the end, >= 1 (their pages are < P)
+        const int nc = min(KT / CHUNK, (end - p0 * page + CHUNK - 1) / CHUNK);
+        if (lane == 0)
+          hop::mbar_expect_tx(full + s, (uint32_t)nc * CHUNK * HD * 2 * 2);
+        const int pc = __shfl_sync(0xffffffffu, pid,
+                                   p0 - first + lane * CHUNK / page);
+        if (lane < nc) {
+          const int pg = min(max(pc, 0), N - 1);
+          const int r = lane * CHUNK;  // the chunk's row of the tile
+#pragma unroll
+          for (int c = 0; c < HD / 64; ++c) {
+            hop::tma_load(sk + s * KT * HD + c * KT * 64 + r * 64, &tkp,
+                          full + s, c * 64, h, r % page, pg);
+            hop::tma_load(sv + s * KT * HD + c * KT * 64 + r * 64, &tvp,
+                          full + s, c * 64, h, r % page, pg);
+          }
+        }
+      }
+    }
+  } else {
+    // the consumers: Q as A fragments straight from global memory (rows
+    // g, g + 8 of the G heads, zero past them), then the split's tiles
+    const int g = lane >> 2, tq = lane & 3, k0 = warp * 16;
+    uint32_t qa[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int r = g + 8 * (x & 1), col = kk * 16 + 2 * tq + 8 * (x >> 1);
+        qa[kk][x] = r < G ? *reinterpret_cast<const uint32_t*>(
+                                q + q0 + (size_t)r * HD + col)
+                          : 0u;
+      }
+    float o[HD / 8][4], m[2], l[2];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    m[0] = m[1] = mma::neg_inf();
+    l[0] = l[1] = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % stages;
+      const bf16* kt = sk + s * KT * HD;
+      bf16* vt = sv + s * KT * HD;
+      const int key0 = (t0 + t) * KT + k0;  // this warp's first key
+      hop::mbar_wait(full + s, (t / stages) & 1);
+      // this warp's keys < valid are read; the rest of its 16 landed
+      // with their chunk (or hold an earlier tile): their V rows are
+      // zeroed before P V and their scores replaced, so a stale or
+      // non-finite slot never reaches a product.  A warp with no key
+      // left leaves its state as it is (what the update would do).
+      const int valid = end - key0;
+      if (valid > 0) {
+        if (valid < 16) {
+          for (int c = lane; c < 16 * (HD / 8); c += 32) {
+            const int i = c / (HD / 8);
+            if (i >= valid)
+              *reinterpret_cast<uint4*>(
+                  vt + decode_wg::swz(k0 + i, (c - i * (HD / 8)) * 8)) =
+                  make_uint4(0u, 0u, 0u, 0u);
+          }
+          hop::fence_proxy_async();  // before TMA refills the stage
+          __syncwarp();
+        }
+        float sc[2][4];
+        decode_wg::scores<HD>(qa, kt, k0, lane, sc);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[n][e] = n * 8 + 2 * tq + (e & 1) < valid
+                           ? sc[n][e] * scale_log2
+                           : mma::neg_inf();
+        float alpha[2];
+        mma::softmax_update<2>(sc, m, l, alpha);
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+        uint32_t pa[4];
+        mma::probs_to_a<2>(sc, 0, pa);
+        decode_wg::values<HD>(pa, vt, k0, lane, o);
+      }
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(empty + s);
+    }
+    // each warp's state into the space of the ring, once every consumer
+    // is done with it
+    hop::named_sync(1, 128);
+    const float ls[2] = {mma::quad_sum(l[0]), mma::quad_sum(l[1])};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = g + 8 * u;
+      if (tq == 0) {
+        wm[warp * RM + r] = m[u];
+        wl[warp * RM + r] = ls[u];
+      }
+      float* orow = wo + (warp * RM + r) * HD + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(orow + n * 8) =
+            make_float2(o[n][2 * u], o[n][2 * u + 1]);
+    }
+  }
+  __syncthreads();
+
+  // The block's four warps merged in warp order: w_w = 2^(m_w - max m),
+  // acc = sum w_w o_w, den = sum w_w l_w (m in log2 units).  With one
+  // live split that is the output, acc / max(den, 1e-30) (zeros for a
+  // row with no valid key), and the log-sum-exp (max m + log2 den) ln 2
+  // (-1e30 for such a row); otherwise the block's partial.
+  for (int i = tid; i < G * HD; i += NT) {
+    const int r = i / HD, d = i - r * HD;
+    float mx = wm[r];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) mx = fmaxf(mx, wm[w * RM + r]);
+    const float mbase = mx == mma::neg_inf() ? 0.f : mx;
+    float den = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wt = exp2f(wm[w * RM + r] - mbase);
+      den += wt * wl[w * RM + r];
+      acc += wt * wo[(w * RM + r) * HD + d];
+    }
+    if (n_live == 1) {
+      out[q0 + (size_t)r * HD + d] = __float2bfloat16(acc / fmaxf(den, 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[(size_t)b * Hq + (size_t)h * G + r] =
+            mx == mma::neg_inf() ? -1e30f
+                                 : (mx + log2f(den)) * 0.6931471805599453f;
+    } else {
+      bo[r * HD + d] = acc;
+      if (d == 0) bml[r] = make_float2(mx, den);
+    }
+  }
+  if (n_live == 1) return;
+
+  // The merge, shared by the cluster: block sp takes four columns at a
+  // time, sp, sp + splits, ... of the G x HD / 4; each reads the live
+  // splits' partials from their blocks' shared memory and sums them in
+  // split order, as the warps were.
+  hop::cluster_sync();
+  for (int i = sp * NT + tid; i < G * HD / 4; i += splits * NT) {
+    const int r = 4 * i / HD, d = 4 * i - r * HD;
+    float2 ml[MAX_SPLITS];
+    float4 x[MAX_SPLITS];
+#pragma unroll
+    for (int k = 0; k < MAX_SPLITS; ++k)
+      if (k < n_live) {
+        ml[k] = hop::ld_cluster2(hop::at_rank(bml + r, k));
+        x[k] = hop::ld_cluster4(hop::at_rank(bo + r * HD + d, k));
+      }
+    float mx = mma::neg_inf();
+#pragma unroll
+    for (int k = 0; k < MAX_SPLITS; ++k)
+      if (k < n_live) mx = fmaxf(mx, ml[k].x);
+    const float mbase = mx == mma::neg_inf() ? 0.f : mx;
+    float den = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < MAX_SPLITS; ++k)
+      if (k < n_live) {
+        const float w = exp2f(ml[k].x - mbase);
+        den += w * ml[k].y;
+        acc[0] += w * x[k].x;
+        acc[1] += w * x[k].y;
+        acc[2] += w * x[k].z;
+        acc[3] += w * x[k].w;
+      }
+    const float dn = fmaxf(den, 1e-30f);
+    *reinterpret_cast<uint2*>(out + q0 + (size_t)r * HD + d) =
+        make_uint2(hop::pack_bf16(acc[0] / dn, acc[1] / dn),
+                   hop::pack_bf16(acc[2] / dn, acc[3] / dn));
+    if (lse != nullptr && d == 0)
+      lse[(size_t)b * Hq + (size_t)h * G + r] =
+          mx == mma::neg_inf() ? -1e30f
+                               : (mx + log2f(den)) * 0.6931471805599453f;
+  }
+  // no block leaves while another still reads its shared memory
+  hop::cluster_sync();
+}
+
+template <int HD>
+static int launch_wg(const void* q, const void* kp, const void* vp,
+                     const void* tables, const void* lengths, void* out,
+                     float* lse, int B, int Hq, int Hkv, int N, int page,
+                     int P, int tps, int splits, float scale,
+                     cudaStream_t stream) {
+  using namespace decode_wg;
+  CUtensorMap tkp, tvp;
+  int rc = make_map(&tkp, kp, N, page, Hkv, HD, CHUNK);
+  if (rc == 0) rc = make_map(&tvp, vp, N, page, Hkv, HD, CHUNK);
+  if (rc != 0) return rc;
+  if (((uintptr_t)q | (uintptr_t)out) & 7)
+    return (int)cudaErrorMisalignedAddress;
+  const size_t smem = Smem<HD>::bytes(tps);
+  auto kernel = paged_decode_wg<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;  // one split: no cluster, no merge
+  using bf16 = __nv_bfloat16;
+  err = cudaLaunchKernelEx(&cfg, kernel, tkp, tvp, (const bf16*)q,
+                           (const int*)tables, (const int*)lengths,
+                           (bf16*)out, lse, Hq, Hkv, N, page, P, tps,
+                           scale * 1.4426950408889634f);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The body `paged_decode` runs: 2, the Hopper body (`paged_decode_wg`:
+// bf16 at hd 64 / 128, G <= 16, pages of 16 / 32 / 64, a window of 512 to
+// 4096 tokens); 1, the bandwidth body (`paged_decode_tc`: bf16 at hd 16 -
+// 128, G <= 16, any page and window); 0, the CUDA-core body.
+static int decode_body(int Hq, int Hkv, int hd, int page, int P,
+                       int q_dtype, int kv_dtype) {
+  if (q_dtype != 1 || kv_dtype != 1 || !gqa_tc::width_ok(Hq, Hkv, hd))
+    return 0;
+  return (hd == 64 || hd == 128) && decode_wg::page_ok(page) &&
+                 decode_wg::window_ok(P * page)
+             ? 2
+             : 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -542,18 +985,31 @@ static int decode_int8_tc(const void* q, const void* kp, const void* vp,
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `lse_out` is NULL or [B,Hq]
-// float32.
+// float32.  tps / splits: the host's split plan (kernels/
+// paged_attention.py `decode_split_plan`), read by the Hopper body alone.
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* tables,
                             const void* lengths, void* out, void* lse_out,
                             int B, int Hq, int Hkv, int hd, int N, int page,
-                            int P, float scale, int q_dtype, int kv_dtype,
-                            void* stream) {
+                            int P, int tps, int splits, float scale,
+                            int q_dtype, int kv_dtype, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   float* lse = (float*)lse_out;
   if (q_dtype == 1 && kv_dtype == 1) {
-    if (gqa_tc::width_ok(Hq, Hkv, hd))
+    const int body = decode_body(Hq, Hkv, hd, page, P, q_dtype, kv_dtype);
+    if (body == 2) {
+      // the plan must cover the window in at most a portable cluster
+      if (tps < 1 || splits < 1 || splits > decode_wg::MAX_SPLITS ||
+          (long long)splits * tps * decode_wg::KT < (long long)P * page)
+        return (int)cudaErrorInvalidValue;
+      if (hd == 64)
+        return launch_wg<64>(q, k_pages, v_pages, tables, lengths, out, lse,
+                             B, Hq, Hkv, N, page, P, tps, splits, scale, st);
+      return launch_wg<128>(q, k_pages, v_pages, tables, lengths, out, lse,
+                            B, Hq, Hkv, N, page, P, tps, splits, scale, st);
+    }
+    if (body == 1)
       return decode_tc(q, k_pages, v_pages, tables, lengths, out, lse, B, Hq,
                        Hkv, hd, N, page, P, scale, st);
     return launch<__nv_bfloat16, __nv_bfloat16, false>(
@@ -597,8 +1053,15 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pages,
   return (int)cudaErrorInvalidValue;
 }
 
-// 1 when paged_decode runs the bandwidth body (bf16 mma.sync) for these
-// types and widths.
+// The body paged_decode runs: 2 the Hopper body (`paged_decode_wg`), 1
+// the bandwidth body (`paged_decode_tc`), 0 the CUDA cores.
+extern "C" int paged_decode_body(int Hq, int Hkv, int hd, int page, int P,
+                                 int q_dtype, int kv_dtype) {
+  return decode_body(Hq, Hkv, hd, page, P, q_dtype, kv_dtype);
+}
+
+// 1 when paged_decode runs a tensor-core body (the Hopper body or the
+// bandwidth body, bf16 mma.sync) for these types and widths.
 extern "C" int paged_decode_tensor_core(int Hq, int Hkv, int hd, int q_dtype,
                                         int kv_dtype) {
   return q_dtype == 1 && kv_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd);

@@ -554,51 +554,14 @@ inline bool page_ok(int page) {
   return page == 16 || page == 32 || page == 64;
 }
 
-// Fetch a tensor map (a kernel parameter) ahead of its first TMA load.
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
-// Makes this thread's generic-proxy writes to shared memory (the V rows
-// it zeroed) visible to the async proxy that `wgmma` reads through; a
-// barrier then orders them for the other threads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Every thread of every block of the cluster: shared-memory writes before
-// it are seen by reads after it in any block of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-// The shared::cluster address of *p in the cluster's block `rank`.
-__device__ __forceinline__ uint32_t at_rank(const void* p, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(hop::smem_u32(p)), "r"(rank));
-  return out;
-}
-__device__ __forceinline__ float2 ld_cluster2(uint32_t a) {
-  float2 v;
-  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
-               : "=f"(v.x), "=f"(v.y)
-               : "r"(a));
-  return v;
-}
-__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a));
-  return v;
-}
+// The TMA, proxy and cluster helpers shared with the GQA decode's Hopper
+// body (hopper_common.cuh).
+using hop::at_rank;
+using hop::cluster_sync;
+using hop::fence_proxy_async;
+using hop::ld_cluster2;
+using hop::ld_cluster4;
+using hop::prefetch_map;
 }  // namespace prefill_wg
 
 // Block (query block qb of 64 / G queries, split sp, KV head h + Hkv * row

@@ -13,7 +13,10 @@ For bf16 at the tensor-core widths the kernel splits each row's key walk
 into splits of ``decode_split_tokens(P * page)`` tokens, chosen from the
 table window alone (the host never reads ``lengths``), and merges the
 float32 partials of a row of several splits in a second kernel; the
-wrapper allocates those partials.
+wrapper allocates those partials.  ``body`` names the body the C entry
+runs: "wgmma" (``mla_decode_wg``: DeepSeek-V3's widths, dl 512 and dr
+64, over 64-token pages), "tensor_core" (``mla_tc_kernel``, `mma.sync`,
+the other tensor-core widths and pages) or "cuda_core".
 """
 from __future__ import annotations
 
@@ -32,9 +35,10 @@ MAX_D_LATENT = 512
 # q_lat, q_rope, pages, tables, lengths, out, partials; B, Hq, dl, dr, N,
 # page, P; scale; tokens a split; q and pool dtype codes; stream
 MLA_DECODE_ARGS = [PTR] * 7 + [INT] * 7 + [FLT, INT, INT, INT, PTR]
-# the tensor-core body's split plan: 256 tokens (8 key tiles) a split,
-# at most 16 splits a row (longer windows take longer splits)
-SPLIT_TOKENS = 256
+# the tensor-core bodies' split plan: 512 tokens (8 of the `wgmma` body's
+# 64-token pages) a split, at most 16 splits a row (longer windows take
+# longer splits)
+SPLIT_TOKENS = 512
 MAX_SPLITS = 16
 
 
@@ -50,13 +54,16 @@ def decode_splits(window: int) -> int:
     return max(1, -(-window // decode_split_tokens(window)))
 
 
+BODIES = {0: "cuda_core", 1: "tensor_core", 2: "wgmma"}
+
+
 @functools.lru_cache(maxsize=None)
-def tensor_core(dl: int, dr: int, q_dtype: int, kv_dtype: int) -> bool:
-    """Whether the C entry runs the tensor-core body (split walk and
-    combine) for these widths and dtype codes."""
-    fn = build.entry("mla_paged_decode", "mla_paged_decode_tensor_core",
-                     [ctypes.c_int] * 4)
-    return bool(fn(dl, dr, q_dtype, kv_dtype))
+def body(dl: int, dr: int, page: int, q_dtype: int, kv_dtype: int) -> str:
+    """The body the C entry runs for these widths, page size and dtype
+    codes: "wgmma", "tensor_core" (``mma.sync``) or "cuda_core"."""
+    fn = build.entry("mla_paged_decode", "mla_paged_decode_body",
+                     [ctypes.c_int] * 5)
+    return BODIES[fn(dl, dr, page, q_dtype, kv_dtype)]
 
 
 def check_mla_args(name: str, q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -120,7 +127,11 @@ def mla_paged_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
         DTYPE_CODES[latent_pages.dtype]
     window = block_tables.shape[1] * page
     part = None
-    if tensor_core(dl, dr, qd, kd):
+    which = body(dl, dr, page, qd, kd)
+    if which == "wgmma":
+        from repro_torch.kernels.flash_prefill import _tma_ready
+        q_lat, q_rope, latent_pages = _tma_ready(q_lat, q_rope, latent_pages)
+    if which != "cuda_core":
         # float32 partials: o [B, S, Hq, dl], then (m, l) [B, S, Hq, 2]
         part = torch.empty(b * decode_splits(window) * hq * (dl + 2),
                            dtype=torch.float32, device=q_lat.device)

@@ -12,11 +12,35 @@ widens its int8 tiles to bf16 exactly and applies the one scale per
 ``with_lse`` every body also writes each head's log-sum-exp, by which
 the split decode merges its slices.  On CPU tensors the wrappers run the
 plain versions in ``kernels/ref.py``.
+
+The bf16 decode's bodies by width and page size (``body`` asks the C
+entry):
+
+=====================================  ==============================
+inputs                                 body
+=====================================  ==============================
+bf16, hd 64 / 128, G <= 16, pages of   ``hopper`` (``paged_decode_wg``:
+16 / 32 / 64 tokens, a table window    TMA page loads, a split walk
+of 512 to 4096 tokens                  merged in a cluster)
+bf16, hd 16 - 128, G <= 16, other      ``tensor_core``
+pages or windows (hd 16 / 32: every    (``paged_decode_tc``)
+page)
+float32 q; bf16 otherwise              ``cuda_core``
+=====================================  ==============================
+
+The Hopper body cuts each row's key walk into splits of whole 64-key
+tiles, planned on the host by ``decode_split_plan`` from the shapes
+alone (the host never reads ``lengths``).  The splits of a (row, KV
+head) run as one thread block cluster and merge their float32 partials
+in split order through distributed shared memory, so the wrapper
+allocates no scratch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -63,8 +87,85 @@ def check_args(name: str, q: torch.Tensor, k_pages: torch.Tensor,
 
 PTR, INT, FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k_pages, v_pages, tables, lengths, out, lse (or NULL); B, Hq, Hkv, hd,
-# N, page, P; scale; q and kv dtype codes; stream
-DECODE_ARGS = [PTR] * 7 + [INT] * 7 + [FLT, INT, INT, PTR]
+# N, page, P, tiles a split, splits; scale; q and kv dtype codes; stream
+DECODE_ARGS = [PTR] * 7 + [INT] * 9 + [FLT, INT, INT, PTR]
+BODIES = {0: "cuda_core", 1: "tensor_core", 2: "hopper"}
+
+# The Hopper body's split plan: a (row, KV head)'s walk over the table
+# window is cut into splits of whole KEY_TILE-key tiles, as many as keep
+# the grid within SPLIT_BLOCKS blocks (one an SM of the H100's 132: a
+# split's start and its cluster's merge cost more than a shorter walk
+# saves once every SM has a block) and one portable cluster (MAX_SPLITS)
+KEY_TILE = 64
+MAX_SPLITS = 8
+SPLIT_BLOCKS = 132
+
+
+class DecodePlan(NamedTuple):
+    """How the Hopper body cuts a decode call's key walk: per (row, KV
+    head), ``splits`` splits of ``tiles`` 64-key tiles over the table
+    window, one thread block cluster."""
+    tiles: int          # 64-key tiles a split
+    splits: int
+    groups: int         # B * Hkv: one cluster each
+    window: int         # P * page
+    g: int              # query heads a KV head
+    hd: int
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.splits
+
+    @property
+    def partial_bytes(self) -> int:
+        """The float32 partials (each block's unnormalised output and (m,
+        l) for its G rows) held in shared memory and merged across each
+        cluster."""
+        return self.blocks * self.g * (self.hd + 2) * 4
+
+    def split_keys(self, split: int) -> tuple:
+        """(start, stop) pool positions of split ``split``'s keys."""
+        span = self.tiles * KEY_TILE
+        return split * span, min((split + 1) * span, self.window)
+
+    def live_splits(self, length: int) -> int:
+        """Splits a row of ``length`` tokens walks (at least split 0,
+        which writes zeros for a row of length 0); with one, the other
+        blocks leave at once, else they share the merge."""
+        end = min(max(length, 0), self.window)
+        return max(1, -(-end // (self.tiles * KEY_TILE)))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(b: int, hq: int, hkv: int, hd: int, page: int,
+                      p: int) -> DecodePlan:
+    """The Hopper body's split plan for a call on q [b, hq, hd] over k/v
+    pages [N, page, hkv, hd] with tables [b, p]: ints only, so the host
+    reads nothing of the device.  As many splits a (row, KV head) as keep
+    the grid within SPLIT_BLOCKS blocks (at least one, at most
+    MAX_SPLITS), each the fewest whole tiles that cover the window."""
+    args = (b, hq, hkv, hd, page, p)
+    if not all(isinstance(x, int) for x in args):
+        raise TypeError("decode_split_plan takes ints (the shapes), "
+                        f"got {[type(x).__name__ for x in args]}")
+    window = p * page
+    n_tiles = max(1, -(-window // KEY_TILE))
+    splits = min(MAX_SPLITS, max(1, SPLIT_BLOCKS // max(1, b * hkv)))
+    tiles = -(-n_tiles // splits)
+    return DecodePlan(tiles=tiles, splits=-(-n_tiles // tiles),
+                      groups=b * hkv, window=window, g=hq // hkv, hd=hd)
+
+
+@functools.lru_cache(maxsize=None)
+def body(hq: int, hkv: int, hd: int, page: int, p: int, q_dtype: int,
+         kv_dtype: int) -> str:
+    """The body the GQA decode's C entry runs over tables of ``p`` pages:
+    "hopper" (``paged_decode_wg``: TMA, an `mbarrier` ring, a cluster;
+    its products are `mma.sync`), "tensor_core" (``paged_decode_tc``) or
+    "cuda_core"."""
+    fn = build.entry("paged_decode", "paged_decode_body",
+                     [ctypes.c_int] * 7)
+    return BODIES[fn(hq, hkv, hd, page, p, q_dtype, kv_dtype)]
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -76,6 +177,31 @@ def _lse_out(q: torch.Tensor, with_lse: bool):
     else None (the kernel then writes none)."""
     return (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
             if with_lse else None)
+
+
+def _launch_decode(q, k_pages, v_pages, block_tables, lengths, lse,
+                   plan: DecodePlan | None = None) -> torch.Tensor:
+    """Launch C entry ``paged_decode``; ``plan`` replaces the Hopper
+    body's default split plan (an A/B of plans passes one)."""
+    b, hq, hd = q.shape
+    n, page, hkv, _ = k_pages.shape
+    p = block_tables.shape[1]
+    qd, kd = DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype]
+    ints = (0, 0)
+    if body(hq, hkv, hd, page, p, qd, kd) == "hopper":
+        from repro_torch.kernels.flash_prefill import _tma_ready
+        plan = plan or decode_split_plan(b, hq, hkv, hd, page, p)
+        q, k_pages, v_pages = _tma_ready(q, k_pages, v_pages)
+        ints = (plan.tiles, plan.splits)
+    out = torch.empty_like(q)
+    fn = build.entry("paged_decode", "paged_decode", DECODE_ARGS)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b, hq, hkv, hd, n, page, p, *ints, 1.0 / math.sqrt(hd), qd, kd,
+            stream_ptr(q.device))
+    build.check(rc, "paged_decode", "paged_decode")
+    return out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -103,16 +229,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.dim() != 3 or block_tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_decode: q [B,Hq,hd], tables [B,P], "
                          "lengths [B]")
-    out = torch.empty_like(q)
     lse = _lse_out(q, with_lse)
-    fn = build.entry("paged_decode", "paged_decode", DECODE_ARGS)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            b, hq, hkv, hd, n, page, block_tables.shape[1],
-            1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
-            DTYPE_CODES[k_pages.dtype], stream_ptr(q.device))
-    build.check(rc, "paged_decode", "paged_decode")
+    out = _launch_decode(q, k_pages, v_pages, block_tables, lengths, lse)
     paged_decode_attention.launches += 1
     return (out, lse) if with_lse else out
 

@@ -6,8 +6,10 @@ against their plain PyTorch versions on the card, and the
 bf16 decode kernels' split walks against themselves (bit for bit); the
 GQA chunk / segment prefill's `wgmma` body at hd 64 / 128 over 16-, 32-
 and 64-token pages (its split plans, inf / NaN in slots no row may
-read, bit for bit twice and against the offset call); the
-MLA kernels on the dense layout's routes (a whole prompt at offset 0,
+read, bit for bit twice and against the offset call); the GQA
+decode's Hopper body and the MLA decode's `wgmma` body (their split
+plans, inf / NaN in unread slots, bit for bit twice, the body queries);
+the MLA kernels on the dense layout's routes (a whole prompt at offset 0,
 latent slots seen as pages); the MoE FFN's routing on the card against
 the CPU's; engines on the card against the CPU engine.
 Needs a CUDA device and the CUDA toolkit (the kernels build at first
@@ -1069,8 +1071,9 @@ def test_mla_decode_kernel(cuda, dtype, tol, hq, dl, dr, scale):
     assert cuda.mla_paged_decode.launches == before + 1
 
 
-# lengths at the MLA decode's split (256 tokens) and tile (32) edges, a
-# row of length 0 and one in the middle of a split
+# lengths at the MLA decode's tile (32 keys; the `wgmma` body's page, 64)
+# and split (256 tokens until the `wgmma` body's 512; 1024 and 2048 are
+# edges of both) edges, a row of length 0 and one in the middle of a split
 SPLIT_LENGTHS = [0, 1, 31, 32, 33, 255, 256, 257, 700, 1023, 1024, 2047,
                  2048]
 
@@ -1084,7 +1087,7 @@ def test_mla_decode_kernel_split_walk(cuda, b, full):
     two calls equal bit for bit."""
     from repro_torch.kernels import mla_paged_decode as mpd
     hq, dl, dr, page, pages = 128, 512, 64, 64, 32
-    assert mpd.decode_split_tokens(pages * page) == 256
+    assert mpd.decode_split_tokens(pages * page) == 512
     g = torch.Generator(device="cuda").manual_seed(12)
     n = b * pages + 2
     lp = torch.randn((n, page, dl + dr), generator=g,
@@ -1571,3 +1574,242 @@ def test_recurrent_model_on_card_matches_cpu(cuda, arch):
     if arch.startswith("zamba2"):
         assert cuda.flash_prefill.launches > flash
         assert cuda.paged_decode_attention.launches > dec
+
+
+# ---------------------------------------------------------------------------
+# the Hopper bodies of the GQA paged decode (`paged_decode_wg`: TMA page
+# loads, a split walk merged in a cluster) and of the absorbed-MLA decode
+# (`mla_decode_wg`: `wgmma` over 64-token latent pages)
+# ---------------------------------------------------------------------------
+# (Hq, Hkv, hd, page, pages, B): llama3.2-1b's heads at 64-, 32- and
+# 16-token pages over a 512-token window, granite-moe's G 3, the VLM's 32 /
+# 8 heads at hd 128, zamba2's G 1 at 32 KV heads, G 1 at 6 / 6 heads, MQA
+# at G 16, a window that is not a whole number of tiles (37 pages of 16)
+# and a 4096-token window (the body's longest: splits of 32 tiles and
+# more, the ring reused)
+WG_DECODE_CASES = [
+    (32, 8, 64, 64, 8, 20), (32, 8, 64, 32, 16, 20), (32, 8, 64, 16, 32, 20),
+    (24, 8, 64, 64, 8, 20), (32, 8, 128, 64, 16, 20), (32, 32, 64, 64, 16, 6),
+    (6, 6, 64, 64, 8, 8), (16, 1, 128, 16, 32, 12), (8, 2, 64, 16, 37, 8),
+    (32, 8, 64, 64, 64, 6),
+]
+
+
+def _wg_decode_case(hq, hkv, hd, page, pages, b, seed=0):
+    """bf16 q, pools and tables for ``b`` rows, lengths at the edges of
+    64-key tiles and of the default plan's splits: 0, 1, 63, 64, 65, one
+    split, one split + 1, the full window, then ragged; a clamped table
+    entry inside the last row's length."""
+    from repro_torch.kernels import paged_attention as pa
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = b * pages + 2
+    kp, vp = (torch.randn((n, page, hkv, hd), generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    tables = (torch.randperm(n - 1, generator=g, device="cuda")[:b * pages]
+              + 1).reshape(b, pages).to(torch.int32)
+    tables[-1, 0] = -3                          # clamps to page 0
+    window = pages * page
+    span = pa.decode_split_plan(b, hq, hkv, hd, page, pages).tiles * 64
+    edges = [min(e, window) for e in (0, 1, 63, 64, 65, span, span + 1)]
+    lengths = torch.randint(1, window + 1, (b,), generator=g,
+                            device="cuda").to(torch.int32)
+    lengths[:min(len(edges), b - 1)] = torch.tensor(edges[:b - 1])
+    lengths[-1] = window
+    q = torch.randn((b, hq, hd), generator=g, device="cuda").bfloat16()
+    return q, kp, vp, tables, lengths
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,b", WG_DECODE_CASES)
+def test_paged_decode_wg_body(cuda, hq, hkv, hd, page, pages, b):
+    """The Hopper body (``body`` names it) against the plain version,
+    with and without its log-sum-exp (against ``ref.paged_decode_lse``),
+    zeros and -1e30 for a row of length 0; one launch a call, and two
+    calls equal bit for bit."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    assert pa.body(hq, hkv, hd, page, pages, 1, 1) == "hopper"
+    args = _wg_decode_case(hq, hkv, hd, page, pages, b)
+    before = cuda.paged_decode_attention.launches
+    out = cuda.paged_decode(*args)
+    torch.cuda.synchronize()
+    assert cuda.paged_decode_attention.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[0] == 0).all())            # length 0 -> zeros
+    assert _err(out, cuda.paged_decode(*args, backend="torch")) <= BF16_TOL
+    assert torch.equal(out, cuda.paged_decode(*args))
+    out2, lse = cuda.paged_decode(*args, with_lse=True)
+    assert torch.equal(out2, out)
+    assert bool(torch.isfinite(lse).all())
+    assert bool((lse[0] == -1e30).all())    # length 0
+    q, kp, _, tables, lengths = args
+    assert _err(lse, ref.paged_decode_lse(q, kp, tables, lengths)) \
+        <= LSE_ATOL
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,b",
+                         [WG_DECODE_CASES[i] for i in (0, 2, 4, 8, 9)])
+def test_paged_decode_wg_split_plans(cuda, hq, hkv, hd, page, pages, b):
+    """Plans of 1, 2, 3, 4 and 8 tiles a split (those of at most
+    MAX_SPLITS splits: one cluster) agree with the plain version, each
+    twice bit for bit; a plan of more splits, or one that does not cover
+    the window, is refused."""
+    from repro_torch.kernels import paged_attention as pa
+    args = _wg_decode_case(hq, hkv, hd, page, pages, b, seed=3)
+    plan = pa.decode_split_plan(b, hq, hkv, hd, page, pages)
+    plain = cuda.paged_decode(*args, backend="torch")
+    n_tiles = -(-pages * page // 64)
+    for tiles in (1, 2, 3, 4, 8):
+        other = plan._replace(tiles=tiles, splits=-(-n_tiles // tiles))
+        if other.splits > pa.MAX_SPLITS:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                pa._launch_decode(*args, None, plan=other)
+            continue
+        out = pa._launch_decode(*args, None, plan=other)
+        torch.cuda.synchronize()
+        assert _err(out, plain) <= BF16_TOL
+        assert torch.equal(out, pa._launch_decode(*args, None, plan=other))
+    short = plan._replace(splits=plan.splits - 1)
+    if short.splits >= 1 and short.splits * short.tiles * 64 < pages * page:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pa._launch_decode(*args, None, plan=short)
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,b",
+                         [WG_DECODE_CASES[i] for i in (0, 1, 2, 4, 8, 9)])
+def test_paged_decode_wg_ignores_nonfinite_unread_slots(cuda, hq, hkv, hd,
+                                                        page, pages, b):
+    """Slots at or past a row's length holding inf in K and NaN in V, or
+    NaN in K and inf in V, leave the output and the log-sum-exp bit for
+    bit as with clean slots: whole pages land in shared memory, and the
+    body zeroes those V rows before P V and replaces their scores."""
+    q, kp, vp, tables, lengths = _wg_decode_case(hq, hkv, hd, page, pages,
+                                                 b, seed=5)
+    clean = cuda.paged_decode(q, kp, vp, tables, lengths, with_lse=True)
+    pos = torch.arange(pages * page, device="cuda")
+    unread = pos[None] >= lengths.long()[:, None]
+    pid = tables.long().clamp(0, kp.shape[0] - 1)[:, pos // page]
+    slots = (pid * page + pos % page)[unread]
+    # a slot a row does not read may be one another row reads (the
+    # clamped entry): keep those clean
+    read = (pid * page + pos % page)[~unread]
+    slots = slots[~torch.isin(slots, read)]
+    assert slots.numel() > 0
+    for kbad, vbad in ((float("inf"), float("nan")),
+                       (float("nan"), float("inf"))):
+        k2, v2 = kp.clone(), vp.clone()
+        k2.view(-1, *k2.shape[2:])[slots] = kbad
+        v2.view(-1, *v2.shape[2:])[slots] = vbad
+        out, lse = cuda.paged_decode(q, k2, v2, tables, lengths,
+                                     with_lse=True)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, clean[0]) and torch.equal(lse, clean[1])
+
+
+# (B, full rows, 2048-token tables of 64-token pages): the mla_kernels
+# phase's 56 ragged rows and 8 full rows, and one row
+WG_MLA_CASES = [(56, False), (8, True), (1, True)]
+
+
+def _wg_mla_case(b, full, seed=0, pages=32):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hq, dl, dr, page = 128, 512, 64, 64
+    n = b * pages + 2
+    lp = torch.randn((n, page, dl + dr), generator=g,
+                     device="cuda").bfloat16()
+    tables = (torch.randperm(n - 1, generator=g, device="cuda")[:b * pages]
+              + 1).reshape(b, pages).to(torch.int32)
+    tables[-1, 0] = -1                          # clamps to page 0
+    if full:
+        lengths = torch.full((b,), pages * page, dtype=torch.int32,
+                             device="cuda")
+    else:
+        lengths = torch.randint(1, pages * page + 1, (b,), generator=g,
+                                device="cuda").to(torch.int32)
+        lengths[:len(SPLIT_LENGTHS)] = torch.tensor(SPLIT_LENGTHS)
+        lengths[-1] = pages * page
+    return (torch.randn((b, hq, dl), generator=g, device="cuda").bfloat16(),
+            torch.randn((b, hq, dr), generator=g, device="cuda").bfloat16(),
+            lp, tables, lengths)
+
+
+@pytest.mark.parametrize("b,full", WG_MLA_CASES)
+def test_mla_decode_wg_body(cuda, b, full):
+    """DeepSeek-V3 width over 64-token pages runs the `wgmma` body
+    (``body`` names it): against the plain version at lengths on the page
+    (64), split and window edges and on full rows, one launch a call,
+    zeros for length 0, two calls equal bit for bit."""
+    from repro_torch.kernels import mla_paged_decode as mpd
+    assert mpd.body(512, 64, 64, 1, 1) == "wgmma"
+    args = _wg_mla_case(b, full)
+    scale = 1.0 / (128 + 64) ** 0.5            # the engine's scale
+    before = cuda.mla_paged_decode.launches
+    out = cuda.mla_decode(*args, d_latent=512, scale=scale)
+    torch.cuda.synchronize()
+    assert cuda.mla_paged_decode.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    plain = cuda.mla_decode(*args, d_latent=512, scale=scale,
+                            backend="torch")
+    assert _err(out, plain) <= BF16_TOL
+    if not full:
+        assert bool((out[0] == 0).all())        # length 0 -> zeros
+    assert torch.equal(out, cuda.mla_decode(*args, d_latent=512,
+                                            scale=scale))
+
+
+def test_mla_decode_wg_ignores_nonfinite_unread_slots(cuda):
+    """Latent slots at or past a row's length holding inf, then NaN,
+    leave the `wgmma` body's output bit for bit as with clean slots (the
+    body zeroes their latent columns and replaces their scores)."""
+    q_lat, q_rope, lp, tables, lengths = _wg_mla_case(56, False, seed=5)
+    page = lp.shape[1]
+    clean = cuda.mla_decode(q_lat, q_rope, lp, tables, lengths,
+                            d_latent=512)
+    pos = torch.arange(tables.shape[1] * page, device="cuda")
+    unread = pos[None] >= lengths.long()[:, None]
+    pid = tables.long().clamp(0, lp.shape[0] - 1)[:, pos // page]
+    slots = (pid * page + pos % page)
+    slots = slots[unread][~torch.isin(slots[unread], slots[~unread])]
+    assert slots.numel() > 0
+    for bad in (float("inf"), float("nan")):
+        l2 = lp.clone()
+        l2.view(-1, lp.shape[-1])[slots] = bad
+        out = cuda.mla_decode(q_lat, q_rope, l2, tables, lengths,
+                              d_latent=512)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, clean)
+
+
+def test_decode_body_queries(cuda):
+    """The decodes' ``body`` queries name the bodies their C entries
+    dispatch to: the GQA decode's Hopper body at bf16 hd 64 / 128, G <=
+    16, pages of 16 / 32 / 64 and table windows of 512 to 4096 tokens,
+    `mma.sync` at hd 16 / 32, other pages and other windows, the CUDA
+    cores for float32; the MLA decode's `wgmma` body at dl 512, dr 64
+    over 64-token pages only."""
+    from repro_torch.kernels import mla_paged_decode as mpd
+    from repro_torch.kernels import paged_attention as pa
+    for hq, hkv in [(32, 8), (24, 8), (32, 32), (6, 6), (16, 1)]:
+        for page in (16, 32, 64):
+            p = 512 // page
+            assert [pa.body(hq, hkv, hd, page, p, 1, 1)
+                    for hd in (16, 32, 64, 128)] == \
+                ["tensor_core", "tensor_core", "hopper", "hopper"]
+            assert pa.body(hq, hkv, 64, page, p, 0, 1) == "cuda_core"
+            assert pa.body(hq, hkv, 64, page, p, 0, 0) == "cuda_core"
+            # the window rule: 448 and 8192 tokens keep `mma.sync`
+            assert pa.body(hq, hkv, 64, page, 4096 // page, 1, 1) == "hopper"
+            assert pa.body(hq, hkv, 64, page, 448 // page, 1, 1) == \
+                "tensor_core"
+            assert pa.body(hq, hkv, 64, page, 8192 // page, 1, 1) == \
+                "tensor_core"
+        for page in (8, 128):
+            assert pa.body(hq, hkv, 64, page, 4096 // page, 1, 1) == \
+                "tensor_core"
+    assert pa.body(32, 1, 64, 64, 8, 1, 1) == "cuda_core"   # G 32
+    assert mpd.body(512, 64, 64, 1, 1) == "wgmma"
+    for dl, dr, page in [(512, 64, 16), (512, 64, 32), (96, 16, 64),
+                         (32, 8, 64), (512, 32, 64)]:
+        assert mpd.body(dl, dr, page, 1, 1) == "tensor_core"
+    assert mpd.body(512, 64, 64, 0, 1) == "cuda_core"
