@@ -21,8 +21,9 @@ check raises and the script exits non-zero with no result line:
            some, and the warp-specialised flash bodies
            (``flash_prefill_wg``, ``bwd_dkdv_wg``, ``bwd_dkdv_pair_wg``,
            ``bwd_dq_wg``), the GQA chunk prefill's Hopper body
-           (``paged_prefill_wg``) and the MLA decode's
-           (``mla_decode_wg``) HGMMA (``wgmma``) ones: none may compile
+           (``paged_prefill_wg``), the MLA decode's
+           (``mla_decode_wg``) and the MLA chunk / segment prefill's
+           (``mla_prefill_wg``) HGMMA (``wgmma``) ones: none may compile
            to ``mma.sync`` alone;
   kernels  each GQA kernel at the serving path's shapes (llama3.2-1b:
            Hq=32, Hkv=8, hd=64, page=64, C=64, bf16 pools, ragged
@@ -57,14 +58,16 @@ check raises and the script exits non-zero with no result line:
            1100-token prompt at offset 0 (``mla_paged_prefill_offset0``,
            the monolithic prefill's call) and the decode over 56 latent
            slots of 2048 tokens seen as pages (``mla_paged_decode_slots``,
-           the dense layout's call); the decode rows carry the body
-           ("wgmma", "tensor_core" or "cuda_core") and the split plan
-           (tokens a split, splits, blocks, partial bytes);
+           the dense layout's call); every row carries the body
+           ("wgmma", "tensor_core" or "cuda_core"), the decode rows the
+           split plan (tokens a split, splits, blocks, partial bytes),
+           and the offset-0 prefill one F.scaled_dot_product_attention
+           call as its library yardstick (``library_backend``);
   serve    the engine at full llama3.2-1b width (seeded random bf16
            weights, default EngineConfig) serving shared-prefix and
            segment-reuse traffic, 16 new tokens per request, with every
            kernel's launch count zeroed just before and read just after,
-           and calls 1, 2, 4, 8, ... of kernels 1-4 held to their plain
+           and calls 1, 2, 4, 8, ... of kernels 1-6 held to their plain
            versions on the traffic's own inputs (``kernel_checks``; also
            in moe_serve, the three MLA serve phases, replay, replay_full,
            examples and chaos);
@@ -518,6 +521,7 @@ TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 2),
                        ("mla_paged_prefill", "mla_tc_kernelILi1E", 2),
                        ("mla_paged_decode", "mla_tc_kernelILi2E", 2),
                        ("mla_paged_decode", "mla_decode_wg", 1, "HGMMA"),
+                       ("mla_paged_prefill", "mla_prefill_wg", 2, "HGMMA"),
                        ("paged_decode", "paged_decode_tc", 4),
                        ("paged_decode", "paged_decode_wg", 2),
                        ("paged_decode", "paged_decode_int8_tc", 4),
@@ -600,8 +604,9 @@ def kernel_body(name, a) -> str:
     "cuda_core"; flash prefill and its backward "wgmma", "mma_sync" or
     "cuda_core"; the GQA chunk prefill (by page size too) "wgmma",
     "tensor_core" (``mma.sync``) or "cuda_core"; the GQA decode (by page
-    size too) "hopper", "tensor_core" or "cuda_core"; the MLA decode (by
-    page size too) "wgmma", "tensor_core" or "cuda_core"."""
+    size too) "hopper", "tensor_core" or "cuda_core"; the MLA decode and
+    chunk / segment prefill (by page size too) "wgmma", "tensor_core" or
+    "cuda_core"."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mla_paged_decode as mpd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
@@ -637,12 +642,12 @@ def kernel_body(name, a) -> str:
         return body(a["q"].shape[-1], a["v"].shape[-1],
                     DTYPE_CODES[a["q"].dtype])
     elif name.startswith("mla_paged_prefill"):
-        fn = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
-                         [ctypes.c_int] * 5)
-        q_lat = a["q_lat"]
+        from repro_torch.kernels.paged_prefill import mla_body
+        q_lat, lat = a["q_lat"], a["latent_pages"]
         n_cp = q_lat.shape[1] if "chunk_positions" in a else 0
-        tc = fn(q_lat.shape[-1], a["q_rope"].shape[-1], n_cp,
-                DTYPE_CODES[q_lat.dtype], DTYPE_CODES[a["latent_pages"].dtype])
+        return mla_body(q_lat.shape[-1], a["q_rope"].shape[-1], n_cp,
+                        lat.shape[1], DTYPE_CODES[q_lat.dtype],
+                        DTYPE_CODES[lat.dtype])
     return "tensor_core" if tc else "cuda_core"
 
 
@@ -1068,8 +1073,8 @@ def mla_dense_cases(torch, gen, cfg, ops):
     scale = attn.mla_scale(cfg)
     pre = dict(q_lat=randn(1, C, Hq, dl), q_rope=randn(1, C, Hq, dr),
                lat_chunk=randn(1, C, dl + dr),
-               latent_pages=torch.zeros((1, 1, dl + dr), dtype=torch.bfloat16,
-                                        device=dev),
+               latent_pages=torch.zeros((1, 64, dl + dr),
+                                        dtype=torch.bfloat16, device=dev),
                block_tables=torch.zeros((1, 1), dtype=torch.int32,
                                         device=dev),
                offsets=torch.zeros((1,), dtype=torch.int32, device=dev),
@@ -1083,12 +1088,38 @@ def mla_dense_cases(torch, gen, cfg, ops):
                latent_pages=pages, block_tables=tables, lengths=lengths,
                d_latent=dl, scale=scale)
     toks = int(lengths.sum())
+    sdpa, backend = mla_sdpa(torch, pre)
     return [
         ("mla_paged_prefill_offset0", ops.mla_prefill, pre,
-         cost.mla_cost(pre, 0, C * (C + 1) // 2)),
+         cost.mla_cost(pre, 0, C * (C + 1) // 2), sdpa,
+         {"library_backend": backend}),
         ("mla_paged_decode_slots", ops.mla_decode, dec,
          cost.mla_cost(dec, toks, toks), None, mla_decode_plan(dec)),
     ]
+
+
+def mla_sdpa(torch, a):
+    """The library yardstick of kernel 5 at offset 0 (a whole prompt as
+    the chunk, no pool token read): one F.scaled_dot_product_attention
+    call, causal, q = [q_lat ; q_rope] with every head over the chunk's
+    latent as one shared head (k all dl + dr columns, v the first dl),
+    the kernel's scale, on ``sdpa_backend``'s backend (PyTorch's flash
+    backend takes no head wider than 256).  The callable (output in the
+    kernel's [B, C, Hq, dl] layout) and the backend's name."""
+    import torch.nn.functional as F
+    dl = a["d_latent"]
+    qh = torch.cat([a["q_lat"], a["q_rope"]], -1).transpose(1, 2) \
+        .contiguous()
+    kh = a["lat_chunk"][:, None].contiguous()
+    vh = a["lat_chunk"][:, None, :, :dl].contiguous()
+    backend, ctx = sdpa_backend(torch, qh, kh, vh, None)
+
+    def sdpa():
+        with ctx():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, scale=a["scale"],
+                enable_gqa=True).transpose(1, 2)
+    return sdpa, backend
 
 
 # ---------------------------------------------------------------------------
@@ -1330,7 +1361,7 @@ def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
     pages) the kernel phase assumed for this engine.  ``params``: a
     weight tree to serve (else the engine's seeded init); ``instrument``:
     called with the engine before the traffic, returns a function whose
-    dict joins the phase's line.  ``check_calls``: kernels 1-4 held to
+    dict joins the phase's line.  ``check_calls``: kernels 1-6 held to
     their plain versions on the traffic's own calls
     (``checked_kernel_calls``)."""
     from repro_torch.serving import SamplingParams, ServingEngine
@@ -2686,21 +2717,23 @@ def kernel_split_ms(torch, fn, calls: int = 5) -> dict:
 def sdpa_backend(torch, q, k, v, do):
     """The first of PyTorch's SDPA backends (flash, cuDNN, efficient,
     math) that takes causal attention on these [B, H, S, d] inputs
-    forward and backward (GQA where k has fewer heads than q), tried
-    alone under ``sdpa_kernel``: for Q/K wider than V, where the flash
-    backend refuses, and for the long cases.  Its name and a context
-    that selects it."""
+    forward and backward (forward only when ``do`` is None; GQA where k
+    has fewer heads than q), tried alone under ``sdpa_kernel``: for Q/K
+    wider than V, where the flash backend refuses, and for the long
+    cases.  Its name and a context that selects it."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
-        qh, kh, vh = (t.detach().requires_grad_(True) for t in (q, k, v))
+        qh, kh, vh = (t.detach().requires_grad_(do is not None)
+                      for t in (q, k, v))
         try:
             with sdpa_kernel(be):
                 out = F.scaled_dot_product_attention(
                     qh, kh, vh, is_causal=True,
                     enable_gqa=qh.shape[1] != kh.shape[1])
-                torch.autograd.grad(out, (qh, kh, vh), do)
+                if do is not None:
+                    torch.autograd.grad(out, (qh, kh, vh), do)
             torch.cuda.synchronize()
         except RuntimeError:
             continue
@@ -3611,7 +3644,7 @@ def host_link(torch, out):
 
 @contextlib.contextmanager
 def checked_kernel_calls(torch, record):
-    """Hold calls 1, 2, 4, 8, ... of each of kernels 1-4 on the driven
+    """Hold calls 1, 2, 4, 8, ... of each of kernels 1-6 on the driven
     path against the plain version on the very tensors the path gave
     the kernel, right after the path's own launch (so the pool holds
     what that launch read): per checked call its page size and, as
@@ -3623,7 +3656,9 @@ def checked_kernel_calls(torch, record):
     where = {"paged_decode": ("paged_decode_attention", 1),
              "paged_prefill": ("paged_prefill_attention", 3),
              "paged_prefill_seg": ("paged_prefill_segments", 3),
-             "mla_paged_decode": ("mla_paged_decode", 2)}
+             "mla_paged_decode": ("mla_paged_decode", 2),
+             "mla_paged_prefill": ("mla_paged_prefill", 3),
+             "mla_paged_prefill_seg": ("mla_paged_prefill_segments", 3)}
     saved = {attr: getattr(ops, attr) for attr, _ in where.values()}
     calls = dict.fromkeys(where, 0)
 
@@ -3677,7 +3712,7 @@ def kernel_check_report(torch, record) -> dict:
 
 
 def held_to_plain(phase, report, launches, names=None):
-    """Raise unless every kernel of ``names`` (CHECKED: kernels 1-4) that
+    """Raise unless every kernel of ``names`` (CHECKED: kernels 1-6) that
     launched on the path was held to its plain version on the path's own
     calls (``kernel_check_report``) with finite outputs within the
     limit."""
@@ -4330,15 +4365,15 @@ REPLACES = {
     "paged_decode_int8": ("src/repro_torch/csrc/paged_decode.cu",
                           "src/repro/kernels/paged_attention.py:195"),
     "flash_prefill_bwd": ("src/repro_torch/csrc/flash_prefill_bwd.cu",
-                          "src/repro/models/attention.py:119 "
+                          "src/repro/models/attention.py:121 "
                           "causal_attention under jax.grad (no Pallas "
                           "kernel)"),
 }
 GQA_PATH = ("paged_decode", "paged_prefill", "paged_prefill_seg")
+MLA_PATH = ("mla_paged_decode", "mla_paged_prefill", "mla_paged_prefill_seg")
 # the kernels `checked_kernel_calls` holds to their plain versions on a
 # path's own calls
-CHECKED = GQA_PATH + ("mla_paged_decode",)
-MLA_PATH = ("mla_paged_decode", "mla_paged_prefill", "mla_paged_prefill_seg")
+CHECKED = GQA_PATH + MLA_PATH
 # the dense and monolithic paths: flash prefill for a prompt with no
 # prefix hit, the paged decode kernel over slots or pages
 DENSE_PATH = ("flash_prefill", "paged_decode")

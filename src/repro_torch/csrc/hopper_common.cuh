@@ -115,6 +115,26 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A box of shared memory out to coordinates (c0, h, s0, b) of a rank-4
+// map; elements past the map's extent are not written.  `bulk_commit` closes the thread's group of stores and
+// `bulk_wait_read` waits until every group has read its shared memory.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int h,
+                                          int s0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(h), "r"(s0), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // All W / 64 regions of a [rows][W] tile: token s0.. of head h of
 // sequence b.
 template <int W, int ROWS>
@@ -615,21 +635,17 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Rank-4 map over a contiguous bf16 tensor [B, S, H, W]: boxes of
-// [rows][64 columns] of one head of one sequence, 128-byte swizzle,
-// zero fill past S.  Returns a cudaError_t code.
-static int make_map(CUtensorMap* map, const void* base, int B, int S, int H,
-                    int W, int rows) {
+// Rank-4 map over bf16 at `base` with the given extents, byte strides of
+// dims 1-3 and box, 128-byte swizzle, zero fill past the extents.
+// Returns a cudaError_t code.
+static int encode_map(CUtensorMap* map, const void* base,
+                      const cuuint64_t (&dims)[4],
+                      const cuuint64_t (&strides)[3],
+                      const cuuint32_t (&box)[4]) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const cuuint64_t e = sizeof(__nv_bfloat16);
-  cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)S,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {W * e, (cuuint64_t)H * W * e,
-                           (cuuint64_t)S * H * W * e};
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   cuuint32_t step[4] = {1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(base), dims, strides, box, step,
@@ -637,4 +653,17 @@ static int make_map(CUtensorMap* map, const void* base, int B, int S, int H,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Rank-4 map over a contiguous bf16 tensor [B, S, H, W]: boxes of
+// [rows][64 columns] of one head of one sequence, 128-byte swizzle,
+// zero fill past S.  Returns a cudaError_t code.
+static int make_map(CUtensorMap* map, const void* base, int B, int S, int H,
+                    int W, int rows) {
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  return encode_map(map, base,
+                    {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)S,
+                     (cuuint64_t)B},
+                    {W * e, (cuuint64_t)H * W * e, (cuuint64_t)S * H * W * e},
+                    {64, 1, (cuuint32_t)rows, 1});
 }

@@ -26,15 +26,21 @@
 // balance point, so operations bound it: a matrix product of [heads x dk]
 // by [dk x keys], then [heads x keys] by [keys x dl] for every query.
 //
-// Two bodies, chosen by type and width in `dispatch` below (never a retry
-// after a failure):
+// Three bodies, chosen by type, width and page size in `prefill_body`
+// below (never a retry after a failure):
 //
+// * bf16 queries and pool at DeepSeek-V3's widths (dl 512, dr 64) over
+//   64-token pages -- the Hopper body (`mla_prefill_wg` of
+//   mla_prefill_wg.cuh, the MLA decode's `wgmma` block of mla_wg.cuh):
+//   64 heads of one query a block, Q, each pool page and each 64 rows of
+//   the chunk's latent by TMA, a 64-bit key mask a tile, `wgmma` for the
+//   scores in one warpgroup and for P V in both, one block an SM; any C.
 // * bf16 queries and pool with dl a multiple of 32 up to 512 and dr a
-//   multiple of 8 -- the tensor-core body (`mla_tc_kernel` in
-//   mla_tc.cuh, PREFILL / SEGMENT modes; the split decode of
-//   mla_paged_decode.cu is the same template): one block owns R = 64
-//   heads of one query, bf16 `mma.sync` over 32-key latent tiles staged
-//   by `cp.async` into a three-stage ring, one block an SM.
+//   multiple of 8, at other widths or pages -- the `mma.sync` body
+//   (`mla_tc_kernel` in mla_tc.cuh, PREFILL / SEGMENT modes; the split
+//   decode of mla_paged_decode.cu is the same template): one block owns
+//   R = 64 heads of one query, bf16 `mma.sync` over 32-key latent tiles
+//   staged by `cp.async` into a three-stage ring, one block an SM.
 // * float32 queries (with a float32 or bf16 pool), and bf16 at other
 //   widths -- the CUDA-core body (`mla_prefill_kernel`): one block per
 //   (32 heads, query), float32 FMAs out of shared memory with the
@@ -42,7 +48,10 @@
 //
 // Layouts: q_lat [B,C,Hq,dl], q_rope [B,C,Hq,dr]; lat_chunk [B,C,dl+dr]
 // (q's type); latent pages [N,page,dl+dr]; tables [B,P] int32; offsets
-// [B] or chunk_positions [B,C] int32; out [B,C,Hq,dl] in q's type.
+// [B] or chunk_positions [B,C] int32; out [B,C,Hq,dl] in q's type.  The
+// Hopper body needs 16-byte aligned bases (TMA), which the wrapper
+// ensures.
+#include "mla_prefill_wg.cuh"
 #include "mla_tc.cuh"
 
 // ---------------------------------------------------------------------------
@@ -147,18 +156,34 @@ static int by_width(const void* ql, const void* qr, const void* lc,
 }
 
 // ---------------------------------------------------------------------------
-// dispatch by type and width
+// dispatch by type, width and page size
 // ---------------------------------------------------------------------------
+// The body the entries run: 2, the Hopper body (`mla_prefill_wg`: bf16,
+// dl 512, dr 64, 64-token pages); 1, the `mma.sync` body (`mla_tc_kernel`:
+// bf16 at the widths `mla_tc::width_ok` takes for n_cp chunk positions, 0
+// for the offset entry); 0, the CUDA-core body.
+static int prefill_body(int dl, int dr, int n_cp, int page, int q_dtype,
+                        int kv_dtype) {
+  if (q_dtype != 1 || kv_dtype != 1) return 0;
+  if (mla_wg::width_ok(dl, dr, page)) return 2;
+  return mla_tc::width_ok(dl, dr, n_cp) ? 1 : 0;
+}
+
 template <bool SEG>
 static int dispatch(const void* ql, const void* qr, const void* lc,
                     const void* pages, const void* tables, const void* where,
                     void* out, int B, int C, int Hq, int dl, int dr, int N,
-                    int page, int P, float scale, int q_dtype, int kv_dtype,
-                    void* stream) {
+                    int page, int P, float scale, int longest_first,
+                    int q_dtype, int kv_dtype, void* stream) {
   if (B == 0 || C == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const int body = prefill_body(dl, dr, SEG ? C : 0, page, q_dtype, kv_dtype);
+  if (body == 2)
+    return launch_mla_prefill_wg<SEG>(ql, qr, lc, pages, tables, where, out,
+                                      B, C, Hq, dl, dr, N, page, P, scale,
+                                      longest_first, st);
   if (q_dtype == 1 && kv_dtype == 1) {
-    if (mla_tc::width_ok(dl, dr, SEG ? C : 0))
+    if (body == 1)
       return launch_mla_tc_width<SEG ? mla_tc::SEGMENT : mla_tc::PREFILL>(
           ql, qr, lc, pages, tables, where, out, nullptr, B, C, C, Hq, dl,
           dr, N, page, P, scale, 0, st);
@@ -177,16 +202,19 @@ static int dispatch(const void* ql, const void* qr, const void* lc,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16.  `longest_first` (the Hopper
+// body's launch order): 1 query C - 1 first, 0 query 0 first, < 0 chosen
+// by shape (longest first where the grid is more than one wave).
 extern "C" int mla_paged_prefill(const void* q_lat, const void* q_rope,
                                  const void* lat_chunk, const void* pages,
                                  const void* tables, const void* offsets,
                                  void* out, int B, int C, int Hq, int dl,
                                  int dr, int N, int page, int P, float scale,
-                                 int q_dtype, int kv_dtype, void* stream) {
+                                 int longest_first, int q_dtype,
+                                 int kv_dtype, void* stream) {
   return dispatch<false>(q_lat, q_rope, lat_chunk, pages, tables, offsets,
-                         out, B, C, Hq, dl, dr, N, page, P, scale, q_dtype,
-                         kv_dtype, stream);
+                         out, B, C, Hq, dl, dr, N, page, P, scale,
+                         longest_first, q_dtype, kv_dtype, stream);
 }
 
 extern "C" int mla_paged_prefill_seg(const void* q_lat, const void* q_rope,
@@ -195,16 +223,19 @@ extern "C" int mla_paged_prefill_seg(const void* q_lat, const void* q_rope,
                                      const void* chunk_positions, void* out,
                                      int B, int C, int Hq, int dl, int dr,
                                      int N, int page, int P, float scale,
-                                     int q_dtype, int kv_dtype,
-                                     void* stream) {
+                                     int longest_first, int q_dtype,
+                                     int kv_dtype, void* stream) {
   return dispatch<true>(q_lat, q_rope, lat_chunk, pages, tables,
                         chunk_positions, out, B, C, Hq, dl, dr, N, page, P,
-                        scale, q_dtype, kv_dtype, stream);
+                        scale, longest_first, q_dtype, kv_dtype, stream);
 }
 
-// 1 when the entries above run the tensor-core body for these types and
-// widths (n_cp: the chunk length of a segment call, 0 for the offset one).
+// The body the entries above run for these widths, page size and types
+// (n_cp: the chunk length of a segment call, 0 for the offset one): 2
+// `wgmma` (`mla_prefill_wg`), 1 `mma.sync` (`mla_tc_kernel`), 0 the CUDA
+// cores.
 extern "C" int mla_paged_prefill_tensor_core(int dl, int dr, int n_cp,
-                                             int q_dtype, int kv_dtype) {
-  return q_dtype == 1 && kv_dtype == 1 && mla_tc::width_ok(dl, dr, n_cp);
+                                             int page, int q_dtype,
+                                             int kv_dtype) {
+  return prefill_body(dl, dr, n_cp, page, q_dtype, kv_dtype);
 }

@@ -37,6 +37,13 @@ splits of their own.  The splits of a query block run as one thread
 block cluster: each block keeps its float32 partial in its shared
 memory and the cluster merges them in split order through distributed
 shared memory, so the wrapper allocates no scratch.
+
+The MLA kernels' bodies (``mla_body``): bf16 at DeepSeek-V3's widths
+(dl 512, dr 64) over 64-token pages run ``wgmma`` (``mla_prefill_wg``:
+the MLA decode's Hopper block walking one query's 64-token pool pages
+and 64-row chunk tiles, no split); bf16 at other widths or pages
+``tensor_core`` (``mla_tc_kernel``, ``mma.sync``); float32
+``cuda_core``.
 """
 from __future__ import annotations
 
@@ -248,12 +255,29 @@ def paged_prefill_segments(q: torch.Tensor, k_chunk: torch.Tensor,
 
 
 # q_lat, q_rope, lat_chunk, pages, tables, offsets or positions, out;
-# B, C, Hq, dl, dr, N, page, P; scale; q and pool dtype codes; stream
-MLA_PREFILL_ARGS = [PTR] * 7 + [INT] * 8 + [FLT, INT, INT, PTR]
+# B, C, Hq, dl, dr, N, page, P; scale; the `wgmma` body's launch order;
+# q and pool dtype codes; stream
+MLA_PREFILL_ARGS = [PTR] * 7 + [INT] * 8 + [FLT, INT, INT, INT, PTR]
+
+
+@functools.lru_cache(maxsize=None)
+def mla_body(dl: int, dr: int, n_cp: int, page: int, q_dtype: int,
+             kv_dtype: int) -> str:
+    """The body the MLA chunk prefill's C entries run (``n_cp``: the
+    chunk length of a segment call, 0 for the offset one): "wgmma"
+    (``mla_prefill_wg``: dl 512, dr 64, 64-token pages), "tensor_core"
+    (``mma.sync``) or "cuda_core"."""
+    fn = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
+                     [ctypes.c_int] * 6)
+    return BODIES[fn(dl, dr, n_cp, page, q_dtype, kv_dtype)]
 
 
 def _launch_mla(entry: str, q_lat, q_rope, lat_chunk, latent_pages,
-                block_tables, where, d_latent, scale) -> torch.Tensor:
+                block_tables, where, d_latent, scale,
+                longest_first: int = -1) -> torch.Tensor:
+    """Launch C entry ``entry``; ``longest_first`` 1 / 0 fixes the
+    `wgmma` body's launch order (query C - 1 or 0 first) where -1 lets
+    the entry choose by shape (an A/B of orders passes one)."""
     b, c, hq, dl = q_lat.shape
     dr = q_rope.shape[-1]
     n, page, _ = latent_pages.shape
@@ -261,13 +285,18 @@ def _launch_mla(entry: str, q_lat, q_rope, lat_chunk, latent_pages,
             or block_tables.shape[0] != b):
         raise ValueError(f"{entry}: q_lat [B,C,Hq,dl], lat_chunk "
                          f"[B,C,dl+dr], tables [B,P]")
+    qd, kd = DTYPE_CODES[q_lat.dtype], DTYPE_CODES[latent_pages.dtype]
+    n_cp = c if entry == "mla_paged_prefill_seg" else 0
+    if mla_body(dl, dr, n_cp, page, qd, kd) == "wgmma":
+        q_lat, q_rope, lat_chunk, latent_pages = _tma_ready(
+            q_lat, q_rope, lat_chunk, latent_pages)
     out = torch.empty_like(q_lat)
     fn = build.entry("mla_paged_prefill", entry, MLA_PREFILL_ARGS)
     rc = fn(*(t.data_ptr() for t in (q_lat, q_rope, lat_chunk, latent_pages,
                                      block_tables, where, out)),
             b, c, hq, dl, dr, n, page, block_tables.shape[1],
-            ref.mla_scale(dl, dr, scale), DTYPE_CODES[q_lat.dtype],
-            DTYPE_CODES[latent_pages.dtype], stream_ptr(q_lat.device))
+            ref.mla_scale(dl, dr, scale), longest_first, qd, kd,
+            stream_ptr(q_lat.device))
     build.check(rc, "mla_paged_prefill", entry)
     return out
 

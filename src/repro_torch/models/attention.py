@@ -367,10 +367,12 @@ def mla_attention_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     """Causal MLA over whole prompts x [B,S,D] from position 0; returns
     (out [B,S,D], latent [B,S,dl+dr]).  The MLA chunk prefill kernel
     (``ops.mla_prefill``) at offset 0 with the whole prompt as the
-    chunk: it reads no pool token, so the pool is one empty slot."""
+    chunk: it reads no pool token, so the pool is one empty page of 64
+    tokens (the paged path's page, so the kernel runs the body it runs
+    there)."""
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :]
-    empty = x.new_zeros((1, 1, cfg.d_latent + cfg.d_rope))
+    empty = x.new_zeros((1, 64, cfg.d_latent + cfg.d_rope))
     tables = torch.zeros((b, 1), dtype=torch.int32, device=x.device)
     offsets = torch.zeros((b,), dtype=torch.int32, device=x.device)
     return mla_absorbed(

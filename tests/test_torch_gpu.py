@@ -1168,16 +1168,135 @@ def test_mla_prefill_seg_kernel(cuda, dtype, tol, hq, dl, dr, page, pages,
 
 @pytest.mark.parametrize("hq,dl,dr", [(128, 512, 64), (40, 96, 16),
                                       (4, 32, 8)])
-def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr):
-    a = _mla_inputs(torch.bfloat16, hq=hq, dl=dl, dr=dr, page=64, pages=3)
+@pytest.mark.parametrize("c", [8, 64, 100])
+def test_mla_seg_kernel_contiguous_equals_offset_bitwise(cuda, hq, dl, dr,
+                                                         c):
+    """C 64 and 100 walk one and two chunk tiles of the `wgmma` body at
+    DeepSeek-V3's widths (the `mma.sync` body at the others)."""
+    a = _mla_inputs(torch.bfloat16, c=c, hq=hq, dl=dl, dr=dr, page=64,
+                    pages=3)
     offs = [0, 37, 120]
-    cpos = torch.tensor([[o + i for i in range(8)] for o in offs],
+    cpos = torch.tensor([[o + i for i in range(c)] for o in offs],
                         dtype=torch.int32, device="cuda")
     base = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"])
     seg = cuda.mla_prefill_seg(*base, cpos, d_latent=dl)
     off = cuda.mla_prefill(*base, torch.tensor(offs, dtype=torch.int32,
                                                device="cuda"), d_latent=dl)
     assert torch.equal(seg, off)
+
+
+# (B, C, offsets, rows of chunk positions) of the MLA chunk prefill's
+# `wgmma` body at DeepSeek-V3's widths over 64-token pages: C 8 / 64 / 100
+# (two chunk tiles) / 1100 (the monolithic prefill's 18 chunk tiles, at
+# offset 0), offsets on and off a page edge, segment rows with two gaps,
+# -1 padding and padding only
+MLA_WG_CASES = [
+    (2, 8, (0, 37), ([30, 31, 32, 100, 101, 102], [])),
+    (1, 64, (1024,), (list(range(480, 512)) + list(range(1536, 1568)),)),
+    (2, 100, (63, 64), (list(range(5, 60)) + list(range(130, 175)),
+                        list(range(37, 117)))),
+    (1, 1100, (0,), (list(range(0, 500)) + list(range(1200, 1800)),)),
+]
+
+
+def _mla_wg_inputs(b, c, seed, pages=32):
+    """DeepSeek-V3 widths, bf16, a 2048-token window of 64-token pages
+    (one clamped entry a row, inside the walk)."""
+    hq, dl, dr = 128, 512, 64
+    a = _mla_inputs(torch.bfloat16, b=b, c=c, hq=hq, dl=dl, dr=dr, page=64,
+                    pages=pages, seed=seed)
+    n = a["lp"].shape[0]
+    a["tables"][0, 2] = n + 9                   # clamps to page n - 1
+    a["tables"][-1, 0] = -3                     # clamps to page 0
+    return a, dl, 1.0 / (128 + dr) ** 0.5
+
+
+@pytest.mark.parametrize("b,c,offs,rows", MLA_WG_CASES)
+def test_mla_prefill_wg_kernel(cuda, b, c, offs, rows):
+    """Both entries on the `wgmma` body against their plain versions, one
+    launch a call, finite outputs, equal bit for bit twice."""
+    from repro_torch.kernels import paged_prefill as pp
+    assert pp.mla_body(512, 64, c, 64, 1, 1) == "wgmma"
+    a, dl, scale = _mla_wg_inputs(b, c, seed=c)
+    base = (a["ql"], a["qr"], a["lc"], a["lp"], a["tables"])
+    offs = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    cpos = torch.tensor([r + [-1] * (c - len(r)) for r in rows],
+                        dtype=torch.int32, device="cuda")
+    for fn, where, count in ((cuda.mla_prefill, offs,
+                              cuda.mla_paged_prefill),
+                             (cuda.mla_prefill_seg, cpos,
+                              cuda.mla_paged_prefill_segments)):
+        before = count.launches
+        out = fn(*base, where, d_latent=dl, scale=scale)
+        torch.cuda.synchronize()
+        assert count.launches == before + 1
+        assert bool(torch.isfinite(out).all())
+        plain = fn(*base, where, d_latent=dl, scale=scale, backend="torch")
+        assert _err(out, plain) <= BF16_TOL
+        assert torch.equal(out, fn(*base, where, d_latent=dl, scale=scale))
+
+
+@pytest.mark.parametrize("longest_first", [0, 1])
+def test_mla_prefill_wg_launch_orders_agree(cuda, longest_first):
+    """Either launch order of the `wgmma` body's grid gives the default's
+    output bit for bit (C 1100 at offset 0, and the segment entry)."""
+    from repro_torch.kernels import paged_prefill as pp
+    a, dl, scale = _mla_wg_inputs(1, 1100, seed=5)
+    args = [a["ql"], a["qr"], a["lc"], a["lp"], a["tables"]]
+    offs = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    cpos = torch.arange(300, 1400, dtype=torch.int32, device="cuda")[None]
+    for entry, fn, where in (("mla_paged_prefill", cuda.mla_prefill, offs),
+                             ("mla_paged_prefill_seg", cuda.mla_prefill_seg,
+                              cpos)):
+        want = fn(*args, where, d_latent=dl, scale=scale)
+        got = pp._launch_mla(entry, *args, where, dl, scale,
+                             longest_first=longest_first)
+        assert torch.equal(got, want)
+
+
+def test_mla_prefill_wg_ignores_unread_slots(cuda):
+    """inf / NaN in every pool slot no query may read (past the offset,
+    a segment chunk's own slots and the slots past its last position,
+    table pages past the walk) and in the memory past the chunk latent's
+    last row: both entries' outputs equal the clean pool's bit for bit
+    and are finite."""
+    b, c = 2, 100
+    a, dl, scale = _mla_wg_inputs(b, c, seed=21, pages=8)
+    window = a["tables"].shape[1] * 64
+    offs = torch.tensor([70, 0], dtype=torch.int32, device="cuda")
+    rows = [list(range(10, 60)) + list(range(300, 350)),
+            list(range(3, 103))]
+    cpos = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    pos = torch.arange(window, device="cuda")
+    tables = torch.arange(1, b * 8 + 1, dtype=torch.int32,
+                          device="cuda").reshape(b, 8)   # no shared page
+    # the chunk latent inside a longer buffer whose tail is NaN
+    buf = torch.full((b * c + 64, dl + 64), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    buf[:b * c] = a["lc"].reshape(b * c, -1)
+    lc = buf[:b * c].view(b, c, -1)
+    for fn, where in ((cuda.mla_prefill, offs),
+                      (cuda.mla_prefill_seg, cpos)):
+        if where is offs:
+            unread = pos[None] >= offs.long()[:, None]
+        else:
+            cp = cpos.long()
+            own = (pos[None, :, None] == cp[:, None, :]).any(-1)
+            unread = own | (pos[None] >= cp.max(-1).values[:, None])
+        dirty = a["lp"].clone()
+        for row in range(b):
+            slots = torch.nonzero(unread[row]).flatten()
+            vals = torch.where(slots % 2 == 1, float("nan"), float("inf"))
+            dirty[tables[row, slots // 64].long(), slots % 64] = \
+                vals.to(dirty.dtype)[:, None]
+        base = (a["ql"], a["qr"], lc)
+        clean = fn(*base, a["lp"], tables, where, d_latent=dl, scale=scale)
+        out = fn(*base, dirty, tables, where, d_latent=dl, scale=scale)
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, clean)
+        plain = fn(*base, a["lp"], tables, where, d_latent=dl, scale=scale,
+                   backend="torch")
+        assert _err(out, plain) <= BF16_TOL
 
 
 def test_tensor_core_dispatch(cuda):
@@ -1208,13 +1327,20 @@ def test_tensor_core_dispatch(cuda):
         [1, 0, 2, 2, 0]
     assert bwd(192, 128, 1) == 2 and bwd(192, 128, 0) == 0
     assert [bwd(hd, hd, 0) for hd in (32, 64, 128, 256)] == [0] * 4
+    # the MLA chunk prefill's body: `wgmma` at dl 512, dr 64 over 64-token
+    # pages, `mma.sync` at the other widths and pages
     mla = build.entry("mla_paged_prefill", "mla_paged_prefill_tensor_core",
-                      [ctypes.c_int] * 5)
+                      [ctypes.c_int] * 6)
     for _, dl, dr in MLA_WIDTHS:
-        for n_cp in (0, 8, 64):
-            assert mla(dl, dr, n_cp, 1, 1) == 1
-            assert mla(dl, dr, n_cp, 0, 1) == 0
-            assert mla(dl, dr, n_cp, 0, 0) == 0
+        for n_cp in (0, 8, 64, 1100):
+            for page in (16, 32, 64):
+                want = 2 if (dl, dr, page) == (512, 64, 64) else 1
+                assert mla(dl, dr, n_cp, page, 1, 1) == want
+                assert mla(dl, dr, n_cp, page, 0, 1) == 0
+                assert mla(dl, dr, n_cp, page, 0, 0) == 0
+    from repro_torch.kernels import paged_prefill as pp
+    assert pp.mla_body(512, 64, 64, 64, 1, 1) == "wgmma"
+    assert pp.mla_body(512, 64, 0, 1, 1, 1) == "tensor_core"
     mla_dec = build.entry("mla_paged_decode", "mla_paged_decode_tensor_core",
                           [ctypes.c_int] * 4)
     for _, dl, dr in MLA_WIDTHS:
@@ -1396,16 +1522,16 @@ def test_moe_and_mla_dense_engine_on_card_matches_cpu_engine(cuda, arch,
 
 def test_mla_prefill_kernel_at_offset_0_whole_prompt(cuda):
     """DeepSeek-V3 width, bf16: a whole ragged prompt of 416 tokens as
-    the chunk at offset 0 over a one-slot pool (the monolithic prefill's
-    call, ``attention.mla_attention_prefill``) against the plain
-    version; one launch."""
+    the chunk at offset 0 over a pool of one empty 64-token page (the
+    monolithic prefill's call, ``attention.mla_attention_prefill``: the
+    `wgmma` body) against the plain version; one launch."""
     hq, dl, dr, s = 128, 512, 64, 416
     g = torch.Generator(device="cuda").manual_seed(13)
 
     def rn(*shape):
         return torch.randn(shape, generator=g, device="cuda").bfloat16()
     args = (rn(1, s, hq, dl), rn(1, s, hq, dr), rn(1, s, dl + dr),
-            torch.zeros((1, 1, dl + dr), dtype=torch.bfloat16,
+            torch.zeros((1, 64, dl + dr), dtype=torch.bfloat16,
                         device="cuda"),
             torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
             torch.zeros((1,), dtype=torch.int32, device="cuda"))
