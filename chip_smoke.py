@@ -105,7 +105,10 @@ check raises and the script exits non-zero with no result line:
            pages and over the int8_decode path's 4 slots at its eighth
            step (``paged_decode_int8_path``, also timed with a float32
            query on the CUDA-core body, ``cuda_core_ms``), each against
-           its plain version and timed as above; then flash prefill at
+           its plain version and timed as above on the Hopper body (and
+           each with int8 +-127 values and inf / NaN scales in every slot
+           no row reads: output and log-sum-exp bit for bit, finite,
+           ``*_nonfinite``); then flash prefill at
            the cross-attention families' self layers (llama-3.2-vision:
            32 / 8 heads, hd 128, S 512 and the ragged 100; whisper-tiny:
            6 / 6 heads, hd 64, G 1, S 128) beside the same library call,
@@ -122,7 +125,8 @@ check raises and the script exits non-zero with no result line:
            chunked_prefill=False and fused_step=False;
   int8_decode  build_model(kv_dtype="int8"): bf16 prefills of four
            prompts, their K/V quantized into the int8 slot state, then
-           16 decode steps through the int8 kernel;
+           16 decode steps through the int8 kernel, its calls 1, 2, 4,
+           8, ... held to the plain version (``checked_kernel_calls``);
   dense_parity  one prefill and one bf16 and one int8 decode step of the
            full-width model with the kernels, the plain versions and
            one-token mask-error versions (slots past each row's length
@@ -310,7 +314,6 @@ process, on a fresh card).  TRAIN_MLA_LAYERS is fixed from it.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 import json
 import math
@@ -523,7 +526,11 @@ TENSOR_CORE_ENTRIES = (("flash_prefill", "flash_prefill_tc", 2),
                        ("mla_paged_decode", "mla_decode_wg", 1, "HGMMA"),
                        ("mla_paged_prefill", "mla_prefill_wg", 2, "HGMMA"),
                        ("paged_decode", "paged_decode_tc", 4),
-                       ("paged_decode", "paged_decode_wg", 2),
+                       # kernels 1 and 8's Hopper body, bf16 and int8
+                       # pages at hd 64 / 128; kernel 8's by name
+                       ("paged_decode", "paged_decode_wg", 4),
+                       ("paged_decode", "paged_decode_wgILi64ELb1E", 1),
+                       ("paged_decode", "paged_decode_wgILi128ELb1E", 1),
                        ("paged_decode", "paged_decode_int8_tc", 4),
                        ("paged_prefill", "paged_prefill_tcILb0E", 4),
                        ("paged_prefill", "paged_prefill_tcILb1E", 4),
@@ -606,18 +613,16 @@ def kernel_body(name, a) -> str:
     "tensor_core" (``mma.sync``) or "cuda_core"; the GQA decode (by page
     size too) "hopper", "tensor_core" or "cuda_core"; the MLA decode and
     chunk / segment prefill (by page size too) "wgmma", "tensor_core" or
-    "cuda_core"."""
-    from repro_torch.kernels import build
+    "cuda_core"; the int8 decode (by page size and window too) "hopper",
+    "tensor_core" or "cuda_core"."""
     from repro_torch.kernels import mla_paged_decode as mpd
     from repro_torch.kernels.paged_attention import DTYPE_CODES
-    tc = 0
     if name.startswith("paged_decode_int8"):
-        fn = build.entry("paged_decode", "paged_decode_int8_tensor_core",
-                         [ctypes.c_int] * 4)
-        q = a["q"]
-        tc = fn(q.shape[-2], a["k_pages"].shape[2], q.shape[-1],
-                DTYPE_CODES[q.dtype])
-    elif name.startswith("paged_prefill"):
+        from repro_torch.kernels.paged_attention import int8_body
+        q, kp = a["q"], a["k_pages"]
+        return int8_body(q.shape[-2], kp.shape[2], q.shape[-1], kp.shape[1],
+                         a["block_tables"].shape[1], DTYPE_CODES[q.dtype])
+    if name.startswith("paged_prefill"):
         from repro_torch.kernels.paged_prefill import body
         q, kp = a["q"], a["k_pages"]
         return body(q.shape[-2], kp.shape[2], q.shape[-1], kp.shape[1],
@@ -648,7 +653,7 @@ def kernel_body(name, a) -> str:
         return mla_body(q_lat.shape[-1], a["q_rope"].shape[-1], n_cp,
                         lat.shape[1], DTYPE_CODES[q_lat.dtype],
                         DTYPE_CODES[lat.dtype])
-    return "tensor_core" if tc else "cuda_core"
+    return "cuda_core"
 
 
 def check_and_time(torch, cases, card, phase):
@@ -745,14 +750,18 @@ def decode_plan(a) -> dict:
     stay for a cluster's merge on these inputs (their lengths, read here
     on the host), and the partials the clusters merge in shared memory.
     The `mma.sync` body: one block per (row, KV head), its walk dealt to
-    four warps and merged inside the block."""
+    four warps and merged inside the block.  The int8 decode (inputs
+    with ``k_scales``) by its own body's gate."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import DTYPE_CODES
     B, Hq, hd = a["q"].shape
     _, page, Hkv, _ = a["k_pages"].shape
     P = a["block_tables"].shape[1]
-    if pa.body(Hq, Hkv, hd, page, P, DTYPE_CODES[a["q"].dtype],
-               DTYPE_CODES[a["k_pages"].dtype]) != "hopper":
+    qd = DTYPE_CODES[a["q"].dtype]
+    if ("k_scales" in a and pa.int8_body(Hq, Hkv, hd, page, P, qd)
+            != "hopper") or ("k_scales" not in a and pa.body(
+                Hq, Hkv, hd, page, P, qd,
+                DTYPE_CODES[a["k_pages"].dtype]) != "hopper"):
         return {"splits": 1, "warp_splits": 4, "blocks": B * Hkv,
                 "partial_bytes": 0}
     plan = pa.decode_split_plan(B, Hq, Hkv, hd, page, P)
@@ -1328,13 +1337,13 @@ def phase_dense_kernels(torch, ops, card):
                                    lengths=INT8_PATH_LENGTHS)
     for name, a in (("paged_decode_int8", dec),
                     ("paged_decode_int8_path", path)):
-        # one block per (row, KV head) walks the row; nothing to combine
-        plan = {"splits": 1, "blocks": a["q"].shape[0]
-                * a["k_pages"].shape[2], "partial_bytes": 0}
         cases.append((name, ops.paged_decode_int8, a, cost.int8_decode_cost(a),
-                      None, plan))
+                      None, decode_plan(a)))
     cases += cross_cases(torch, gen, ops, attn)
     rows = check_and_time(torch, cases, card, "kernels")
+    for name, a in (("paged_decode_int8", dec),
+                    ("paged_decode_int8_path", path)):
+        check_int8_unread(torch, ops, card, name, a)
     # for the record: the same call with a float32 query, which runs the
     # CUDA-core body
     f32 = dict(path, q=path["q"].float())
@@ -1345,6 +1354,38 @@ def phase_dense_kernels(torch, ops, card):
     emit({"phase": "kernels", "card": card,
           "kernel": "paged_decode_int8_path", "cuda_core_ms": cc["ms"]})
     return rows
+
+
+def check_int8_unread(torch, ops, card, name, a):
+    """Kernel 8 on inputs ``a`` with every slot no row may read (at or
+    past its length) holding int8 127 in K and -127 in V with an inf K
+    and a NaN V scale, then the signs and the scales swapped: the output
+    and its log-sum-exp must equal the clean pool's bit for bit and be
+    finite (the producer never loads a scale past a row's end, and an
+    unread key's P is 0)."""
+    page = a["k_pages"].shape[1]
+    pos = torch.arange(a["block_tables"].shape[1] * page, device="cuda")
+    unread = pos[None] >= a["lengths"].long()[:, None]
+    slot = (a["block_tables"].long()[:, pos // page] * page + pos % page)
+    slots = slot[unread][~torch.isin(slot[unread], slot[~unread])]
+    clean = ops.paged_decode_int8(**a, backend="cuda", with_lse=True)
+    same = []
+    for bads in ((127, -127, math.inf, math.nan),
+                 (-127, 127, math.nan, math.inf)):
+        dirty = dict(a)
+        for key, bad in zip(("k_pages", "v_pages", "k_scales", "v_scales"),
+                            bads):
+            dirty[key] = a[key].clone()
+            dirty[key].view(-1, *a[key].shape[2:])[slots] = bad
+        outs = ops.paged_decode_int8(**dirty, backend="cuda", with_lse=True)
+        same.append(all(bool(torch.isfinite(o).all()) and torch.equal(o, c)
+                        for o, c in zip(outs, clean)))
+    emit({"phase": "kernels", "card": card, "check": name + "_nonfinite",
+          "body": kernel_body(name, a), "unread_slots": int(slots.numel()),
+          "unchanged_and_finite": same})
+    if not all(same) or slots.numel() == 0:
+        raise AssertionError(f"{name}: int8 +-127 / inf / NaN scales in "
+                             f"unread slots changed the output ({same})")
 
 
 def phase_serve(torch, kernel_fns, path, card, cfg, ecfg, system_blocks,
@@ -1847,8 +1888,10 @@ def phase_int8_decode(torch, kernel_fns, params, card, cfg):
     prompts of ragged lengths (the flash prefill kernel), their K/V
     quantized with ``quantize_kv`` into the int8 slot state, then 16
     greedy decode steps through the int8 decode kernel over the slots
-    seen as pages.  Every count is zeroed just before and read just
-    after; both kernels must have launched."""
+    seen as pages, its calls 1, 2, 4, 8, ... held to the plain version on
+    the path's own tensors (``checked_kernel_calls``: worst error within
+    one bf16 step, finite).  Every count is zeroed just before and read
+    just after; both kernels must have launched."""
     from repro_torch.models import attention as attn
     from repro_torch.models.model import build_model
 
@@ -1875,24 +1918,27 @@ def phase_int8_decode(torch, kernel_fns, params, card, cfg):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     tok = torch.cat(first).to(torch.int32)
-    step_s, finite = [], []
-    for _ in range(steps):
-        t = time.perf_counter()
-        logits, state = model.decode_step(params, state, tok)
-        tok = logits.argmax(dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        finite.append(bool(torch.isfinite(logits).all()))
+    step_s, finite, calls = [], [], []
+    with checked_kernel_calls(torch, calls):
+        for _ in range(steps):
+            t = time.perf_counter()
+            logits, state = model.decode_step(params, state, tok)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            finite.append(bool(torch.isfinite(logits).all()))
     launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    checks = kernel_check_report(torch, calls)
     want = [n + steps for n in lens]
     emit({"phase": "int8_decode", "card": card, "model": cfg.name,
           "layers": cfg.n_layers, "rows": len(lens), "prompt_lens": lens,
           "max_len": max_len, "prefill_s": prefill_s,
           "decode_step_ms_median": 1e3 * sorted(step_s)[steps // 2],
           "decode_step_ms_mean": 1e3 * sum(step_s) / steps,
-          "launches": launches})
+          "launches": launches, "kernel_checks": checks})
     if not all(finite):
         raise AssertionError("int8_decode: non-finite logits")
+    held_to_plain("int8_decode", checks, launches, ("paged_decode_int8",))
     if state["lengths"].tolist() != want:
         raise AssertionError(f"int8_decode: lengths {state['lengths']} "
                              f"!= {want}")
@@ -3644,13 +3690,14 @@ def host_link(torch, out):
 
 @contextlib.contextmanager
 def checked_kernel_calls(torch, record):
-    """Hold calls 1, 2, 4, 8, ... of each of kernels 1-6 on the driven
-    path against the plain version on the very tensors the path gave
-    the kernel, right after the path's own launch (so the pool holds
+    """Hold calls 1, 2, 4, 8, ... of each of kernels 1-6 and 8 on the
+    driven path against the plain version on the very tensors the path
+    gave the kernel, right after the path's own launch (so the pool holds
     what that launch read): per checked call its page size and, as
     device tensors read once the run is over, the kernel's max_abs_err,
     the plain output's largest magnitude and whether the output is
-    finite.  The plain calls launch no kernel."""
+    finite (of the output alone where it comes with its log-sum-exp).
+    The plain calls launch no kernel."""
     from repro_torch.kernels import ops
     # kernel -> (ops global it is reached through, position of its pages)
     where = {"paged_decode": ("paged_decode_attention", 1),
@@ -3658,7 +3705,8 @@ def checked_kernel_calls(torch, record):
              "paged_prefill_seg": ("paged_prefill_segments", 3),
              "mla_paged_decode": ("mla_paged_decode", 2),
              "mla_paged_prefill": ("mla_paged_prefill", 3),
-             "mla_paged_prefill_seg": ("mla_paged_prefill_segments", 3)}
+             "mla_paged_prefill_seg": ("mla_paged_prefill_segments", 3),
+             "paged_decode_int8": ("paged_decode_attention_int8", 1)}
     saved = {attr: getattr(ops, attr) for attr, _ in where.values()}
     calls = dict.fromkeys(where, 0)
 
@@ -3667,10 +3715,13 @@ def checked_kernel_calls(torch, record):
             out = fn(*a, **kw)
             calls[name] += 1
             if calls[name] & (calls[name] - 1) == 0:
-                plain = fn(*a, **dict(kw, backend="torch")).float()
+                got = out[0] if isinstance(out, tuple) else out
+                plain = fn(*a, **dict(kw, backend="torch"))
+                plain = (plain[0] if isinstance(plain, tuple)
+                         else plain).float()
                 record.append((name, a[k_arg].shape[1], torch.stack([
-                    (out.float() - plain).abs().max(), plain.abs().max(),
-                    torch.isfinite(out).all().float()])))
+                    (got.float() - plain).abs().max(), plain.abs().max(),
+                    torch.isfinite(got).all().float()])))
             return out
         return call
     for name, (attr, k_arg) in where.items():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the GQA paged decode (kernel 1) and the absorbed-MLA decode
-(kernel 4) of two or more source trees of this repository on one CUDA
-card, in turns (A, B, ..., then the same trees in reverse order), at
-``chip_smoke.py``'s ``kernels`` / ``mla_kernels``-phase shapes.
+"""Time the GQA paged decode (kernel 1), the absorbed-MLA decode
+(kernel 4) and the int8 paged decode (kernel 8) of two or more source
+trees of this repository on one CUDA card, in turns (A, B, ..., then the
+same trees in reverse order), at ``chip_smoke.py``'s ``kernels`` /
+``mla_kernels``-phase shapes.
 
 Kernel 1: llama3.2-1b's heads (32 / 8, hd 64) on 64 ragged rows over a
 512-token window (``paged_decode``), every row full (``_full``), at
@@ -16,7 +17,11 @@ tokens, ``_32k``).  Kernel 4: DeepSeek-V3's widths on 56 ragged rows up
 to 2048 tokens (``mla_paged_decode``), 8 full rows (``_long``) and the
 56 latent slots of 2048 tokens seen as pages (``_slots``), each also
 with its kernels' device ms from the profiler (the walk and the
-combine, L2 warm: ``profiler_ms``).
+combine, L2 warm: ``profiler_ms``).  Kernel 8: llama3.2-1b's heads over
+64 slots of 512 tokens seen as 64-token pages (``paged_decode_int8``),
+every row full (``_full``), one key (``_len1``) and one tile
+(``_len64``), and the int8_decode path's 4 rows at its eighth step
+(``paged_decode_int8_path``).
 
     python3 scripts/decode_ab.py TREE [TREE ...]
 
@@ -27,14 +32,14 @@ kernels into the tree's own ``build/`` and times its wrappers with this
 tree's ``chip_smoke.time_ms`` (CUDA-event windows of L2-flushed
 launches) on the same seeded inputs.  A tree with kernel 1's Hopper body
 (``decode_split_plan``) is also timed at 1, 2, 4 and 8 splits a (row, KV
-head), and kernel 4 at 256-, 512- and 1024-token splits beside its
+head) and kernel 4 at 256-, 512- and 1024-token splits beside its
 default, each held to the plain version first.  One JSON line a (turn,
 case): the tree, the card's name and power limit, the body, ``ms`` and
-each variant's ms;
-first, a turn's ``launch_floor``: one launch of a one-element kernel
-timed the same way, and the sha256 of kernels 2, 3, 5, 6 and 8's outputs
-on the kernels phases' inputs (``untouched``); last, whether every turn
-gave the same digests (``untouched_equal``; the exit code is 1 if not).
+each variant's ms; first, a turn's ``launch_floor``: one launch of a
+one-element kernel timed the same way, and the sha256 of the outputs of
+kernels 1-7 and 7b, which this comparison does not redesign, on the
+kernels phases' inputs (``untouched``); last, whether every turn gave the
+same digests (``untouched_equal``; the exit code is 1 if not).
 """
 import json
 import subprocess
@@ -129,30 +134,62 @@ def mla_cases(torch, cs, ops):
             ("mla_paged_decode_slots", slots)]
 
 
+def int8_cases(torch, cs):
+    """(name, kwargs) of kernel 8's timed cases, on seeded inputs."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    dec = cs.make_int8_decode_inputs(torch, gen, attn)
+    lengths = dec["lengths"]
+    return [("paged_decode_int8", dec),
+            ("paged_decode_int8_path", cs.make_int8_decode_inputs(
+                torch, gen, attn, lengths=cs.INT8_PATH_LENGTHS)),
+            # every row full, one key, one tile: the bytes of a batch with
+            # no short row, and what a block costs beside its walk
+            ("paged_decode_int8_full", dict(dec, lengths=torch.full_like(
+                lengths, 512))),
+            ("paged_decode_int8_len1", dict(dec, lengths=torch.ones_like(
+                lengths))),
+            ("paged_decode_int8_len64", dict(dec, lengths=torch.full_like(
+                lengths, 64)))]
+
+
 def untouched_outputs(torch, cs, ops) -> dict:
     """sha256 of the outputs of the kernels this comparison does not
-    redesign -- 2 and 3 (the chunk and segment prefill), 5 and 6 (their
-    MLA counterparts) and 8 (the int8 decode) -- on the kernels phases'
-    seeded inputs: two trees that agree here agree bit for bit."""
+    redesign -- 1 (the GQA decode, with its log-sum-exp), 2 and 3 (the
+    chunk and segment prefill), 4 (the MLA decode), 5 and 6 (the MLA
+    chunk and segment prefill), 7 (flash prefill with its log-sum-exp)
+    and 7b (its backward) -- on the kernels phases' seeded inputs: two
+    trees that agree here agree bit for bit."""
     import hashlib
 
-    from repro_torch.models import attention as attn
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
 
-    def digest(t):
-        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
-                              .numpy().tobytes()).hexdigest()
-    _, pre, seg = cs.make_kernel_inputs(
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()
+    dec, pre, seg = cs.make_kernel_inputs(
         torch, torch.Generator(device="cuda").manual_seed(1234))
-    _, mpre, mseg = cs.make_mla_kernel_inputs(
+    mdec, mpre, mseg = cs.make_mla_kernel_inputs(
         torch, torch.Generator(device="cuda").manual_seed(4321),
         cs.mla_config())
-    i8 = cs.make_int8_decode_inputs(
-        torch, torch.Generator(device="cuda").manual_seed(5678), attn)
-    return {"paged_prefill": digest(ops.paged_prefill(**pre)),
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    q, k, v, do = (torch.randn((1, 384, h, 64), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (32, 8, 8, 32))
+    o, lse = flash_prefill(q, k, v, backend="cuda", with_lse=True)
+    grads = flash_prefill_bwd(q, k, v, o, do, lse, backend="cuda")
+    return {"paged_decode": digest(*ops.paged_decode(**dec, with_lse=True)),
+            "paged_prefill": digest(ops.paged_prefill(**pre)),
             "paged_prefill_seg": digest(ops.paged_prefill_seg(**seg)),
+            "mla_paged_decode": digest(ops.mla_decode(**mdec)),
             "mla_paged_prefill": digest(ops.mla_prefill(**mpre)),
             "mla_paged_prefill_seg": digest(ops.mla_prefill_seg(**mseg)),
-            "paged_decode_int8": digest(ops.paged_decode_int8(**i8))}
+            "flash_prefill": digest(o, lse),
+            "flash_prefill_bwd": digest(*grads)}
 
 
 def gqa_body(pa, a) -> str:
@@ -257,6 +294,21 @@ def one(tree: Path) -> None:
                             **a, backend="cuda"))["ms"]
                 finally:
                     mpd.SPLIT_TOKENS = default
+        print(json.dumps(rec), flush=True)
+
+    for name, a in int8_cases(torch, cs):
+        check(name, ops.paged_decode_int8(**a, backend="cuda"),
+              ops.paged_decode_int8(**a, backend="torch"))
+        rec = {"tree": str(tree), "card": card, "case": name,
+               "body": cs.kernel_body(name, a)
+               if hasattr(pa, "int8_body") else "tensor_core",
+               "ms": cs.time_ms(torch, lambda: ops.paged_decode_int8(
+                   **a, backend="cuda"))["ms"]}
+        if rec["body"] == "hopper":
+            b, hq, hd = a["q"].shape
+            _, page, hkv, _ = a["k_pages"].shape
+            rec["plan"] = pa.decode_split_plan(
+                b, hq, hkv, hd, page, a["block_tables"].shape[1])._asdict()
         print(json.dumps(rec), flush=True)
 
 

@@ -91,6 +91,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (n == (1u << 24)) asm volatile("trap;\n");
 }
 
+// An arrival on `bar` once every `cp.async` this thread issued before it
+// has landed; the barrier's count includes it (.noinc).
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
 // Named barriers 1..15 (0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -636,20 +644,20 @@ static EncodeTiledFn encode_tiled() {
 }
 
 // Rank-4 map over bf16 at `base` with the given extents, byte strides of
-// dims 1-3 and box, 128-byte swizzle, zero fill past the extents.
-// Returns a cudaError_t code.
-static int encode_map(CUtensorMap* map, const void* base,
-                      const cuuint64_t (&dims)[4],
-                      const cuuint64_t (&strides)[3],
-                      const cuuint32_t (&box)[4]) {
+// dims 1-3 and box, 128-byte swizzle, zero fill past the extents (or of
+// another element type and swizzle).  Returns a cudaError_t code.
+static int encode_map(
+    CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+    const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   cuuint32_t step[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(base), dims, strides, box, step,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box,
+                  step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -666,4 +674,18 @@ static int make_map(CUtensorMap* map, const void* base, int B, int S, int H,
                      (cuuint64_t)B},
                     {W * e, (cuuint64_t)H * W * e, (cuuint64_t)S * H * W * e},
                     {64, 1, (cuuint32_t)rows, 1});
+}
+
+// Rank-4 map over a contiguous int8 tensor [B, S, H, W] (W a multiple of
+// 64): boxes of [rows][64 bytes] of one head of one sequence, 64-byte
+// swizzle (16-byte chunk c of row r stored at chunk c ^ (r / 2 % 4) in a
+// 512-byte aligned box), zero fill past S.  Returns a cudaError_t code.
+static int make_map_i8(CUtensorMap* map, const void* base, int B, int S,
+                       int H, int W, int rows) {
+  return encode_map(map, base,
+                    {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)S,
+                     (cuuint64_t)B},
+                    {(cuuint64_t)W, (cuuint64_t)H * W, (cuuint64_t)S * H * W},
+                    {64, 1, (cuuint32_t)rows, 1},
+                    CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_64B);
 }

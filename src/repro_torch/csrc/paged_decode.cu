@@ -17,9 +17,9 @@
 // the sequential walk replaces the TPU grid's page axis.  A row of
 // length 0 reads nothing and writes zeros; a key at or past the length
 // is never loaded (its tile row and its scales are zero-filled), so
-// stale or non-finite slots cannot reach the output.  Four bodies,
-// chosen by type, width, page size and table window in `decode_body`
-// below (never a retry after a failure):
+// stale or non-finite slots cannot reach the output.  Five bodies,
+// chosen by type, width, page size and table window in `decode_body` /
+// `paged_decode_int8` below (never a retry after a failure):
 //
 // * bf16 q and pages, hd 64 / 128, G <= 16, pages of 16 / 32 / 64
 //   tokens and a table window of 512 to 4096 tokens -- the Hopper body
@@ -51,6 +51,22 @@
 //   at once when the row has one live split; otherwise it shares the
 //   merge.  Four blocks an SM at hd 64 (96 registers, three stages),
 //   two at hd 128.
+// * bf16 q over int8 pages under the same gate -- the same Hopper body
+//   (`paged_decode_wg<HD, true>`): the same plan, producer, ring, warps
+//   and merges over int8 tiles of half the bytes.  The producer's boxes
+//   are [16 rows][64 bytes] in 64-byte swizzle from a uint8 map; its
+//   lanes also copy the tile's 128 bf16 scales (a scale lies at a stride
+//   of Hkv * 2 bytes, out of reach of TMA's 16-byte strides), 4 a lane
+//   from the table entries they hold, each as the 4-byte word that holds
+//   it by `cp.async`, whose completion arrives on the stage's `full`
+//   barrier (33 arrivals: the TMA bytes' and the 32 lanes'), so the
+//   producer never waits on a scale; a scale at or past the row's end is
+//   zero-filled and never loaded.  The consumers widen their K and V
+//   bytes to bf16 in registers, exactly, from permuted conflict-free
+//   shared loads (see `decode_wg::v_key`), K to f16 instead when every
+//   query value is exact in f16 (a third of the integer work: 7 % off
+//   the 64-slot call), and put the scales into the products as the int8
+//   body below does.  Three stages, as kernel 1.
 // * bf16 q and pages, hd 16 / 32 / 64 / 128 and G <= 16 otherwise -- the
 //   bandwidth body (`paged_decode_tc`, on the block layout of
 //   gqa_tc.cuh, which the bf16 chunk prefill shares): 4 warps; tiles of
@@ -69,7 +85,7 @@
 //   of shared memory at hd 64 (Q shares the third stage until the walk
 //   starts), so four blocks an SM hold the 512 blocks of a 64-row batch
 //   at llama3.2-1b width in one wave.
-// * bf16 q over int8 pages at the same widths -- the int8 body
+// * bf16 q over int8 pages at the same widths otherwise -- the int8 body
 //   (`paged_decode_int8_tc`), on the same block layout, warps and tile
 //   code.  Its pages hold one byte an element, half of bf16's (the
 //   reason the TPU kernel exists), plus one bf16 scale per (token, KV
@@ -104,6 +120,10 @@
 // Layouts: q [B,Hq,hd]; k/v pages [N,page,Hkv,hd]; int8 scales
 // [N,page,Hkv,1] bf16; block tables [B,P] int32; lengths [B] int32;
 // out [B,Hq,hd] in q's type; lse [B,Hq] float32 or null.
+#include <cuda_fp16.h>
+
+#include <type_traits>
+
 #include "gqa_tc.cuh"
 #include "hopper_common.cuh"
 #include "paged_common.cuh"
@@ -318,8 +338,44 @@ static int decode_tc(const void* q, const void* kp, const void* vp,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper body (bf16 q and pages at hd 64 / 128, G <= 16, pages of 16 / 32
-// / 64 tokens)
+// int8 to bf16, exactly: each byte, offset to unsigned u = x + 128, is the
+// low mantissa byte of the float 2^23 + u, and subtracting 2^23 + 128
+// leaves x, whose top 16 bits are its bf16 (|x| <= 128 needs at most 8
+// significant bits).  Shared by the int8 bodies.
+// ---------------------------------------------------------------------------
+namespace widen {
+// Byte `byte` of `w` (already offset by 128) as that float32.
+__device__ __forceinline__ uint32_t one(uint32_t w, int byte) {
+  return __float_as_uint(
+      __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7650 + byte)) -
+      8388736.f);
+}
+// Two such floats as one register of two bf16 (lo in the low half).
+__device__ __forceinline__ uint32_t pair(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x7632);
+}
+// Four int8 values (one word, lowest byte first) as four bf16.
+__device__ __forceinline__ uint2 four(uint32_t w) {
+  w ^= 0x80808080u;
+  return make_uint2(pair(one(w, 0), one(w, 1)), pair(one(w, 2), one(w, 3)));
+}
+// ... as four f16, two a register: 1024 + u is the f16 0x6400 | u, and
+// subtracting 1152 in f16 leaves x -- a third of four()'s integer work.
+__device__ __forceinline__ uint2 four_f16(uint32_t w) {
+  w ^= 0x80808080u;
+  const uint32_t a = __byte_perm(w, 0x64646464u, 0x5140);
+  const uint32_t b = __byte_perm(w, 0x64646464u, 0x7362);
+  const __half2 off = __float2half2_rn(1152.f);
+  const __half2 lo = __hsub2(*reinterpret_cast<const __half2*>(&a), off);
+  const __half2 hi = __hsub2(*reinterpret_cast<const __half2*>(&b), off);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+}  // namespace widen
+
+// ---------------------------------------------------------------------------
+// Hopper body (bf16 q; bf16 or int8 pages at hd 64 / 128, G <= 16, pages
+// of 16 / 32 / 64 tokens)
 // ---------------------------------------------------------------------------
 namespace decode_wg {
 constexpr int KT = 64;          // keys a tile, 16 a consumer warp
@@ -330,31 +386,35 @@ constexpr int CHUNK = 16;       // keys a TMA box: the rows past the end
                                 // of a row's last page stay unread
 
 // Byte offsets in the block's shared memory (from a 1024-byte boundary):
-// the K ring [stages][HD/64][KT][64] bf16, the V ring the same, then the
-// barriers (full, then empty, a stage).  Once the walk is over the space
-// holds each warp's state -- o [4][RM][HD], m [4][RM], l [4][RM] float32
-// -- and the block's partial merged from them, o [RM][HD] and (m, l)
-// [RM] float2, which the cluster's merge reads.
-template <int HD>
+// the K ring [stages][HD/64][KT][64] elements (bf16 or int8), the V ring
+// the same, with int8 pages each stage's K and V scales [2][KT] (the
+// words that hold them), then the barriers (full, then empty, a stage).
+// Once the walk is over the space holds each warp's state -- o
+// [4][RM][HD + 8] (the padding puts a warp's 64-bit stores of a row
+// pair in distinct banks), m [4][RM], l [4][RM] float32 -- and the
+// block's partial merged from them, o [RM][HD] and (m, l) [RM] float2,
+// which the cluster's merge reads.
+template <int HD, bool INT8>
 struct Smem {
-  // stages of the ring (a split of fewer tiles takes fewer): at hd 64
-  // three keep four blocks an SM (shared memory and MIN_BLOCKS)
-  static constexpr int MAX_STAGES = 3;
+  // stages of the ring (a split of fewer tiles takes fewer): bf16 at hd
+  // 64, three keep four blocks an SM (shared memory and MIN_BLOCKS); an
+  // int8 tile is half as large, and four or six stages fit the same
+  // blocks but read no faster (three beat them on full 512-token rows)
+  static constexpr int STAGES = 3;
   static constexpr int MIN_BLOCKS = HD == 64 ? 4 : 2;
-  static constexpr size_t tile = (size_t)KT * HD * 2;  // K or V of a tile
-  static constexpr size_t wm = (size_t)4 * RM * HD * 4;
+  static constexpr size_t tile = (size_t)KT * HD * (INT8 ? 1 : 2);
+  static constexpr size_t scales = INT8 ? 2 * KT * 4 : 0;
+  static constexpr int WO_STRIDE = HD + 8;  // a warp state's row
+  static constexpr size_t wm = (size_t)4 * RM * WO_STRIDE * 4;
   static constexpr size_t wl = wm + 4 * RM * 4;
   static constexpr size_t bo = wl + 4 * RM * 4;
   static constexpr size_t bml = bo + (size_t)RM * HD * 4;
   static constexpr size_t merge = bml + RM * 8;
-  __host__ __device__ static int stages(int tps) {
-    return tps < MAX_STAGES ? tps : MAX_STAGES;
-  }
-  __host__ __device__ static size_t bars(int tps) {
-    const size_t ring = 2 * stages(tps) * tile;
+  __host__ __device__ static size_t bars(int stages) {
+    const size_t ring = stages * (2 * tile + scales);
     return ring > merge ? ring : merge;
   }
-  static size_t bytes(int tps) { return bars(tps) + 16 * stages(tps) + 1024; }
+  static size_t bytes(int stages) { return bars(stages) + 16 * stages + 1024; }
 };
 
 inline bool page_ok(int page) {
@@ -414,31 +474,173 @@ __device__ __forceinline__ void values(const uint32_t (&pa)[4],
     mma::mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
   }
 }
+
+// ---- int8 pages --------------------------------------------------------
+// An int8 tile holds HD / 64 regions of [KT][64 bytes] in 64-byte swizzle
+// (hopper_common.cuh `make_map_i8`).  No int8 operand exists for a bf16
+// product, and `ldmatrix` has no 8-bit transpose on sm_90, so each thread
+// reads the bytes its fragments need with plain shared loads and widens
+// them in registers, exactly (`widen`); both sums of the walk are free to
+// run in any order, so the layouts are permuted to make those loads wide
+// and free of bank conflicts:
+//
+// * Q K^T sums over hd: thread (g, t) of step kk (hd 16 kk ..) reads the
+//   16-byte chunk t of its key row (one load gives steps 4j .. 4j + 3 of
+//   region j); byte 4i .. 4i+3 of it are B rows 2t, 2t+1, 2t+8, 2t+9 of
+//   step 4j + i, so Q's A fragments are loaded from the same permuted
+//   columns (`q_col`).
+// * P V sums over keys: thread (g, t) reads keys `v_key(t, i)`, i = 0..3,
+//   as B rows 2t, 2t+1, 2t+8, 2t+9, 8 bytes each at columns 8g .. 8g+7
+//   of region j, and each byte column is one n8 block's B column g
+//   (`o_col` maps the blocks back to hd).  The score tile's column c of
+//   n8 block n must then hold key v_key(c / 2, 2n + c % 2) (`k_key`).
+// Chunk (row r, c) lies at c ^ (r / 2 % 4): with these key maps each
+// 8-lane phase of a 16-byte K load covers two whole rows of opposite
+// parity, and each 16-lane phase of an 8-byte V load eight distinct
+// 8-byte bank groups.
+__device__ __forceinline__ int v_key(int t, int i) {
+  return ((i ^ t) & 1) + 2 * (t & 1) + 4 * (t >> 1) + 8 * (i >> 1);
+}
+__device__ __forceinline__ int k_key(int n, int c) {
+  return v_key(c >> 1, 2 * n + (c & 1));
+}
+__device__ __forceinline__ int q_col(int kk, int t, int x) {
+  return 64 * (kk >> 2) + 16 * t + 4 * (kk & 3) + 2 * (x >> 1);
+}
+__device__ __forceinline__ int o_col(int n, int c) {
+  return 64 * (n >> 3) + 8 * c + (n & 7);
+}
+// The fragment position 8 n + c of hd column d = o_col(n, c).
+__device__ __forceinline__ int o_pos(int d) {
+  return (d & ~63) + 8 * (d & 7) + ((d >> 3) & 7);
+}
+// Both bf16 of `x` are exact in f16: 0, or normal in f16 (2^-14 <= |v|
+// <= 65280, the largest bf16 below f16's 65504).
+__device__ __forceinline__ bool f16_exact(uint32_t x) {
+  const uint32_t a = x & 0x7fffu, b = (x >> 16) & 0x7fffu;
+  return (a == 0 || (a >= 0x3880u && a <= 0x477fu)) &&
+         (b == 0 || (b >= 0x3880u && b <= 0x477fu));
+}
+// Two bf16 as two f16 (exact where f16_exact).
+__device__ __forceinline__ uint32_t to_f16(uint32_t x) {
+  const __half2 h = __floats2half2_rn(__uint_as_float(x << 16),
+                                      __uint_as_float(x & 0xffff0000u));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Byte offset of (row, byte b) in an int8 region of [KT][64 bytes].
+__device__ __forceinline__ int swz8(int row, int b) {
+  return row * 64 + ((((b >> 4) ^ (row >> 1)) & 3) << 4) + (b & 15);
+}
+
+// The float32 scales of an even key and the next from the staged words
+// that hold them: a key's scale lies in the high half of its word when
+// its element index (slot * Hkv + h, slot of the key's parity: pages are
+// even) is odd.
+__device__ __forceinline__ float2 scale_pair(uint2 w, int h, int Hkv) {
+  const int odd0 = h & 1, odd1 = (h + (Hkv & 1)) & 1;
+  return make_float2(
+      __uint_as_float(odd0 ? w.x & 0xffff0000u : w.x << 16),
+      __uint_as_float(odd1 ? w.y & 0xffff0000u : w.y << 16));
+}
+
+// Scores of this warp's keys of the int8 key tile `kt` (unscaled): s[n]
+// column c holds key k0 + k_key(n, c).  F16: Q's fragments and K widened
+// as f16 (`widen::four_f16`), else as bf16.
+template <int HD, bool F16>
+__device__ __forceinline__ void scores_i8(const uint32_t (&qa)[HD / 16][4],
+                                          const unsigned char* kt, int k0,
+                                          int lane, float (&s)[2][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < HD / 64; ++j) {
+    uint4 w[2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      w[n] = *reinterpret_cast<const uint4*>(
+          kt + j * KT * 64 + swz8(k0 + k_key(n, g), 16 * t));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint32_t x = i == 0   ? w[n].x
+                           : i == 1 ? w[n].y
+                           : i == 2 ? w[n].z
+                                    : w[n].w;
+        if constexpr (F16) {
+          const uint2 b = widen::four_f16(x);
+          mma::mma_f16(s[n], qa[4 * j + i], b.x, b.y);
+        } else {
+          const uint2 b = widen::four(x);
+          mma::mma_bf16(s[n], qa[4 * j + i], b.x, b.y);
+        }
+      }
+  }
+}
+
+// o += P V over this warp's keys of the int8 value tile `vt` (P's key
+// order is the scores'): o[n] column c holds hd column o_col(n, c).
+template <int HD>
+__device__ __forceinline__ void values_i8(const uint32_t (&pa)[4],
+                                          const unsigned char* vt, int k0,
+                                          int lane, float (&o)[HD / 8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HD / 64; ++j) {
+    uint32_t w[2][4];  // [low / high 4 bytes][key i]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint2 x = *reinterpret_cast<const uint2*>(
+          vt + j * KT * 64 + swz8(k0 + v_key(t, i), 8 * g));
+      w[0][i] = x.x ^ 0x80808080u;
+      w[1][i] = x.y ^ 0x80808080u;
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint32_t(&h)[4] = w[c >> 2];
+      mma::mma_bf16(
+          o[8 * j + c], pa,
+          widen::pair(widen::one(h[0], c & 3), widen::one(h[1], c & 3)),
+          widen::pair(widen::one(h[2], c & 3), widen::one(h[3], c & 3)));
+    }
+  }
+}
 }  // namespace decode_wg
 
 // Block (split sp, KV head h, row b), 160 threads: warps 0-3 the
 // consumers (16 keys of every 64-key tile each), warp 4 the producer.  A
 // row's splits are one cluster (splits, 1, 1); block sp is its rank sp.
-template <int HD>
+// INT8: int8 pages with bf16 scales [N, page, Hkv, 1] (`k_scales`,
+// `v_scales`, else null).  `stages` of the ring: min(tiles, STAGES).
+template <int HD, bool INT8>
 __global__ void __launch_bounds__(decode_wg::NT,
-                                  decode_wg::Smem<HD>::MIN_BLOCKS)
+                                  decode_wg::Smem<HD, INT8>::MIN_BLOCKS)
     paged_decode_wg(const __grid_constant__ CUtensorMap tkp,
                     const __grid_constant__ CUtensorMap tvp,
                     const __nv_bfloat16* __restrict__ q,
+                    const unsigned short* __restrict__ k_scales,
+                    const unsigned short* __restrict__ v_scales,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                     int Hq, int Hkv, int N, int page, int P, int tps,
-                    float scale_log2) {
+                    int stages, float scale_log2) {
   using namespace decode_wg;
-  using L = Smem<HD>;
+  using L = Smem<HD, INT8>;
   using bf16 = __nv_bfloat16;
+  using T = typename std::conditional<INT8, unsigned char, bf16>::type;
   extern __shared__ unsigned char decode_wg_smem[];
   unsigned char* base = hop::align1024(decode_wg_smem);
-  const int stages = L::stages(tps);
-  bf16* sk = reinterpret_cast<bf16*>(base);
-  bf16* sv = reinterpret_cast<bf16*>(base + stages * L::tile);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::bars(tps));
+  T* sk = reinterpret_cast<T*>(base);
+  T* sv = reinterpret_cast<T*>(base + stages * L::tile);
+  // int8: stage s's K scales [KT] then its V scales [KT], each the
+  // 4-byte word of the scale tensor that holds the key's bf16 scale
+  uint32_t* ssc = reinterpret_cast<uint32_t*>(base + 2 * stages * L::tile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::bars(stages));
   uint64_t* empty = full + stages;
   float* wo = reinterpret_cast<float*>(base);  // after the walk
   float* wm = reinterpret_cast<float*>(base + L::wm);
@@ -467,7 +669,9 @@ __global__ void __launch_bounds__(decode_wg::NT,
   const size_t q0 = ((size_t)b * Hq + (size_t)h * G) * HD;
   if (tid == 128) {
     for (int s = 0; s < stages; ++s) {
-      hop::mbar_init(full + s, 1);
+      // int8: the TMA bytes' arrival, then the producer's 32 lanes'
+      // once their scale copies have landed
+      hop::mbar_init(full + s, INT8 ? 33 : 1);
       hop::mbar_init(empty + s, 4);  // lane 0 of each consumer warp
     }
     hop::fence_barrier_init();
@@ -479,9 +683,13 @@ __global__ void __launch_bounds__(decode_wg::NT,
     // first read before the row's length is known), then each 16-key
     // chunk of a tile that starts below the row's end as one TMA box a
     // 64-column region ([16 rows][64 columns] of head h, chunk c of a
-    // tile at row 16 c; lane c issues it with its page's entry), a stage
-    // a tile, reusing a stage once its four consumer warps have released
-    // it
+    // tile at row 16 c; lane c issues it with its page's entry), a
+    // stage a tile, reusing a stage once its four consumer warps have
+    // released it.  int8: lane l also copies the K and V scales of the
+    // tile's keys 2l and 2l + 1 into the stage by 4-byte `cp.async`
+    // (zeros at or past the row's end, never loaded: a stale scale may be
+    // inf or NaN), whose completion arrives on the stage's `full` barrier,
+    // so the producer never waits on them.
     if (nt > 0) {
       if (lane == 0) {
         hop::prefetch_map(&tkp);
@@ -498,7 +706,8 @@ __global__ void __launch_bounds__(decode_wg::NT,
         // chunks below the end, >= 1 (their pages are < P)
         const int nc = min(KT / CHUNK, (end - p0 * page + CHUNK - 1) / CHUNK);
         if (lane == 0)
-          hop::mbar_expect_tx(full + s, (uint32_t)nc * CHUNK * HD * 2 * 2);
+          hop::mbar_expect_tx(full + s,
+                              (uint32_t)(nc * CHUNK * HD * sizeof(T) * 2));
         const int pc = __shfl_sync(0xffffffffu, pid,
                                    p0 - first + lane * CHUNK / page);
         if (lane < nc) {
@@ -512,22 +721,61 @@ __global__ void __launch_bounds__(decode_wg::NT,
                           full + s, c * 64, h, r % page, pg);
           }
         }
+        if constexpr (INT8) {
+          // keys 2 lane + k's scales, each as the 4-byte aligned word
+          // that holds it (a tensor of N * page * Hkv bf16, page even,
+          // holds that word); zero-filled at or past the row's end
+          const int pk = __shfl_sync(0xffffffffu, pid,
+                                     p0 - first + 2 * lane / page);
+          uint32_t* sw = ssc + s * 2 * KT + 2 * lane;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int pos = (t0 + t) * KT + 2 * lane + k;
+            size_t at = 0;
+            if (pos < end)
+              at = (((size_t)min(max(pk, 0), N - 1) * page + pos % page) *
+                        Hkv + h) & ~(size_t)1;
+            mma::cp_async4(sw + k, k_scales + at, pos < end);
+            mma::cp_async4(sw + KT + k, v_scales + at, pos < end);
+          }
+          hop::cp_async_arrive_noinc(full + s);
+        }
       }
     }
   } else {
     // the consumers: Q as A fragments straight from global memory (rows
-    // g, g + 8 of the G heads, zero past them), then the split's tiles
+    // g, g + 8 of the G heads, zero past them; int8: at the columns
+    // `q_col` permutes), then the split's tiles
     const int g = lane >> 2, tq = lane & 3, k0 = warp * 16;
     uint32_t qa[HD / 16][4];
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        const int r = g + 8 * (x & 1), col = kk * 16 + 2 * tq + 8 * (x >> 1);
+        const int r = g + 8 * (x & 1);
+        const int col = INT8 ? q_col(kk, tq, x)
+                             : kk * 16 + 2 * tq + 8 * (x >> 1);
         qa[kk][x] = r < G ? *reinterpret_cast<const uint32_t*>(
                                 q + q0 + (size_t)r * HD + col)
                           : 0u;
       }
+    // int8: the scores in f16 when every query value is exact in f16
+    // (products and sums are those of bf16), so that K widens with a third
+    // of the integer work; the warps' votes agree (each holds all of Q)
+    bool f16 = false;
+    if constexpr (INT8) {
+      bool exact = true;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) exact = exact && f16_exact(qa[kk][x]);
+      f16 = __all_sync(0xffffffffu, exact);
+      if (f16)
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) qa[kk][x] = to_f16(qa[kk][x]);
+    }
     float o[HD / 8][4], m[2], l[2];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
@@ -537,52 +785,99 @@ __global__ void __launch_bounds__(decode_wg::NT,
     l[0] = l[1] = 0.f;
     for (int t = 0; t < nt; ++t) {
       const int s = t % stages;
-      const bf16* kt = sk + s * KT * HD;
-      bf16* vt = sv + s * KT * HD;
+      const T* kt = sk + s * KT * HD;
+      T* vt = sv + s * KT * HD;
       const int key0 = (t0 + t) * KT + k0;  // this warp's first key
       hop::mbar_wait(full + s, (t / stages) & 1);
       // this warp's keys < valid are read; the rest of its 16 landed
-      // with their chunk (or hold an earlier tile): their V rows are
-      // zeroed before P V and their scores replaced, so a stale or
-      // non-finite slot never reaches a product.  A warp with no key
-      // left leaves its state as it is (what the update would do).
+      // with their chunk (or hold an earlier tile): their scores are
+      // replaced and, bf16, their V rows zeroed before P V, so a stale or
+      // non-finite slot never reaches a product (int8: every value is
+      // finite and its P and scale are 0).  A warp with no key left
+      // leaves its state as it is (what the update would do).
       const int valid = end - key0;
       if (valid > 0) {
-        if (valid < 16) {
-          for (int c = lane; c < 16 * (HD / 8); c += 32) {
-            const int i = c / (HD / 8);
-            if (i >= valid)
-              *reinterpret_cast<uint4*>(
-                  vt + decode_wg::swz(k0 + i, (c - i * (HD / 8)) * 8)) =
-                  make_uint4(0u, 0u, 0u, 0u);
-          }
-          hop::fence_proxy_async();  // before TMA refills the stage
-          __syncwarp();
-        }
         float sc[2][4];
-        decode_wg::scores<HD>(qa, kt, k0, lane, sc);
+        if constexpr (INT8) {
+          // the K scale multiplies the score before masking, the V scale
+          // P after the online-softmax update (l keeps the unscaled sum)
+          // and before P is rounded to bf16; s[n] column 2 tq + e holds
+          // key kb + (e ^ tq % 2), kb = k_key(n, 2 tq) - tq % 2 (even)
+          const uint32_t* ws = ssc + s * 2 * KT + k0;
+          float2 kv[2], vv[2];
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+          for (int n = 0; n < 2; ++n) {
+            const int kb = k_key(n, 2 * tq) - (tq & 1);
+            kv[n] = scale_pair(*reinterpret_cast<const uint2*>(ws + kb), h,
+                               Hkv);
+            vv[n] = scale_pair(
+                *reinterpret_cast<const uint2*>(ws + KT + kb), h, Hkv);
+          }
+          if (f16)
+            decode_wg::scores_i8<HD, true>(qa, kt, k0, lane, sc);
+          else
+            decode_wg::scores_i8<HD, false>(qa, kt, k0, lane, sc);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sc[n][e] = n * 8 + 2 * tq + (e & 1) < valid
-                           ? sc[n][e] * scale_log2
-                           : mma::neg_inf();
-        float alpha[2];
-        mma::softmax_update<2>(sc, m, l, alpha);
+          for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n)
+            for (int e = 0; e < 4; ++e) {
+              const bool hi = ((e & 1) ^ (tq & 1)) != 0;
+              sc[n][e] = k_key(n, 2 * tq + (e & 1)) < valid
+                             ? sc[n][e] * (hi ? kv[n].y : kv[n].x) *
+                                   scale_log2
+                             : mma::neg_inf();
+            }
+          float alpha[2];
+          mma::softmax_update<2>(sc, m, l, alpha);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-        uint32_t pa[4];
-        mma::probs_to_a<2>(sc, 0, pa);
-        decode_wg::values<HD>(pa, vt, k0, lane, o);
+          for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[n][e] *= ((e & 1) ^ (tq & 1)) ? vv[n].y : vv[n].x;
+          uint32_t pa[4];
+          mma::probs_to_a<2>(sc, 0, pa);
+          decode_wg::values_i8<HD>(pa, vt, k0, lane, o);
+        } else {
+          if (valid < 16) {
+            for (int c = lane; c < 16 * (HD / 8); c += 32) {
+              const int i = c / (HD / 8);
+              if (i >= valid)
+                *reinterpret_cast<uint4*>(
+                    vt + decode_wg::swz(k0 + i, (c - i * (HD / 8)) * 8)) =
+                    make_uint4(0u, 0u, 0u, 0u);
+            }
+            hop::fence_proxy_async();  // before TMA refills the stage
+            __syncwarp();
+          }
+          decode_wg::scores<HD>(qa, kt, k0, lane, sc);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[n][e] = n * 8 + 2 * tq + (e & 1) < valid
+                             ? sc[n][e] * scale_log2
+                             : mma::neg_inf();
+          float alpha[2];
+          mma::softmax_update<2>(sc, m, l, alpha);
+#pragma unroll
+          for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+          uint32_t pa[4];
+          mma::probs_to_a<2>(sc, 0, pa);
+          decode_wg::values<HD>(pa, vt, k0, lane, o);
+        }
       }
       __syncwarp();
       if (lane == 0) hop::mbar_arrive(empty + s);
     }
     // each warp's state into the space of the ring, once every consumer
-    // is done with it
+    // is done with it, in fragment order (int8: column 8 n + c holds hd
+    // column o_col(n, c))
     hop::named_sync(1, 128);
     const float ls[2] = {mma::quad_sum(l[0]), mma::quad_sum(l[1])};
 #pragma unroll
@@ -592,7 +887,7 @@ __global__ void __launch_bounds__(decode_wg::NT,
         wm[warp * RM + r] = m[u];
         wl[warp * RM + r] = ls[u];
       }
-      float* orow = wo + (warp * RM + r) * HD + 2 * tq;
+      float* orow = wo + (warp * RM + r) * L::WO_STRIDE + 2 * tq;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<float2*>(orow + n * 8) =
@@ -607,7 +902,7 @@ __global__ void __launch_bounds__(decode_wg::NT,
   // row with no valid key), and the log-sum-exp (max m + log2 den) ln 2
   // (-1e30 for such a row); otherwise the block's partial.
   for (int i = tid; i < G * HD; i += NT) {
-    const int r = i / HD, d = i - r * HD;
+    const int r = i / HD, d = i - r * HD, dp = INT8 ? o_pos(d) : d;
     float mx = wm[r];
 #pragma unroll
     for (int w = 1; w < 4; ++w) mx = fmaxf(mx, wm[w * RM + r]);
@@ -617,7 +912,7 @@ __global__ void __launch_bounds__(decode_wg::NT,
     for (int w = 0; w < 4; ++w) {
       const float wt = exp2f(wm[w * RM + r] - mbase);
       den += wt * wl[w * RM + r];
-      acc += wt * wo[(w * RM + r) * HD + d];
+      acc += wt * wo[(w * RM + r) * L::WO_STRIDE + dp];
     }
     if (n_live == 1) {
       out[q0 + (size_t)r * HD + d] = __float2bfloat16(acc / fmaxf(den, 1e-30f));
@@ -676,21 +971,27 @@ __global__ void __launch_bounds__(decode_wg::NT,
   hop::cluster_sync();
 }
 
-template <int HD>
+// Launch the Hopper body over a plan of `splits` splits of `tps` tiles;
+// int8 with `k_scales` / `v_scales`, else those are null.
+template <int HD, bool INT8>
 static int launch_wg(const void* q, const void* kp, const void* vp,
-                     const void* tables, const void* lengths, void* out,
-                     float* lse, int B, int Hq, int Hkv, int N, int page,
-                     int P, int tps, int splits, float scale,
-                     cudaStream_t stream) {
+                     const void* ks, const void* vs, const void* tables,
+                     const void* lengths, void* out, float* lse, int B,
+                     int Hq, int Hkv, int N, int page, int P, int tps,
+                     int splits, float scale, cudaStream_t stream) {
   using namespace decode_wg;
   CUtensorMap tkp, tvp;
-  int rc = make_map(&tkp, kp, N, page, Hkv, HD, CHUNK);
-  if (rc == 0) rc = make_map(&tvp, vp, N, page, Hkv, HD, CHUNK);
+  const auto map = INT8 ? make_map_i8 : make_map;
+  int rc = map(&tkp, kp, N, page, Hkv, HD, CHUNK);
+  if (rc == 0) rc = map(&tvp, vp, N, page, Hkv, HD, CHUNK);
   if (rc != 0) return rc;
-  if (((uintptr_t)q | (uintptr_t)out) & 7)
+  // the scales are copied a 4-byte word at a time
+  if (((uintptr_t)q | (uintptr_t)out) & 7 ||
+      ((uintptr_t)ks | (uintptr_t)vs) & 3)
     return (int)cudaErrorMisalignedAddress;
-  const size_t smem = Smem<HD>::bytes(tps);
-  auto kernel = paged_decode_wg<HD>;
+  const int stages = min(Smem<HD, INT8>::STAGES, tps);
+  const size_t smem = Smem<HD, INT8>::bytes(stages);
+  auto kernel = paged_decode_wg<HD, INT8>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -706,12 +1007,21 @@ static int launch_wg(const void* q, const void* kp, const void* vp,
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;  // one split: no cluster, no merge
   using bf16 = __nv_bfloat16;
+  using u16 = unsigned short;
   err = cudaLaunchKernelEx(&cfg, kernel, tkp, tvp, (const bf16*)q,
+                           (const u16*)ks, (const u16*)vs,
                            (const int*)tables, (const int*)lengths,
-                           (bf16*)out, lse, Hq, Hkv, N, page, P, tps,
+                           (bf16*)out, lse, Hq, Hkv, N, page, P, tps, stages,
                            scale * 1.4426950408889634f);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The Hopper plan check shared by both C entries: the plan must cover
+// the window in at most a portable cluster.
+static bool plan_ok(int tps, int splits, int page, int P) {
+  return tps >= 1 && splits >= 1 && splits <= decode_wg::MAX_SPLITS &&
+         (long long)splits * tps * decode_wg::KT >= (long long)P * page;
 }
 
 // The body `paged_decode` runs: 2, the Hopper body (`paged_decode_wg`:
@@ -735,22 +1045,6 @@ static int decode_body(int Hq, int Hkv, int hd, int page, int P,
 namespace int8_tc {
 using bf16 = __nv_bfloat16;
 
-// Four int8 values (one word, lowest byte first) as four bf16, exactly:
-// each byte, offset to unsigned u = x + 128, is the low mantissa byte of
-// the float 2^23 + u, and subtracting 2^23 + 128 leaves x, whose top 16
-// bits are its bf16 (|x| <= 128 needs at most 8 significant bits).
-__device__ __forceinline__ uint2 widen4(uint32_t w) {
-  w ^= 0x80808080u;
-  uint32_t f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __float_as_uint(
-        __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7650 + i)) -
-        8388736.f);
-  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
-                    __byte_perm(f[2], f[3], 0x7632));
-}
-
 // Widen keys k0 .. k0+15 of the staged int8 K and V tiles (rows of HD
 // bytes) into the warp's bf16 buffer: K in rows 0-15, V in rows 16-31,
 // rows of HD + 8 (the `ldmatrix` stride of gqa_tc.cuh).
@@ -764,8 +1058,8 @@ __device__ __forceinline__ void widen_rows(const int8_t* kt, const int8_t* vt,
     const int8_t* src =
         (r < 16 ? kt + (k0 + r) * HD : vt + (k0 + r - 16) * HD) + cc * 16;
     const uint4 w = *reinterpret_cast<const uint4*>(src);
-    const uint2 a = widen4(w.x), b = widen4(w.y), c2 = widen4(w.z),
-                d = widen4(w.w);
+    const uint2 a = widen::four(w.x), b = widen::four(w.y),
+                c2 = widen::four(w.z), d = widen::four(w.w);
     uint4* dst = reinterpret_cast<uint4*>(buf + r * (HD + 8) + cc * 16);
     dst[0] = make_uint4(a.x, a.y, b.x, b.y);
     dst[1] = make_uint4(c2.x, c2.y, d.x, d.y);
@@ -999,15 +1293,14 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
   if (q_dtype == 1 && kv_dtype == 1) {
     const int body = decode_body(Hq, Hkv, hd, page, P, q_dtype, kv_dtype);
     if (body == 2) {
-      // the plan must cover the window in at most a portable cluster
-      if (tps < 1 || splits < 1 || splits > decode_wg::MAX_SPLITS ||
-          (long long)splits * tps * decode_wg::KT < (long long)P * page)
-        return (int)cudaErrorInvalidValue;
+      if (!plan_ok(tps, splits, page, P)) return (int)cudaErrorInvalidValue;
       if (hd == 64)
-        return launch_wg<64>(q, k_pages, v_pages, tables, lengths, out, lse,
-                             B, Hq, Hkv, N, page, P, tps, splits, scale, st);
-      return launch_wg<128>(q, k_pages, v_pages, tables, lengths, out, lse,
-                            B, Hq, Hkv, N, page, P, tps, splits, scale, st);
+        return launch_wg<64, false>(q, k_pages, v_pages, nullptr, nullptr,
+                                    tables, lengths, out, lse, B, Hq, Hkv, N,
+                                    page, P, tps, splits, scale, st);
+      return launch_wg<128, false>(q, k_pages, v_pages, nullptr, nullptr,
+                                   tables, lengths, out, lse, B, Hq, Hkv, N,
+                                   page, P, tps, splits, scale, st);
     }
     if (body == 1)
       return decode_tc(q, k_pages, v_pages, tables, lengths, out, lse, B, Hq,
@@ -1027,18 +1320,32 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
   return (int)cudaErrorInvalidValue;
 }
 
-// int8 pages, bf16 scales; q_dtype and `lse_out` as above.
+// int8 pages, bf16 scales; q_dtype and `lse_out` as above; tps / splits
+// the Hopper body's plan as for paged_decode.
 extern "C" int paged_decode_int8(const void* q, const void* k_pages,
                                  const void* v_pages, const void* k_scales,
                                  const void* v_scales, const void* tables,
                                  const void* lengths, void* out,
                                  void* lse_out, int B, int Hq, int Hkv,
-                                 int hd, int N, int page, int P, float scale,
-                                 int q_dtype, void* stream) {
+                                 int hd, int N, int page, int P, int tps,
+                                 int splits, float scale, int q_dtype,
+                                 void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   float* lse = (float*)lse_out;
-  if (q_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd))
+  // the bf16 decode's gate, with a bf16 query
+  const int body = decode_body(Hq, Hkv, hd, page, P, q_dtype, 1);
+  if (body == 2) {
+    if (!plan_ok(tps, splits, page, P)) return (int)cudaErrorInvalidValue;
+    if (hd == 64)
+      return launch_wg<64, true>(q, k_pages, v_pages, k_scales, v_scales,
+                                 tables, lengths, out, lse, B, Hq, Hkv, N,
+                                 page, P, tps, splits, scale, st);
+    return launch_wg<128, true>(q, k_pages, v_pages, k_scales, v_scales,
+                                tables, lengths, out, lse, B, Hq, Hkv, N,
+                                page, P, tps, splits, scale, st);
+  }
+  if (body == 1)
     return decode_int8_tc(q, k_pages, v_pages, k_scales, v_scales, tables,
                           lengths, out, lse, B, Hq, Hkv, hd, N, page, P,
                           scale, st);
@@ -1067,8 +1374,17 @@ extern "C" int paged_decode_tensor_core(int Hq, int Hkv, int hd, int q_dtype,
   return q_dtype == 1 && kv_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd);
 }
 
-// 1 when paged_decode_int8 runs the int8 body (bf16 mma.sync over tiles
-// widened from int8) for this query type and these widths.
+// The body paged_decode_int8 runs: 2 the Hopper body
+// (`paged_decode_wg<HD, true>`), 1 the int8 body (`paged_decode_int8_tc`),
+// 0 the CUDA cores.
+extern "C" int paged_decode_int8_body(int Hq, int Hkv, int hd, int page,
+                                      int P, int q_dtype) {
+  return decode_body(Hq, Hkv, hd, page, P, q_dtype, 1);
+}
+
+// 1 when paged_decode_int8 runs a tensor-core body (the Hopper body or
+// the int8 body, bf16 mma.sync over tiles widened from int8) for this
+// query type and these widths.
 extern "C" int paged_decode_int8_tensor_core(int Hq, int Hkv, int hd,
                                              int q_dtype) {
   return q_dtype == 1 && gqa_tc::width_ok(Hq, Hkv, hd);

@@ -28,6 +28,12 @@ page)
 float32 q; bf16 otherwise              ``cuda_core``
 =====================================  ==============================
 
+The int8 decode's bodies (``int8_body``): with a bf16 query under the
+same gate, ``hopper`` (``paged_decode_wg<HD, true>``: the same block
+over int8 tiles, its producer staging each tile's scales); with a bf16
+query otherwise ``tensor_core`` (``paged_decode_int8_tc``); with a
+float32 query ``cuda_core``.
+
 The Hopper body cuts each row's key walk into splits of whole 64-key
 tiles, planned on the host by ``decode_split_plan`` from the shapes
 alone (the host never reads ``lengths``).  The splits of a (row, KV
@@ -168,6 +174,17 @@ def body(hq: int, hkv: int, hd: int, page: int, p: int, q_dtype: int,
     return BODIES[fn(hq, hkv, hd, page, p, q_dtype, kv_dtype)]
 
 
+@functools.lru_cache(maxsize=None)
+def int8_body(hq: int, hkv: int, hd: int, page: int, p: int,
+              q_dtype: int) -> str:
+    """The body the int8 decode's C entry runs over tables of ``p``
+    pages: "hopper" (``paged_decode_wg<HD, true>``), "tensor_core"
+    (``paged_decode_int8_tc``) or "cuda_core"."""
+    fn = build.entry("paged_decode", "paged_decode_int8_body",
+                     [ctypes.c_int] * 6)
+    return BODIES[fn(hq, hkv, hd, page, p, q_dtype)]
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -238,8 +255,36 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 paged_decode_attention.launches = 0
 
 # q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out, lse (or
-# NULL); B, Hq, Hkv, hd, N, page, P; scale; q dtype code; stream
-DECODE_INT8_ARGS = [PTR] * 9 + [INT] * 7 + [FLT, INT, PTR]
+# NULL); B, Hq, Hkv, hd, N, page, P, tiles a split, splits; scale; q
+# dtype code; stream
+DECODE_INT8_ARGS = [PTR] * 9 + [INT] * 9 + [FLT, INT, PTR]
+
+
+def _launch_int8(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                 lengths, lse, plan: DecodePlan | None = None) -> torch.Tensor:
+    """Launch C entry ``paged_decode_int8``; ``plan`` replaces the Hopper
+    body's default split plan (a test of plans passes one)."""
+    b, hq, hd = q.shape
+    n, page, hkv, _ = k_pages.shape
+    p = block_tables.shape[1]
+    qd = DTYPE_CODES[q.dtype]
+    ints = (0, 0)
+    if int8_body(hq, hkv, hd, page, p, qd) == "hopper":
+        from repro_torch.kernels.flash_prefill import _tma_ready
+        plan = plan or decode_split_plan(b, hq, hkv, hd, page, p)
+        q, k_pages, v_pages, k_scales, v_scales = _tma_ready(
+            q, k_pages, v_pages, k_scales, v_scales)
+        ints = (plan.tiles, plan.splits)
+    out = torch.empty_like(q)
+    fn = build.entry("paged_decode", "paged_decode_int8", DECODE_INT8_ARGS)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b, hq, hkv, hd, n, page, p, *ints,
+            1.0 / math.sqrt(hd), qd, stream_ptr(q.device))
+    build.check(rc, "paged_decode", "paged_decode_int8")
+    return out
 
 
 def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
@@ -289,16 +334,9 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
             or lengths.shape != (b,)):
         raise ValueError(f"{name}: q [B,Hq,hd], pages [N,page,Hkv,hd], "
                          f"scales [N,page,Hkv,1], tables [B,P], lengths [B]")
-    out = torch.empty_like(q)
     lse = _lse_out(q, with_lse)
-    fn = build.entry("paged_decode", name, DECODE_INT8_ARGS)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scales.data_ptr(), v_scales.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            b, hq, hkv, hd, n, page, block_tables.shape[1],
-            1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], stream_ptr(q.device))
-    build.check(rc, "paged_decode", name)
+    out = _launch_int8(q, k_pages, v_pages, k_scales, v_scales,
+                       block_tables, lengths, lse)
     paged_decode_attention_int8.launches += 1
     return (out, lse) if with_lse else out
 

@@ -11,6 +11,10 @@ its own online softmax in log2 units and P rounded to bf16 for P V; the
 warps merged in warp order into the block's partial, the splits'
 partials merged in split order, and the log-sum-exp from the merge.
 
+Kernel 8 (int8 paged decode, ``paged_decode_wg<HD, true>``): kernel 1's
+walk over int8 pages, each key's K scale on its score and its V scale on
+P before the rounding.
+
 Kernel 4 (absorbed-MLA decode, ``mla_decode_wg``): the host's split of
 ``decode_split_tokens(window)`` tokens, each split walked over 64-token
 page tiles with an online softmax in log2 units and P rounded to bf16; a
@@ -142,12 +146,14 @@ def test_mla_plan_covers_every_key_once(window):
 # ---------------------------------------------------------------------------
 # kernel 1's walk
 # ---------------------------------------------------------------------------
-def _online(x, v, lo, hi, tile, p_bf16, own=None):
+def _online(x, v, lo, hi, tile, p_bf16, own=None, p_scale=None):
     """Online softmax over keys [lo, hi) of log2-unit scores ``x`` [...,
     T] (masked keys -inf) in tiles of ``tile`` keys, the keys of each
     tile restricted to ``own(k0)`` (a slice of the tile) when given: the
     (m, l, acc) of one warp or one block.  ``v(p, sel)``: p [..., n] times
-    the values of keys ``sel`` -> [..., dv]."""
+    the values of keys ``sel`` -> [..., dv].  ``p_scale(sel)`` multiplies
+    p after the update of l and before the rounding (the int8 values'
+    scales)."""
     m = torch.full(x.shape[:-1] + (1,), NEG)
     l = torch.zeros_like(m)
     acc = 0.0
@@ -161,6 +167,8 @@ def _online(x, v, lo, hi, tile, p_bf16, own=None):
         alpha = torch.exp2(m - base)
         p = torch.exp2(xs - base)
         l = l * alpha + p.sum(-1, keepdim=True)
+        if p_scale is not None:
+            p = p * p_scale(sel)
         acc = acc * alpha + v(p.bfloat16().float() if p_bf16 else p, sel)
         m = mx
     return m, l, acc
@@ -178,15 +186,29 @@ def _merge(parts):
     return mx, den, acc
 
 
-def _gqa_wg_walk(q, k_pages, v_pages, tables, lengths, plan, p_bf16=True):
+def _gqa_wg_walk(q, k_pages, v_pages, tables, lengths, plan, p_bf16=True,
+                 scales=None):
     """``ref.paged_decode_attention`` and ``ref.paged_decode_lse`` as the
-    Hopper body computes them under ``plan``: (out [B,Hq,hd], lse [B,Hq])."""
+    Hopper body computes them under ``plan``: (out [B,Hq,hd], lse [B,Hq]).
+    With ``scales`` (int8 pages' K and V scales [N,page,Hkv,1]) the int8
+    Hopper body's ``ref.paged_decode_attention_int8``: the int8 values
+    widened exactly, each key's K scale on its float32 score before the
+    mask, its V scale on P after the online-softmax update (l keeps the
+    unscaled sum, so the lse too) and before the rounding."""
     k = ref._gather(k_pages, tables).float()
     v = ref._gather(v_pages, tables).float()
     b, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, hd).float()
-    s = torch.einsum("bhgd,bthd->bhgt", qg, k) / math.sqrt(hd) * LOG2E
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k)
+    p_scale = None
+    if scales is not None:
+        # [B, Hkv, 1, T]: one scale a (key, KV head), broadcast over G
+        ks, vs = (ref._gather(x, tables).float()[..., 0].transpose(1, 2)
+                  [:, :, None] for x in scales)
+        s = s * ks
+        p_scale = lambda sel: vs[..., sel]  # noqa: E731
+    s = s / math.sqrt(hd) * LOG2E
     mask = ref._length_mask(lengths, t)[:, :, None, :]
     x = s.masked_fill(~mask, NEG)
 
@@ -197,7 +219,8 @@ def _gqa_wg_walk(q, k_pages, v_pages, tables, lengths, plan, p_bf16=True):
         lo, hi = plan.split_keys(split)
         warps = [_online(x, pv, lo, hi, pa.KEY_TILE, p_bf16,
                          own=lambda k0, w=w: slice(k0 + 16 * w,
-                                                   min(k0 + 16 * w + 16, hi)))
+                                                   min(k0 + 16 * w + 16, hi)),
+                         p_scale=p_scale)
                  for w in range(4)]
         blocks.append(_merge(warps))           # the block's partial
     mx, den, acc = _merge(blocks)              # the cluster's, split order
@@ -290,6 +313,117 @@ def test_gqa_wg_walk_against_jax(hq, hkv, hd, page, pages, lens):
     _close(merged[live],
            np.asarray(jref.paged_decode_attention_ref(*jargs))[live])
     pallas = np.asarray(jops.paged_decode(*jargs, backend="interpret"))
+    _close(merged[:-1], pallas[:-1])
+    assert float(np.abs(rounded[:-1].numpy() - pallas[:-1]).max()) \
+        <= P_BF16_TOL
+
+
+# ---------------------------------------------------------------------------
+# kernel 8's walk: kernel 1's block over int8 pages
+# ---------------------------------------------------------------------------
+# (Hq, Hkv, hd, page, pages, lengths): the int8_decode path's 4 rows
+# (a 512-token window of 64-token slot pages: 4 splits of 2 tiles), rows
+# at the 16-key chunk, 64-key tile and split edges at G 4 over 16-token
+# pages, G 16 at hd 128 over 32-token pages, G 1 at hd 128
+INT8_EDGES = (0, 1, 16, 17, 64, 65, 128, 129, 512)
+INT8_WALK_CASES = [
+    (32, 8, 64, 64, 8, (392, 264, 456, 108)),
+    (32, 8, 64, 64, 8, INT8_EDGES),
+    (8, 2, 64, 16, 32, INT8_EDGES),
+    (16, 1, 128, 32, 16, (0, 17, 65, 129, 300, 512)),
+    (4, 4, 128, 64, 8, (0, 1, 64, 65, 511, 512)),
+]
+
+
+def _int8_inputs(hq, hkv, hd, page, pages, lens, seed):
+    """bf16 q, int8 pools with bf16 scales from the port's quantizer, and
+    tables with a clamped entry inside the last row's length."""
+    from repro_torch.models.attention import quantize_kv
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    n = b * pages + 2
+    tables = _tables(rng, b, pages, n)
+    tables[-1, 0] = -4                          # clamps to page 0
+    (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(
+        rng.standard_normal((n, page, hkv, hd)).astype(np.float32)))
+        for _ in range(2))
+    return (_bf16(rng, (b, hq, hd)), kq, vq, ks, vs, tables,
+            torch.tensor(lens, dtype=torch.int32))
+
+
+def _int8_walk(args, plan, p_bf16=True):
+    q, kq, vq, ks, vs, tables, lengths = args
+    return _gqa_wg_walk(q, kq, vq, tables, lengths, plan, p_bf16=p_bf16,
+                        scales=(ks, vs))
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,lens", INT8_WALK_CASES)
+def test_int8_wg_walk_within_card_tolerance(hq, hkv, hd, page, pages, lens):
+    """The int8 Hopper body's walk (kernel 1's plans, 16-key warps, K
+    scale on the scores, V scale on P before the bf16 rounding, warps then
+    splits merged in order) against ``ref.paged_decode_attention_int8``
+    and ``ref.paged_decode_lse`` within P_BF16_TOL, zeros and -1e30 for a
+    row of length 0; without the rounding, the plain version's algebra
+    within 1e-4."""
+    args = _int8_inputs(hq, hkv, hd, page, pages, lens, hq + hd + page + 40)
+    q, kq, vq, ks, vs, tables, lengths = args
+    exact = ref.paged_decode_attention_int8(*args).float()
+    exact_lse = ref.paged_decode_lse(q, kq, tables, lengths, ks)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    plain32 = ref.paged_decode_attention_int8(*f32)
+    live = lengths > 0
+    for name, plan in _gqa_plans(len(lens), hq, hkv, hd, page,
+                                 pages).items():
+        rounded, lse = _int8_walk(args, plan)
+        assert bool(torch.isfinite(rounded).all()), name
+        for r in np.flatnonzero(np.asarray(lens) == 0):
+            assert torch.equal(rounded[r], torch.zeros_like(rounded[r]))
+            assert bool((lse[r] == -1e30).all())
+        assert float((rounded - exact).abs().max()) <= P_BF16_TOL, name
+        assert float((lse - exact_lse)[live].abs().max()) <= LSE_TOL, name
+        merged, lse32 = _int8_walk(f32, plan, p_bf16=False)
+        _close(merged, plain32)
+        _close(lse32[live], ref.paged_decode_lse(
+            f32[0], kq, tables, lengths, f32[3])[live])
+
+
+def test_int8_wg_walk_plan_at_the_paths_shape():
+    """The int8_decode path's 4 rows of 392 / 264 / 456 / 108 tokens over
+    a 512-token window: 4 splits of 2 tiles, of which 4, 3, 4 and 1 are
+    live; the 64 slots of the kernels phase: one split of 8 tiles."""
+    plan = pa.decode_split_plan(4, 32, 8, 64, 64, 8)
+    assert (plan.tiles, plan.splits, plan.blocks) == (2, 4, 128)
+    assert [plan.live_splits(n) for n in (392, 264, 456, 108)] == \
+        [4, 3, 4, 1]
+    slots = pa.decode_split_plan(64, 32, 8, 64, 64, 8)
+    assert (slots.tiles, slots.splits) == (8, 1)
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,lens", [
+    (8, 2, 64, 16, 12, (0, 1, 16, 17, 64, 65, 128, 129, 192)),
+    (4, 1, 64, 32, 8, (0, 17, 129, 256)),
+    (4, 4, 128, 64, 4, (1, 65, 256)),
+])
+def test_int8_wg_walk_against_jax(hq, hkv, hd, page, pages, lens):
+    """Without the rounding the int8 walk equals the JAX package's oracle
+    (``paged_decode_attention_int8_ref``) on the live rows and its Pallas
+    kernel (``paged_decode_attention_int8``) in interpret mode on the rows
+    whose table entries lie in the pool, within 1e-4; with it, within
+    P_BF16_TOL of the Pallas kernel."""
+    args = _int8_inputs(hq, hkv, hd, page, pages, lens, hq + hd + page + 41)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    plan = pa.decode_split_plan(len(lens), hq, hkv, hd, page, pages)
+    merged, _ = _int8_walk(f32, plan, p_bf16=False)
+    rounded, _ = _int8_walk(args, plan)
+    jargs = [jnp.asarray(f32[0].numpy()), jnp.asarray(args[1].numpy()),
+             jnp.asarray(args[2].numpy()),
+             jnp.asarray(f32[3].numpy(), jnp.bfloat16),
+             jnp.asarray(f32[4].numpy(), jnp.bfloat16),
+             jnp.asarray(args[5].numpy()), jnp.asarray(args[6].numpy())]
+    live = [r for r in range(len(lens) - 1) if lens[r] > 0]
+    _close(merged[live], np.asarray(
+        jref.paged_decode_attention_int8_ref(*jargs))[live])
+    pallas = np.asarray(jops.paged_decode_int8(*jargs, backend="interpret"))
     _close(merged[:-1], pallas[:-1])
     assert float(np.abs(rounded[:-1].numpy() - pallas[:-1]).max()) \
         <= P_BF16_TOL

@@ -918,19 +918,34 @@ def _int8_inputs(b, hq, hkv, hd, page, pages, seed=0):
     return q, kq, vq, ks, vs, tables
 
 
+# (Hq, Hkv, hd, page, pages): 6-page tables (the `mma.sync` int8 body),
+# then the Hopper body's gate (hd 64 / 128, windows of 512 - 4096 tokens):
+# llama3.2-1b's heads over 64-token pages, G 4 over 16-token pages, G 16
+# at hd 128 over 32-token pages, the VLM's heads over a 4096-token window
+INT8_KERNEL_CASES = [(32, 8, 64, 64, 6), (8, 2, 64, 16, 6), (4, 4, 32, 32, 6),
+                     (8, 1, 128, 16, 6), (32, 8, 64, 64, 8),
+                     (8, 2, 64, 16, 32), (16, 1, 128, 32, 16),
+                     (32, 8, 128, 64, 64)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("hq,hkv,hd,page", [(32, 8, 64, 64), (8, 2, 64, 16),
-                                            (4, 4, 32, 32), (8, 1, 128, 16)])
-def test_paged_decode_int8_kernel(cuda, dtype, tol, hq, hkv, hd, page):
-    """bf16 q on the int8 tensor-core body, float32 q on the CUDA-core
+@pytest.mark.parametrize("hq,hkv,hd,page,pages", INT8_KERNEL_CASES)
+def test_paged_decode_int8_kernel(cuda, dtype, tol, hq, hkv, hd, page, pages):
+    """bf16 q on the int8 Hopper body under its gate (``int8_body`` names
+    it), else on the int8 `mma.sync` body, float32 q on the CUDA-core
     body: against the plain version, one launch a call, finite, and two
     calls equal bit for bit."""
-    q, kq, vq, ks, vs, tables = _int8_inputs(5, hq, hkv, hd, page, 6)
-    lengths = torch.tensor([0, 1, 17, 6 * page, 50], dtype=torch.int32,
+    from repro_torch.kernels import paged_attention as pa
+    q, kq, vq, ks, vs, tables = _int8_inputs(5, hq, hkv, hd, page, pages)
+    lengths = torch.tensor([0, 1, 17, pages * page, 50], dtype=torch.int32,
                            device="cuda")
     tables[1, 3] = 999                          # clamped, past the length
     args = (q.to(dtype), kq, vq, ks, vs, tables, lengths)
+    want = "cuda_core" if dtype == torch.float32 else (
+        "hopper" if pages * page >= 512 else "tensor_core")
+    assert pa.int8_body(hq, hkv, hd, page, pages,
+                        pa.DTYPE_CODES[dtype]) == want
     before = cuda.paged_decode_attention_int8.launches
     out = cuda.paged_decode_int8(*args)
     torch.cuda.synchronize()
@@ -959,10 +974,11 @@ def _int8_long_rows(hq, hkv, hd, page, seed):
 
 
 @pytest.mark.parametrize("full", [True, False])
-@pytest.mark.parametrize("page", [64, 16])
+@pytest.mark.parametrize("page", [64, 16, 32])
 def test_paged_decode_int8_kernel_long_rows(cuda, page, full):
-    """The int8 body at llama3.2-1b width: every row full, or ragged
-    lengths at its tile and warp edges."""
+    """The int8 Hopper body at llama3.2-1b width (64 rows over 512-token
+    tables: one split a row): every row full, or ragged lengths at its
+    chunk, tile and warp edges."""
     q, kq, vq, ks, vs, tables, lengths = _int8_long_rows(32, 8, 64, page,
                                                          seed=12)
     if full:
@@ -980,35 +996,128 @@ def test_paged_decode_int8_kernel_long_rows(cuda, page, full):
     assert torch.equal(out, cuda.paged_decode_int8(*args))
 
 
+def _int8_path_rows(seed):
+    """The int8_decode path's shape: 4 rows of 392 / 264 / 456 / 108
+    tokens over 512-token tables of 64-token pages (4 splits of 2 tiles,
+    4 / 3 / 4 / 1 of them live), a clamped entry inside row 0's length."""
+    q, kq, vq, ks, vs, tables = _int8_inputs(4, 32, 8, 64, 64, 8, seed=seed)
+    tables[0, 2] = -1                           # clamps to page 0
+    lengths = torch.tensor([392, 264, 456, 108], dtype=torch.int32,
+                           device="cuda")
+    return q.bfloat16(), kq, vq, ks, vs, tables, lengths
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_decode_int8_ignores_stale_slots(cuda, dtype):
     """Slots at or past each row's length that hold int8 +-127 and inf /
-    NaN scales leave the output bit for bit as with clean slots: a key
-    past the length is never loaded (bf16: the tensor-core body; float32:
-    the CUDA-core body)."""
-    q, kq, vq, ks, vs, tables, lengths = _int8_long_rows(32, 8, 64, 16,
-                                                         seed=13)
-    args = (q.to(dtype), kq, vq, ks, vs, tables, lengths)
-    clean = cuda.paged_decode_int8(*args)
-    page = kq.shape[1]
-    pos = torch.arange(tables.shape[1] * page, device="cuda")
-    pid = tables.long().clamp(0, kq.shape[0] - 1)[:, pos // page]
-    stale = pos[None, :] >= lengths.long()[:, None]
-    slots = (pid * page + pos % page)[stale]
-    # slots past one row's length that another row reads stay clean
-    live = (pid * page + pos % page)[~stale]
-    slots = slots[~torch.isin(slots, live)]
-    assert slots.numel() > 0
-    dirty = []
-    for t, bad in ((kq, 127), (vq, -127), (ks, float("inf")),
-                   (vs, float("nan"))):
-        t = t.clone()
-        t.view(-1, *t.shape[2:])[slots] = bad
-        dirty.append(t)
-    out = cuda.paged_decode_int8(args[0], *dirty, tables, lengths)
+    NaN scales (K 127 / V -127 with an inf K and a NaN V scale, then the
+    signs and the scales swapped) leave the output and the log-sum-exp bit
+    for bit as with clean slots and finite: a scale past the length is
+    never loaded (bf16: the Hopper body at llama3.2-1b width and at the
+    int8_decode path's split shape; float32: the CUDA-core body)."""
+    for inputs in (_int8_long_rows(32, 8, 64, 16, seed=13),
+                   _int8_path_rows(seed=14)):
+        q, kq, vq, ks, vs, tables, lengths = inputs
+        args = (q.to(dtype), kq, vq, ks, vs, tables, lengths)
+        clean = cuda.paged_decode_int8(*args, with_lse=True)
+        page = kq.shape[1]
+        pos = torch.arange(tables.shape[1] * page, device="cuda")
+        pid = tables.long().clamp(0, kq.shape[0] - 1)[:, pos // page]
+        stale = pos[None, :] >= lengths.long()[:, None]
+        slots = (pid * page + pos % page)[stale]
+        # slots past one row's length that another row reads stay clean
+        live = (pid * page + pos % page)[~stale]
+        slots = slots[~torch.isin(slots, live)]
+        assert slots.numel() > 0
+        for bads in ((127, -127, float("inf"), float("nan")),
+                     (-127, 127, float("nan"), float("inf"))):
+            dirty = []
+            for t, bad in zip((kq, vq, ks, vs), bads):
+                t = t.clone()
+                t.view(-1, *t.shape[2:])[slots] = bad
+                dirty.append(t)
+            out, lse = cuda.paged_decode_int8(args[0], *dirty, tables,
+                                              lengths, with_lse=True)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(out).all())
+            assert torch.equal(out, clean[0]) and torch.equal(lse, clean[1])
+
+
+def test_paged_decode_int8_wg_query_outside_f16(cuda):
+    """The int8 Hopper body scores in f16 only where every query value of
+    a (row, KV head) is exact in f16: rows 0 and 1 of the path's shape
+    hold one value past f16's range (2^17) and one below its normal range
+    (2^-20), so their blocks score in bf16, rows 2 and 3 in f16; each
+    against the plain version, finite, twice bit for bit."""
+    from repro_torch.kernels import paged_attention as pa
+    q, kq, vq, ks, vs, tables, lengths = _int8_path_rows(seed=23)
+    q[0, 5, 7] = 2.0 ** 17
+    q[1, 30, 60] = 2.0 ** -20
+    args = (q, kq, vq, ks, vs, tables, lengths)
+    assert pa.int8_body(32, 8, 64, 64, 8, 1) == "hopper"
+    out = cuda.paged_decode_int8(*args)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
-    assert torch.equal(out, clean)
+    assert _err(out, cuda.paged_decode_int8(*args, backend="torch")) \
+        <= BF16_TOL
+    assert torch.equal(out, cuda.paged_decode_int8(*args))
+
+
+# (Hq, Hkv, hd, page, pages, B): the int8 Hopper body's split plans:
+# llama3.2-1b's heads over 64- and 16-token pages, G 16 at hd 128
+# over 32-token pages (each over a 512-token window), and a 4096-token
+# window (splits of up to 64 tiles: the ring reused)
+INT8_WG_CASES = [(32, 8, 64, 64, 8, 4), (32, 8, 64, 16, 32, 5),
+                 (16, 1, 128, 32, 16, 6), (32, 8, 64, 64, 64, 3)]
+
+
+@pytest.mark.parametrize("hq,hkv,hd,page,pages,b", INT8_WG_CASES)
+def test_paged_decode_int8_wg_plans(cuda, hq, hkv, hd, page, pages, b):
+    """The int8 Hopper body at lengths on the chunk, tile and split edges
+    (and the path's 4 rows): plans of 1, 2, 4 and 8 tiles a split agree
+    with the plain version, each twice bit for bit, with the default
+    launch's log-sum-exp against ``ref.paged_decode_lse``; a plan of too
+    many splits or one that does not cover the window is refused."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    if b == 4:
+        args = _int8_path_rows(seed=21)
+    else:
+        q, kq, vq, ks, vs, tables = _int8_inputs(b, hq, hkv, hd, page, pages,
+                                                 seed=22)
+        window = pages * page
+        span = pa.decode_split_plan(b, hq, hkv, hd, page, pages).tiles * 64
+        edges = [min(e, window) for e in (0, 1, 16, 17, 63, 64, 65, span,
+                                          span + 1, window)]
+        lengths = torch.tensor((edges * 2)[:b], dtype=torch.int32,
+                               device="cuda")
+        lengths[-1] = window
+        tables[-1, 0] = -3                      # clamps to page 0
+        args = (q.bfloat16(), kq, vq, ks, vs, tables, lengths)
+    assert pa.int8_body(hq, hkv, hd, page, pages, 1) == "hopper"
+    plain = cuda.paged_decode_int8(*args, backend="torch")
+    out, lse = cuda.paged_decode_int8(*args, with_lse=True)
+    torch.cuda.synchronize()
+    assert _err(out, plain) <= BF16_TOL
+    q, kq, _, ks, _, tables, lengths = args
+    assert _err(lse, ref.paged_decode_lse(q, kq, tables, lengths, ks)) \
+        <= LSE_ATOL
+    plan = pa.decode_split_plan(b, hq, hkv, hd, page, pages)
+    n_tiles = -(-pages * page // 64)
+    for tiles in (1, 2, 4, 8):
+        other = plan._replace(tiles=tiles, splits=-(-n_tiles // tiles))
+        if other.splits > pa.MAX_SPLITS:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                pa._launch_int8(*args, None, plan=other)
+            continue
+        got = pa._launch_int8(*args, None, plan=other)
+        torch.cuda.synchronize()
+        assert _err(got, plain) <= BF16_TOL, tiles
+        assert torch.equal(got, pa._launch_int8(*args, None, plan=other))
+    short = plan._replace(splits=plan.splits - 1)
+    if short.splits >= 1:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pa._launch_int8(*args, None, plan=short)
 
 
 def test_dense_decode_on_slot_pages_matches_plain(cuda):
@@ -1384,6 +1493,27 @@ def test_tensor_core_dispatch(cuda):
         assert int8(hq, hkv, hd, 0) == 0
     assert int8(32, 1, 64, 1) == 0              # 32 query heads a KV head
     assert int8(8, 2, 256, 1) == 0              # hd 256
+    # the int8 decode's body: 2 the Hopper body (bf16 q at hd 64 / 128,
+    # pages of 16 / 32 / 64, windows of 512 - 4096 tokens), 1 the int8
+    # `mma.sync` body, 0 the CUDA cores (a float32 query)
+    int8_body = build.entry("paged_decode", "paged_decode_int8_body",
+                            [ctypes.c_int] * 6)
+    for hq, hkv in [(32, 8), (24, 8), (32, 32), (6, 6), (16, 1)]:
+        for page in (16, 32, 64):
+            p = 512 // page
+            assert [int8_body(hq, hkv, hd, page, p, 1)
+                    for hd in (16, 32, 64, 128)] == [1, 1, 2, 2]
+            assert int8_body(hq, hkv, 64, page, p, 0) == 0
+            assert int8_body(hq, hkv, 64, page, 4096 // page, 1) == 2
+            assert int8_body(hq, hkv, 64, page, 448 // page, 1) == 1
+            assert int8_body(hq, hkv, 64, page, 8192 // page, 1) == 1
+        for page in (8, 128):
+            assert int8_body(hq, hkv, 64, page, 4096 // page, 1) == 1
+    assert int8_body(32, 1, 64, 64, 8, 1) == 0  # 32 query heads a KV head
+    from repro_torch.kernels import paged_attention as pa
+    assert pa.int8_body(32, 8, 64, 64, 8, 1) == "hopper"
+    assert pa.int8_body(32, 8, 64, 64, 7, 1) == "tensor_core"
+    assert pa.int8_body(32, 8, 64, 64, 8, 0) == "cuda_core"
 
 
 def test_mla_kernel_wrappers_reject_bad_inputs(cuda):
