@@ -74,6 +74,7 @@ from repro_torch.serving import sampler as sampler_mod
 from repro_torch.serving.kvcache import PagedKVCache, SlotKVCache
 from repro_torch.serving.request import Phase, Request, SamplingParams
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+from repro_torch.serving.spans import RECORDER, to_device, to_host
 
 # dense bf16 tensor-core peak of one H100 SXM (FLOP/s): prices the
 # recompute of one prompt block for the cache manager
@@ -213,10 +214,14 @@ class ServingEngine:
         self.segment_chunks = 0        # position-explicit kernel chunks
         self.last_step_prefill_tokens = 0
         self.max_step_prefill_tokens = 0
+        # host spans while a profiler records (``serving/spans.py``);
+        # request_id -> its open ``sched.wait`` span
+        self.spans = RECORDER
+        self._slot_waits: Dict[int, int] = {}
 
     # ------------------------------------------------------------------
     def _tokens(self, rows) -> torch.Tensor:
-        return torch.tensor(rows, dtype=torch.int32, device=self.device)
+        return to_device(rows, torch.int32, self.device)
 
     def bind_fleet_store(self, store, owner: str) -> bool:
         """Bind this replica's tier 4 to the cluster's fleet-shared KV
@@ -245,7 +250,18 @@ class ServingEngine:
                 f"{self.ecfg.max_len} (prompt {req.prompt_len} + "
                 f"max_new {req.params.max_new_tokens})")
         self.scheduler.submit(req)
+        if self.spans.poll():
+            self._slot_waits[req.request_id] = self.spans.begin(
+                "sched.wait", req.request_id, nest=False)
         return req
+
+    def _acquire_slot(self, req: Request) -> int:
+        """A free slot for ``req``; the first ends its ``sched.wait``."""
+        slot = self.kv.acquire(req.request_id, req.prompt_len)
+        sid = self._slot_waits.pop(req.request_id, 0)
+        if sid:
+            self.spans.end(sid)
+        return slot
 
     # ------------------------------------------------------------------
     # admission: prefix reuse + segment reuse
@@ -381,14 +397,22 @@ class ServingEngine:
                          -(-len(suffix) // PREFILL_PAD) * PREFILL_PAD)
         batch = {"tokens": self._tokens(
             [suffix + [0] * (padded_len - len(suffix))])}
+        rec = self.spans
         if prefix_len == 0:
+            sid = rec.begin("model.forward") if rec.on else 0
             _, state1 = self.model.prefill(self.params, batch,
                                            backend=self.kernel_backend)
+            if sid:
+                rec.end(sid)
             self.kv.write_prefill(slot, state1, padded_len)
         else:
+            prefix = self.kv.prefix_kv(slot, prefix_len)
+            sid = rec.begin("model.forward") if rec.on else 0
             _, cache = self.model.prefill_suffix(
-                self.params, batch, self.kv.prefix_kv(slot, prefix_len),
-                prefix_len, backend=self.kernel_backend)
+                self.params, batch, prefix, prefix_len,
+                backend=self.kernel_backend)
+            if sid:
+                rec.end(sid)
             self.kv.write_range(
                 slot, {src: c for (_, src), c in zip(self.kv.kinds, cache)},
                 prefix_len, padded_len)
@@ -516,9 +540,13 @@ class ServingEngine:
         chunk = [toks[p] for p in positions]
         arr = self._tokens([chunk + [0] * (C - n)])
         cpos = self._tokens([positions + [-1] * (C - n)])
+        state = self.kv.chunk_state(req.slot)
+        rec = self.spans
+        sid = rec.begin("model.forward") if rec.on else 0
         state1 = self.model.prefill_chunk_seg(
-            self.params, self.kv.chunk_state(req.slot), arr, cpos,
-            backend=self.kernel_backend)
+            self.params, state, arr, cpos, backend=self.kernel_backend)
+        if sid:
+            rec.end(sid)
         self.kv.write_chunk_positions(req.slot, state1, positions)
         req.prefill_pos = positions[-1] + 1
         self.kv.set_length(req.slot, req.prefill_pos)
@@ -546,9 +574,14 @@ class ServingEngine:
                 chunk = list(toks[req.prefill_pos:req.prefill_pos + n])
                 arr = self._tokens([chunk + [0] * (C - n)])
                 off = self._tokens([req.prefill_pos])
+                state = self.kv.chunk_state(req.slot)
+                rec = self.spans
+                sid = rec.begin("model.forward") if rec.on else 0
                 state1 = self.model.prefill_chunk(
-                    self.params, self.kv.chunk_state(req.slot), arr, off,
+                    self.params, state, arr, off,
                     backend=self.kernel_backend)
+                if sid:
+                    rec.end(sid)
                 self.kv.write_chunk(req.slot, state1, req.prefill_pos, n)
                 req.prefill_pos += n
                 done += n
@@ -604,8 +637,7 @@ class ServingEngine:
         loc = self.manager.hierarchy.locate(bid)
         if loc is None:
             self._preempted_payloads.pop(req.request_id, None)
-            slot = self.kv.acquire(req.request_id, req.prompt_len)
-            self._admit(req, slot)
+            self._admit(req, self._acquire_slot(req))
             return
         self.scheduler.block_on_transfer(req)
         self.worker.submit(TransferRequest(
@@ -642,28 +674,35 @@ class ServingEngine:
         slot row decodes and advances, as in the JAX package."""
         sa = self.scheduler.step_arrays(decode_reqs, self.kv.n_slots)
         dev = self.device
-        tokens = torch.as_tensor(sa["tokens"], device=dev)
+        rec = self.spans
+        tokens = to_device(sa["tokens"], None, dev)
         if self.paged:
             slots = [r.slot for r in decode_reqs]
             state = self.kv.decode_state(slots, reuse=True)
+        sid = rec.begin("model.forward") if rec.on else 0
+        if self.paged:
             logits, new_state = self.model.decode_step_paged(
                 self.params, state, tokens, backend=self.kernel_backend)
             # rows outside the decode set keep their length (the model
             # advances every row), so the state is next step's input as is
-            new_state["lengths"] = state["lengths"] + torch.as_tensor(
-                sa["active"], device=dev)
+            new_state["lengths"] = state["lengths"] + to_device(
+                sa["active"], None, dev)
         else:
             logits, self.kv.state = self.model.decode_step(
                 self.params, self.kv.state, tokens,
                 backend=self.kernel_backend)
         toks = sampler_mod.sample_batched(
-            logits, self._gen, torch.as_tensor(sa["temperature"], device=dev),
-            torch.as_tensor(sa["top_k"], device=dev),
-            torch.as_tensor(sa["top_p"], device=dev),
+            logits, self._gen, to_device(sa["temperature"], None, dev),
+            to_device(sa["top_k"], None, dev),
+            to_device(sa["top_p"], None, dev),
             stochastic=bool((sa["temperature"] > 0).any()))
+        if sid:
+            rec.end(sid)
         if self.paged:
             self.kv.absorb(new_state, decode_slots=slots)
-        out = toks.cpu().numpy()     # single sync point for the step
+        # not the step's only wait for the card: every to_device above
+        # copies from pageable memory and waits for the stream to drain
+        out = to_host(toks)
         now = time.monotonic()
         produced = 0
         prefetch = []
@@ -682,29 +721,39 @@ class ServingEngine:
     def _decode_unfused(self, decode_reqs) -> int:
         """One decode call, then one sampling call and device->host copy
         per request."""
-        tokens = torch.zeros(self.kv.n_slots, dtype=torch.int32)
+        tokens = [0] * self.kv.n_slots
         for req in decode_reqs:
             tokens[req.slot] = (req.generated[-1] if req.generated
                                 else req.prompt[-1])
-        tokens = tokens.to(self.device)
+        tokens = to_device(tokens, torch.int32, self.device)
+        rec = self.spans
         if self.paged:
             state = self.kv.decode_state([r.slot for r in decode_reqs])
+            sid = rec.begin("model.forward") if rec.on else 0
             logits, new_state = self.model.decode_step_paged(
                 self.params, state, tokens, backend=self.kernel_backend)
+            if sid:
+                rec.end(sid)
             self.kv.absorb(new_state)
         else:
+            sid = rec.begin("model.forward") if rec.on else 0
             logits, self.kv.state = self.model.decode_step(
                 self.params, self.kv.state, tokens,
                 backend=self.kernel_backend)
+            if sid:
+                rec.end(sid)
         now = time.monotonic()
         produced = 0
         for req in sorted(decode_reqs, key=lambda r: r.slot):
             slot = req.slot
+            sid = rec.begin("model.forward") if rec.on else 0
             tok = sampler_mod.sample(
                 logits[slot:slot + 1], self._gen,
                 temperature=req.params.temperature,
                 top_k=req.params.top_k, top_p=req.params.top_p)
-            req.generated.append(int(tok[0]))
+            if sid:
+                rec.end(sid)
+            req.generated.append(int(to_host(tok)[0]))
             if req.t_first_token is None:
                 req.t_first_token = now
             produced += 1
@@ -718,8 +767,21 @@ class ServingEngine:
     def step(self) -> int:
         """One engine iteration (poll transfers -> admit -> budget-select
         -> prefill chunks -> batched decode -> sample/finish); returns
-        #tokens generated."""
+        #tokens generated.  While a profiler records, each phase is a
+        span (``serving/spans.py``)."""
+        rec = self.spans
+        sid = rec.begin("engine.step") if rec.poll() else 0
+        produced = 0
+        try:
+            produced = self._step(rec)
+        finally:
+            if sid:
+                rec.end(sid, produced)
+        return produced
+
+    def _step(self, rec) -> int:
         sch = self.scheduler
+        sid = rec.begin("engine.admit") if rec.on else 0
         self._poll_transfers()
         for req in sch.check_stragglers():
             self.preempt(req)
@@ -728,22 +790,34 @@ class ServingEngine:
             if ent is not None and ent[0] is None:
                 self._begin_async_restore(req)
                 continue
-            slot = self.kv.acquire(req.request_id, req.prompt_len)
-            self._admit(req, slot)
+            self._admit(req, self._acquire_slot(req))
+        if sid:
+            rec.end(sid)
         if not sch.running:
             return 0
+        sid = rec.begin("engine.plan") if rec.on else 0
         decode_reqs, grants = sch.plan_step()
+        if sid:
+            rec.end(sid)
         prefill_tokens = 0
         for req, n in grants:
-            prefill_tokens += self._run_prefill_chunks(req, n)
+            sid = rec.begin("engine.prefill", req.request_id) if rec.on else 0
+            done = self._run_prefill_chunks(req, n)
+            if sid:
+                rec.end(sid, done)
+            prefill_tokens += done
         self.last_step_prefill_tokens = prefill_tokens
         self.max_step_prefill_tokens = max(self.max_step_prefill_tokens,
                                            prefill_tokens)
         self.prefill_tokens_total += prefill_tokens
         produced = 0
         if decode_reqs:
+            sid = rec.begin("engine.decode") if rec.on else 0
             produced = (self._decode_fused(decode_reqs) if self.fused
                         else self._decode_unfused(decode_reqs))
+            if sid:
+                rec.end(sid, len(decode_reqs))
+            sid = rec.begin("engine.finish") if rec.on else 0
             for req in decode_reqs:
                 if (req.finished()
                         or req.total_len >= self.ecfg.max_len - 1):
@@ -751,11 +825,19 @@ class ServingEngine:
                         req.block_ids, retain=req.retain_blocks)
                     sch.finish(req)
                     self.kv.release(req.slot)
+            if sid:
+                rec.end(sid)
         if self.paged:
             # unpin pages of blocks the manager demoted or dropped
+            sid = rec.begin("engine.gc") if rec.on else 0
             self.kv.gc_blocks(self.manager)
+            if sid:
+                rec.end(sid)
+        sid = rec.begin("cache.tick") if rec.on else 0
         self.manager.tick()
         self.manager.age_all()
+        if sid:
+            rec.end(sid)
         self.steps += 1
         return produced
 
@@ -798,12 +880,6 @@ class ServingEngine:
                 time.sleep(1e-3)       # idle: only fetches in flight
         return self.stats()
 
-    def recompiles(self) -> dict:
-        """Compiled-variant count per step-loop closure.  The port runs
-        every closure eagerly, so each count is 0."""
-        return {"fused_decode": 0, "prefill_chunk": 0,
-                "prefill_chunk_seg": 0}
-
     def stats(self) -> dict:
         out = {"scheduler": self.scheduler.stats(),
                "cache": self.manager.metrics(),
@@ -814,7 +890,6 @@ class ServingEngine:
                "paged": self.paged,
                "chunked": self.chunked,
                "fused": self.fused,
-               "recompiles": self.recompiles(),
                "prefill_chunks": self.prefill_chunks,
                "prefill_tokens": self.prefill_tokens_total,
                "monolithic_prefills": self.monolithic_prefills,
@@ -858,6 +933,7 @@ class ServingEngine:
                                       retain=req.retain_blocks)
         self._preempted_payloads.pop(rid, None)
         self._demote_tickets.pop(rid, None)
+        self._slot_waits.pop(rid, None)
         self._drop_tier_copy(rid)
         req.phase = Phase.DONE
         if self.paged:
@@ -880,5 +956,6 @@ class ServingEngine:
         self._preempted_payloads.clear()
         self._demote_tickets.clear()
         self._inflight_prefetch.clear()
+        self._slot_waits.clear()
         self.manager.release_all()
         self.kv.release_storage()

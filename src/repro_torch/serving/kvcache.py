@@ -28,8 +28,9 @@ hierarchy — are numpy arrays [2, L, n, Hkv, hd] (MLA: [1, L, n,
 dl+dr]), identical in both layouts.  A bf16 cache hands out ``uint16``
 arrays of the bf16 bits (numpy has no bf16 of its own), so ``nbytes``,
 checksums and ``np.save`` see the same bytes as the JAX engine's
-payloads; a float32 cache hands out float32 arrays.  Device-to-host
-copies are synchronous.
+payloads; a float32 cache hands out float32 arrays.  Copies between
+host and device are synchronous: each waits for the stream to drain, and
+is an ``engine.sync`` span while a profiler records (``serving/spans.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from repro_torch.config import MLA, ModelConfig
 from repro_torch.core.tiers import CapacityError
 from repro_torch.models.common import resolve_device
 from repro_torch.serving.block_allocator import BlockAllocator
+from repro_torch.serving.spans import to_device, to_host
 
 
 @dataclass
@@ -55,17 +57,16 @@ class SlotInfo:
 def payload_from_tensor(t: torch.Tensor) -> np.ndarray:
     """Device tensor -> numpy payload (bf16 travels as uint16 bits)."""
     if t.dtype == torch.bfloat16:
-        return t.contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
-    return t.cpu().numpy()
+        return to_host(t.contiguous().view(torch.int16)).view(np.uint16)
+    return to_host(t)
 
 
 def tensor_from_payload(a: np.ndarray, device) -> torch.Tensor:
     """numpy payload -> tensor on ``device`` (uint16 means bf16 bits)."""
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint16:
-        return torch.from_numpy(a.view(np.int16)).to(device).view(
-            torch.bfloat16)
-    return torch.from_numpy(a).to(device)
+        return to_device(a.view(np.int16), None, device).view(torch.bfloat16)
+    return to_device(a, None, device)
 
 
 class _KVCacheBase:
@@ -360,8 +361,8 @@ class PagedKVCache(_KVCacheBase):
         """Write ``state1``'s [L, 1, W, ...] KV (or latent) into every pool
         at (pids[w], offs[w]), in place.  Entries past the valid count
         point at scratch page 0."""
-        pid_t = torch.as_tensor(pids, dtype=torch.long, device=self.device)
-        off_t = torch.as_tensor(offs, dtype=torch.long, device=self.device)
+        pid_t = to_device(pids, torch.long, self.device)
+        off_t = to_device(offs, torch.long, self.device)
         for key, src in self.kinds:
             pool = self.pools[key]
             pool[:, pid_t, off_t] = state1[src][:, 0].to(pool.dtype)
@@ -413,8 +414,8 @@ class PagedKVCache(_KVCacheBase):
         """Pool pages -> contiguous [L, n_tokens, ...]."""
         p0 = start // self.page
         p1 = (start + n_tokens - 1) // self.page
-        pids = torch.as_tensor(self.tables[slot, p0:p1 + 1],
-                               dtype=torch.long, device=self.device)
+        pids = to_device(self.tables[slot, p0:p1 + 1], torch.long,
+                         self.device)
         arr = self.pools[key][:, pids]              # [L, np, page, ...]
         flat = arr.reshape((arr.shape[0], -1) + arr.shape[3:])
         rel = start - p0 * self.page
@@ -492,16 +493,16 @@ class PagedKVCache(_KVCacheBase):
                     tables[i, :] = 0
         state = dict(self.pools)
         # copies: the host tables keep changing after the snapshot
-        state["block_tables"] = torch.tensor(tables, device=self.device)
-        state["lengths"] = torch.tensor(lengths, device=self.device)
+        state["block_tables"] = to_device(tables, None, self.device)
+        state["lengths"] = to_device(lengths, None, self.device)
         return state
 
     def chunk_state(self, slot: int) -> Dict:
         """Snapshot for ``prefill_chunk``: the page pools plus this
         slot's block-table row (batch dim 1)."""
         state = dict(self.pools)
-        state["block_table"] = torch.as_tensor(
-            self.tables[slot:slot + 1].copy(), device=self.device)
+        state["block_table"] = to_device(self.tables[slot:slot + 1], None,
+                                         self.device)
         return state
 
     def absorb(self, new_state: Dict,

@@ -221,7 +221,6 @@ def test_engine_needs_cuda_or_explicit_cpu(monkeypatch):
                   device="cpu")
     assert eng.kernel_backend == "torch"
     assert eng.ecfg.tier_specs[0].name == "gpu_hbm"
-    assert set(eng.recompiles().values()) == {0}
     eng.shutdown()
 
 
